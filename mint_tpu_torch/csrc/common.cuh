@@ -1,0 +1,35 @@
+// Helpers shared by the port's bf16 tensor-core kernels: the tile product
+// mma.sync.m16n8k16 (bf16 inputs, f32 accumulators) and its A-fragment
+// load from shared memory.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace mint {
+
+// c += a * b on one 16x8x16 tile (bf16 inputs, f32 accumulators).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A fragment of rows [r0, r0 + 16) and columns [k0, k0 + 16) of a
+// row-major bf16 matrix in shared memory with row stride ld (g = lane / 4,
+// t = lane % 4, the PTX fragment layout of m16n8k16).
+__device__ __forceinline__ void load_a(const __nv_bfloat16* s, int ld,
+                                       int r0, int k0, int g, int t,
+                                       uint32_t (&a)[4]) {
+  const __nv_bfloat16* p = s + (r0 + g) * ld + k0 + 2 * t;
+  a[0] = *reinterpret_cast<const uint32_t*>(p);
+  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
+  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
+  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
+}
+
+}  // namespace mint

@@ -1,0 +1,31 @@
+"""Model registry / builder (counterpart of ``mint_tpu/models/builder.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+from mint_tpu.config.schema import MultiModalModelConfig
+from mint_tpu_torch.models.fact import FACT
+
+
+def _build_fact_model(model_config: MultiModalModelConfig,
+                      is_training: bool) -> FACT:
+    del is_training  # dropout is never applied on the FACT path (parity)
+    return FACT(model_config.fact_model)
+
+
+MODEL_BUILDER_MAP = {
+    "fact_model": _build_fact_model,
+}
+
+
+def build(model_config: MultiModalModelConfig, is_training: bool,
+          dtype: torch.dtype = torch.float32,
+          device: torch.device | str = "cpu") -> FACT:
+    """Build a model from a MultiModalModel config (dispatch on the oneof),
+    cast once to `dtype` and placed on `device`.  Not training builds are
+    put in eval mode."""
+    build_func = MODEL_BUILDER_MAP[model_config.which()]
+    model = build_func(model_config, is_training).to(device=device,
+                                                     dtype=dtype)
+    return model.train(is_training)

@@ -1,0 +1,88 @@
+"""Multi-head attention: a hand-written CUDA kernel and its plain version.
+
+Counterpart of ``mint_tpu/ops/attention.py``.  :func:`attention` is the
+port of the Pallas kernel ``pallas_attention`` (its source is
+``mint_tpu_torch/csrc/attention.cu``); :func:`attention_reference` is the
+plain PyTorch version with the kernel's cast points.  The scale is always
+passed in: FACT scales by the full model dim, ``800 ** -0.5``, not the
+head dim (``mint_tpu/models/layers.py:84``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mint_tpu_torch.ops import _build
+
+# Kernel launches made by :func:`attention` (the CUDA path only).
+launches = 0
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale) v; q [B, H, Nq, D], k/v [B, H, Nk, D].
+
+    Scores in f32, then scaled, max-subtracted f32 softmax, P cast to v's
+    dtype, P.V accumulated in f32, cast to q's dtype — the TPU kernel's
+    arithmetic (``mint_tpu/ops/attention.py:53-68``).
+    """
+    dots = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    dots = dots - dots.amax(dim=-1, keepdim=True)
+    e = torch.exp(dots)
+    p = (e / e.sum(dim=-1, keepdim=True)).to(v.dtype)
+    return torch.matmul(p.float(), v.float()).to(q.dtype)
+
+
+_ENTRY = {torch.float32: "mint_attention_f32",
+          torch.bfloat16: "mint_attention_bf16"}
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float) -> torch.Tensor:
+    """Attention on [B, H, N, D] tensors; Nq may differ from Nk.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (or raises).
+    """
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, scale)
+    return _launch(q, k, v, scale)
+
+
+def _launch(q, k, v, scale):
+    global launches
+    if q.device.type != "cuda":
+        raise ValueError(f"attention: unsupported device {q.device}")
+    if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"attention: dtypes {q.dtype}/{k.dtype}/{v.dtype} "
+                         "(needs one of float32, bfloat16 for all three)")
+    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
+        raise ValueError(f"attention: shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    if k.shape[:2] != (b, h) or k.shape[3] != d:
+        raise ValueError(f"attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} disagree")
+    # f32 runs on the FMA kernel, bf16 on the tensor-core one, whose head
+    # dim steps by 16 (attention.cu).
+    d_step = 1 if q.dtype == torch.float32 else 16
+    if (not 0 < d <= 128 or d % d_step or nq == 0 or nk == 0
+            or not 0 < b * h <= 65535):
+        raise ValueError(f"attention: the {q.dtype} kernel takes 0 < D <= "
+                         f"128 (a multiple of {d_step}), N > 0 and "
+                         f"B*H <= 65535; got {tuple(q.shape)}, Nk={nk}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("attention: q, k and v must share one device")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("attention: kernel needs 16-byte aligned q, k, v")
+    out = torch.empty_like(q)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = getattr(lib, _ENTRY[q.dtype])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b * h, nq, nk, d, float(scale), stream)
+    _build.check(err, "attention kernel launch")
+    launches += 1
+    return out

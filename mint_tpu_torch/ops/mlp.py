@@ -1,0 +1,97 @@
+"""Fused transformer MLP (fc1 + tanh-GELU + fc2): CUDA kernel and plain
+version.
+
+Counterpart of ``mint_tpu/ops/mlp.py``.  :func:`fused_mlp` is the port of
+the Pallas kernel ``_fused_mlp_fwd_2d`` (its source is
+``mint_tpu_torch/csrc/mlp.cu``); :func:`mlp_reference` is the plain
+PyTorch version with the kernel's cast points.  Weights are taken in the
+JAX layout, W1 [H, F] and W2 [F, O].  The kernel reads them transposed
+(nn.Linear's [out, in] layout), so passing ``linear.weight.t()`` costs no
+copy, while a contiguous JAX-layout tensor is copied once per call.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from mint_tpu_torch.ops import _build
+
+# Kernel launches made by :func:`fused_mlp` (the CUDA path only).
+launches = 0
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """Tanh-approximated GELU (``jax.nn.gelu(approximate=True)``)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp_reference(x, w1, b1, w2, b2) -> torch.Tensor:
+    """gelu_tanh(x W1 + b1) W2 + b2 with the TPU kernel's cast points
+    (``mint_tpu/ops/mlp.py:45-49``): fc1, bias and GELU in f32, the
+    activation rounded to x's dtype, fc2 and b2 in f32, cast to x's dtype.
+    """
+    h = gelu_tanh(x.float() @ w1.float() + b1.float()).to(x.dtype)
+    return (h.float() @ w2.float() + b2.float()).to(x.dtype)
+
+
+_ENTRY = {torch.float32: "mint_mlp_f32", torch.bfloat16: "mint_mlp_bf16"}
+
+
+def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
+    """Fused MLP on [..., H] inputs; weights [H, F], [F], [F, O], [O].
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (or raises).
+    """
+    if x.device.type == "cpu":
+        return mlp_reference(x, w1, b1, w2, b2)
+    lead = x.shape[:-1]
+    out = _launch(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2)
+    return out.reshape(*lead, out.shape[-1])
+
+
+def _launch(x, w1, b1, w2, b2):
+    global launches
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp: unsupported device {x.device}")
+    tensors = (x, w1, b1, w2, b2)
+    if x.dtype not in _ENTRY or any(t.dtype != x.dtype for t in tensors):
+        raise ValueError("fused_mlp: all inputs must share one dtype of "
+                         f"float32, bfloat16; got {[t.dtype for t in tensors]}")
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("fused_mlp: inputs must share one device")
+    m, h = x.shape
+    f = w1.shape[1]
+    o = w2.shape[1]
+    if (w1.shape != (h, f) or b1.shape != (f,) or w2.shape != (f, o)
+            or b2.shape != (o,)):
+        raise ValueError(
+            f"fused_mlp: shapes x {tuple(x.shape)}, w1 {tuple(w1.shape)}, "
+            f"b1 {tuple(b1.shape)}, w2 {tuple(w2.shape)}, "
+            f"b2 {tuple(b2.shape)}")
+    # f32 runs on the FMA kernel, bf16 on the tensor-core one (mlp.cu).
+    step, o_step = (8, 1) if x.dtype == torch.float32 else (16, 8)
+    if h % step or f % step or o % o_step or not 0 < o <= 1024:
+        raise ValueError(
+            f"fused_mlp: the {x.dtype} kernel takes H and F multiples of "
+            f"{step}, O a multiple of {o_step} and O <= 1024; got H={h}, "
+            f"F={f}, O={o}")
+    if m == 0:
+        return x.new_empty((0, o))
+    x = x.contiguous()
+    w1t = w1.t().contiguous()
+    w2t = w2.t().contiguous()
+    b1, b2 = b1.contiguous(), b2.contiguous()
+    if any(t.data_ptr() % 16 for t in (x, w1t, w2t)):
+        raise ValueError("fused_mlp: kernel needs 16-byte aligned x and "
+                         "weights")
+    out = torch.empty((m, o), dtype=x.dtype, device=x.device)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = getattr(lib, _ENTRY[x.dtype])(
+        x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
+        b2.data_ptr(), out.data_ptr(), m, h, f, o, stream)
+    _build.check(err, "fused MLP kernel launch")
+    launches += 1
+    return out
