@@ -8,7 +8,8 @@ CPU):
 1. card and build: the card's name and power limit, torch/CUDA versions,
    and the build of ``mint_tpu_torch/csrc/*.cu`` for sm_90a;
 2. each kernel against its plain PyTorch version on the card, at FACT's
-   shapes in f32 and bf16, with the tolerance stated, and each kernel's
+   shapes in f32 and bf16 (and two more f32 head dims), with the
+   tolerance stated, and each kernel's
    time beside the plain version's;
 3. the slice: the flagship FACT (configs/fact_v5_deeper_t10_cm12.config,
    full width and depth, weights from a torch.Generator seeded 0) behind
@@ -43,6 +44,7 @@ CONFIG = os.path.join(REPO, "configs", "fact_v5_deeper_t10_cm12.config")
 SCALE = 800 ** -0.5  # FACT's attention scale: the full model dim
 DISPATCH = 20        # bench.py's decode batch per dispatch
 THROUGHPUT_STEPS = 32
+DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def log(*args):
@@ -71,12 +73,17 @@ def cuda_ms(fn, iters: int = 20) -> float:
 # -- phase 2: kernels against their plain versions ------------------------
 
 def check_attention(att, gen):
-    worst = 0.0
+    """Worst error per dtype name."""
+    worst = {"f32": 0.0, "bf16": 0.0}
     cases = [(2, 10, 120, 120, 80), (2, 10, 240, 240, 80),
              (2, 10, 360, 360, 80), (2, 10, 48, 360, 80),
              (1, 2, 37, 37, 16)]
+    # The f32 kernel takes any D <= 128: one not a multiple of 4 (4-byte
+    # copies) and one over 80 (the wider instance).
+    f32_cases = [(1, 2, 37, 37, 18), (1, 3, 70, 50, 100)]
     for dtype in (torch.float32, torch.bfloat16):
-        for b, h, nq, nk, d in cases:
+        for b, h, nq, nk, d in cases + (
+                f32_cases if dtype == torch.float32 else []):
             q = torch.randn(b, h, nq, d, device="cuda", generator=gen)
             k = torch.randn(b, h, nk, d, device="cuda", generator=gen)
             v = torch.randn(b, h, nk, d, device="cuda", generator=gen)
@@ -98,26 +105,34 @@ def check_attention(att, gen):
                 f"{tol:.3e} ({why}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"attention kernel disagrees: {err}")
-            worst = max(worst, err)
+            worst[DTYPES[dtype]] = max(worst[DTYPES[dtype]], err)
     return worst
 
 
 def mlp_weights(gen, dtype, h=800, f=3072, o=800):
+    """W1 [H, F], b1, W2 [F, O], b2 as the model passes them: transposed
+    views of nn.Linear's [out, in] weights."""
     def glorot(fan_in, fan_out):
         bound = math.sqrt(6.0 / (fan_in + fan_out))
-        return (torch.rand(fan_in, fan_out, device="cuda", generator=gen)
-                * 2 - 1) * bound
+        return ((torch.rand(fan_out, fan_in, device="cuda", generator=gen)
+                 * 2 - 1) * bound).to(dtype).t()
     w1, w2 = glorot(h, f), glorot(f, o)
     b1 = torch.randn(f, device="cuda", generator=gen) * 0.02
     b2 = torch.randn(o, device="cuda", generator=gen) * 0.02
-    return tuple(t.to(dtype) for t in (w1, b1, w2, b2))
+    return w1, b1.to(dtype), w2, b2.to(dtype)
 
 
 def check_mlp(mlp, gen):
-    worst = 0.0
+    """Worst error per dtype name."""
+    worst = {"f32": 0.0, "bf16": 0.0}
+    # f32 also at the batch-20 decode's M: the cross and audio blocks' fc1
+    # (M = 7200, 4800) are the grids that take the 144-row GEMM instance,
+    # and the last block's fc2 (M = 960) is split over K.
+    f32_ms = (DISPATCH * 360, DISPATCH * 240, DISPATCH * 48)
     for dtype in (torch.float32, torch.bfloat16):
         w1, b1, w2, b2 = mlp_weights(gen, dtype)
-        for m in (2 * 360, 2 * 48, 257, 3):
+        for m in (2 * 360, 2 * 48, 257, 3) + (
+                f32_ms if dtype == torch.float32 else ()):
             x = torch.randn(m, 800, device="cuda", generator=gen).to(dtype)
             got = mlp.fused_mlp(x, w1, b1, w2, b2)
             torch.cuda.synchronize()
@@ -137,16 +152,17 @@ def check_mlp(mlp, gen):
                 f"({why}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"fused MLP kernel disagrees: {err}")
-            worst = max(worst, err)
+            worst[DTYPES[dtype]] = max(worst[DTYPES[dtype]], err)
     return worst
 
 
 def time_kernels(att, mlp, gen, card):
-    """Kernel vs plain version at the decode's shapes; returns the batch-20
-    bf16 times (the bench dispatch) for the summary line."""
+    """Kernel vs plain version at the decode's shapes; returns the times at
+    batch 20 (the bench dispatch) and full M or Nq, by (kernel, dtype name),
+    for the summary line."""
     summary = {}
     for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype)[6:]
+        name = DTYPES[dtype]
         for nq in (360, 48):
             q = torch.randn(DISPATCH, 10, nq, 80, device="cuda",
                             generator=gen).to(dtype)
@@ -158,8 +174,8 @@ def time_kernels(att, mlp, gen, card):
             log(f"time attention {name} q[{DISPATCH},10,{nq},80] "
                 f"k[{DISPATCH},10,360,80]: kernel {t_k:.4f} ms, plain "
                 f"{t_p:.4f} ms ({card})")
-            if dtype == torch.bfloat16 and nq == 360:
-                summary["attention"] = (t_k, t_p)
+            if nq == 360:
+                summary["attention", name] = (t_k, t_p)
         w1, b1, w2, b2 = mlp_weights(gen, dtype)
         for m in (DISPATCH * 360, DISPATCH * 48):
             x = torch.randn(m, 800, device="cuda", generator=gen).to(dtype)
@@ -167,8 +183,8 @@ def time_kernels(att, mlp, gen, card):
             t_p = cuda_ms(lambda: mlp.mlp_reference(x, w1, b1, w2, b2))
             log(f"time fused_mlp {name} x[{m},800]: kernel {t_k:.4f} ms, "
                 f"plain {t_p:.4f} ms ({card})")
-            if dtype == torch.bfloat16 and m == DISPATCH * 360:
-                summary["fused_mlp"] = (t_k, t_p)
+            if m == DISPATCH * 360:
+                summary["fused_mlp", name] = (t_k, t_p)
     return summary
 
 
@@ -359,7 +375,8 @@ def main():
     t0 = time.perf_counter()
     _build.library()
     log(f"kernels built in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {' '.join(_build.NVCC_FLAGS)}) from "
+        f"(one nvcc {' '.join(_build.NVCC_FLAGS)} -c per source, all at "
+        f"once, then nvcc -shared) from "
         f"{[os.path.relpath(p, REPO) for p in _build.sources()]}")
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line:
@@ -370,12 +387,13 @@ def main():
             "fused_mlp": check_mlp(mlp, gen)}
     times = time_kernels(att, mlp, gen, card)
 
-    launches = {"attention": 0, "fused_mlp": 0}
+    # Each dtype has its own kernel; its launches are those of its server.
+    launches = {}
     model32 = flagship(torch.float32, "cuda")
     model16 = flagship(torch.bfloat16, "cuda")
     for model, name in ((model32, "f32"), (model16, "bf16")):
         for k, n in serve_requests(model, att, mlp, name).items():
-            launches[k] += n
+            launches[k, name] = n
     card_vs_cpu(model32)
     throughput(model16, "bf16", card)
     throughput(model32, "f32", card)
@@ -384,11 +402,12 @@ def main():
                              "mint_tpu/ops/attention.py:43"),
                "fused_mlp": ("mint_tpu_torch/csrc/mlp.cu",
                              "mint_tpu/ops/mlp.py:44")}
-    kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": launches[name],
-                "max_abs_err": errs[name], "ms": times[name][0],
-                "plain_ms": times[name][1]}
-               for name, (src, rep) in sources.items()]
+    kernels = [{"name": f"{name}_{dt}", "route": "cuda", "source": src,
+                "replaces": rep, "launches": launches[name, dt],
+                "max_abs_err": errs[name][dt], "ms": times[name, dt][0],
+                "plain_ms": times[name, dt][1]}
+               for name, (src, rep) in sources.items()
+               for dt in ("f32", "bf16")]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

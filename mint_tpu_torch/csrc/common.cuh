@@ -1,6 +1,7 @@
-// Helpers shared by the port's bf16 tensor-core kernels: the tile product
+// Helpers shared by the port's kernels: the bf16 tile product
 // mma.sync.m16n8k16 (bf16 inputs, f32 accumulators) and its A-fragment
-// load from shared memory.
+// load from shared memory, and the cp.async copies that stage the f32
+// kernels' tiles into shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -30,6 +31,38 @@ __device__ __forceinline__ void load_a(const __nv_bfloat16* s, int ld,
   a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
   a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
   a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
+}
+
+// Asynchronous copy of 16 bytes (both addresses 16-byte aligned) from
+// global to shared memory.  When !valid nothing is read and the
+// destination is zero-filled (src-size 0); src must still be a mapped
+// address.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// The same for one 4-byte word.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Closes the group of copies issued since the last commit.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace mint

@@ -4,7 +4,9 @@ The library has a plain C interface (every pointer and the stream a
 ``ctypes.c_void_p``; every entry point returns ``cudaGetLastError()``),
 so nvcc compiles it in seconds without PyTorch's headers.  It is built
 at first use, never at import, into ``mint_tpu_torch/_build/`` keyed by
-a hash of the sources and flags, so an unchanged tree reuses it.
+a hash of the sources and flags, so an unchanged tree reuses it.  Each
+``.cu`` compiles to an object in its own nvcc process, all at once, and
+the objects are then linked.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -34,8 +36,8 @@ _SIGNATURES = {
     # q, k, v, out, B*H, nq, nk, d, scale, stream
     "mint_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "mint_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # x, w1, b1, w2, b2, out, m, h, f, o, stream
-    "mint_mlp_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w1, b1, w2, b2, [scratch: f32 only,] out, m, h, f, o, stream
+    "mint_mlp_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mint_mlp_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
@@ -62,6 +64,37 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile_and_link(out: str) -> str:
+    """Compile every ``.cu`` to an object, one nvcc each, all started
+    together; link the objects into ``out``.  Returns nvcc's output."""
+    nvcc = _nvcc()
+    tmp = f"{out}.{os.getpid()}"
+    cu = [p for p in sources() if p.endswith(".cu")]
+    objs = [f"{tmp}.{os.path.basename(p)}.o" for p in cu]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o",
+                               obj, src], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(cu, objs)]
+    log = "".join(p.communicate()[0] for p in procs)
+    try:
+        failed = [os.path.basename(src) for src, p in zip(cu, procs)
+                  if p.returncode != 0]
+        if not failed:
+            link = subprocess.run([nvcc, "-shared", "-o", f"{tmp}.so", *objs],
+                                  capture_output=True, text=True)
+            log += link.stdout + link.stderr
+            if link.returncode != 0:
+                failed = ["the link"]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+        os.replace(f"{tmp}.so", out)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return log
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, building it first if needed."""
     global _lib, build_log
@@ -71,16 +104,7 @@ def library() -> ctypes.CDLL:
         os.makedirs(BUILD_DIR, exist_ok=True)
         out = os.path.join(BUILD_DIR, f"libmint_kernels_{_digest()}.so")
         if not os.path.exists(out):
-            tmp = f"{out}.{os.getpid()}.tmp"
-            cu = [p for p in sources() if p.endswith(".cu")]
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu],
-                capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{build_log}")
-            os.replace(tmp, out)
+            build_log = _compile_and_link(out)
         lib = ctypes.CDLL(out)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
@@ -88,6 +112,9 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.mint_error_string.argtypes = [ctypes.c_int]
         lib.mint_error_string.restype = ctypes.c_char_p
+        # m, h, f, o -> floats of scratch that mint_mlp_f32 needs (-1: error)
+        lib.mint_mlp_f32_scratch.argtypes = [_I, _I, _I, _I]
+        lib.mint_mlp_f32_scratch.restype = ctypes.c_longlong
         _lib = lib
         return lib
 

@@ -12,6 +12,8 @@ copy, while a contiguous JAX-layout tensor is copied once per call.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -70,8 +72,10 @@ def _launch(x, w1, b1, w2, b2):
             f"fused_mlp: shapes x {tuple(x.shape)}, w1 {tuple(w1.shape)}, "
             f"b1 {tuple(b1.shape)}, w2 {tuple(w2.shape)}, "
             f"b2 {tuple(b2.shape)}")
-    # f32 runs on the FMA kernel, bf16 on the tensor-core one (mlp.cu).
-    step, o_step = (8, 1) if x.dtype == torch.float32 else (16, 8)
+    # f32 runs on two FMA GEMM passes, bf16 on the tensor-core kernel
+    # (mlp.cu).
+    f32 = x.dtype == torch.float32
+    step, o_step = (8, 1) if f32 else (16, 8)
     if h % step or f % step or o % o_step or not 0 < o <= 1024:
         raise ValueError(
             f"fused_mlp: the {x.dtype} kernel takes H and F multiples of "
@@ -89,9 +93,24 @@ def _launch(x, w1, b1, w2, b2):
     out = torch.empty((m, o), dtype=x.dtype, device=x.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = getattr(lib, _ENTRY[x.dtype])(
-        x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
-        b2.data_ptr(), out.data_ptr(), m, h, f, o, stream)
+    ptrs = [t.data_ptr() for t in (x, w1t, b1, w2t, b2)]
+    if f32:  # fc1's GELU'd activation for fc2, and split partial sums
+        scratch = torch.empty(_scratch_floats(x.device, m, h, f, o),
+                              dtype=x.dtype, device=x.device)
+        ptrs.append(scratch.data_ptr())
+    err = getattr(lib, _ENTRY[x.dtype])(*ptrs, out.data_ptr(), m, h, f, o,
+                                        stream)
     _build.check(err, "fused MLP kernel launch")
     launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_floats(device, m, h, f, o) -> int:
+    """Floats of scratch the f32 kernel needs on ``device`` (its plan
+    depends on the card's SM count), asked once per shape."""
+    with torch.cuda.device(device):
+        floats = _build.library().mint_mlp_f32_scratch(m, h, f, o)
+    if floats < 0:
+        raise RuntimeError(f"fused_mlp: cannot plan on {device}")
+    return floats

@@ -92,6 +92,65 @@ def test_attention_fewer_queries_than_keys():
                                atol=1e-7)
 
 
+def _online_softmax_attention(q, k, v, scale, tile):
+    """The f32 CUDA kernel's arithmetic (csrc/attention.cu), in f32 numpy:
+    one pass over tiles of `tile` keys (the kernel's are 32) with a running
+    row max and sum; the P.V accumulator is rescaled by
+    exp(old max - new max) and divided by the sum at the end."""
+    q, k, v = (np.asarray(t, np.float32) for t in (q, k, v))
+    m = np.full(q.shape[:-1] + (1,), -np.inf, np.float32)
+    l = np.zeros_like(m)
+    acc = np.zeros(q.shape, np.float32)
+    for k0 in range(0, k.shape[-2], tile):
+        s = (q @ np.swapaxes(k[..., k0:k0 + tile, :], -1, -2)
+             * np.float32(scale))
+        m_new = np.maximum(m, s.max(axis=-1, keepdims=True))
+        alpha = np.exp(m - m_new)
+        p = np.exp(s - m_new)
+        l = l * alpha + p.sum(axis=-1, keepdims=True)
+        acc = acc * alpha + p @ v[..., k0:k0 + tile, :]
+        m = m_new
+    return acc / l
+
+
+@pytest.mark.parametrize("tile", [32, 64])
+@pytest.mark.parametrize("b,h,nq,nk,d,scale", [
+    (2, 10, 360, 360, 80, 800 ** -0.5),  # a full block
+    (2, 10, 48, 360, 80, 800 ** -0.5),   # the decode's final block
+    (1, 2, 37, 37, 16, 0.1),             # ragged last tile, narrow head
+])
+def test_online_softmax_tiles_match_jax_f32(b, h, nq, nk, d, scale, tile):
+    q, k, v = _qkv(b, h, nq, nk, d)
+    if nq == nk:
+        want = np.asarray(jax_attention.pallas_attention(*_jax(q, k, v),
+                                                         scale))
+    else:  # the Pallas kernel takes Nq = Nk: slice a full XLA call
+        full_q = np.concatenate([q, RNG.standard_normal(
+            (b, h, nk - nq, d)).astype(np.float32)], axis=2)
+        want = np.asarray(jax_attention.xla_attention(
+            *_jax(full_q, k, v), scale))[:, :, :nq]
+    got = _online_softmax_attention(q, k, v, scale, tile)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=2e-6)
+
+
+def _gemm_sequential(a, bt, bias, split=1):
+    """c[m, n] = sum_k a[m, k] bt[n, k] + bias[n] in f32 as the f32 MLP's
+    GEMM passes sum it: K cut into `split` ranges of whole 32-wide k-tiles,
+    each range summed in order, the ranges' sums added in order, then the
+    bias."""
+    k = a.shape[1]
+    per = -(-k // split)          # ceil(k / split)
+    kper = 32 * -(-per // 32)     # rounded up to whole k-tiles
+    total = np.zeros((a.shape[0], bt.shape[0]), np.float32)
+    for k0 in range(0, split * kper, kper):
+        acc = np.zeros_like(total)
+        for kk in range(k0, min(k, k0 + kper)):
+            acc += a[:, kk, None] * bt[None, :, kk]
+        total = acc if k0 == 0 else total + acc
+    return total + bias
+
+
 def _mlp_params(h=64, f=256, o=64):
     return (RNG.standard_normal((h, f)).astype(np.float32) * 0.05,
             RNG.standard_normal(f).astype(np.float32) * 0.01,
@@ -113,6 +172,26 @@ def test_mlp_reference_matches_pallas_f32(shape, _interpret):
     got = mlp.fused_mlp(*_torch(x, *params))
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, atol=2e-6)
+
+
+@pytest.mark.parametrize("split", [1, 3])
+@pytest.mark.parametrize("shape", [(4, 36, 64), (256, 64), (3, 64),
+                                   (257, 64)])
+def test_two_pass_mlp_matches_pallas_f32(shape, split):
+    """The f32 CUDA path (csrc/mlp.cu): fc1 + b1 + GELU into an f32
+    scratch, then fc2 + b2, against the fused Pallas kernel; with split > 1
+    each pass sums K in parts reduced in a fixed order, as at small M."""
+    w1, b1, w2, b2 = _mlp_params()
+    x = RNG.standard_normal(shape).astype(np.float32)
+    x2d = x.reshape(-1, x.shape[-1])
+    want = np.asarray(jax_mlp._fused_mlp_fwd_2d(*_jax(x2d, w1, b1, w2, b2),
+                                                interpret=True))
+    scratch = torch.nn.functional.gelu(
+        torch.from_numpy(_gemm_sequential(x2d, w1.T, b1, split)),
+        approximate="tanh").numpy()
+    got = _gemm_sequential(scratch, w2.T, b2, split)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max())
 
 
 def test_mlp_reference_matches_pallas_bf16(_interpret):
