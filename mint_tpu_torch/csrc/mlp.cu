@@ -4,8 +4,8 @@
 // _fused_mlp_fwd_2d, mlp.py:53).  Same cast points: fc1 accumulates in
 // f32, bias and tanh-GELU in f32, the activation is rounded to x's type
 // (mlp.py:47), fc2 accumulates in f32, b2 is added in f32, and the result
-// is cast to x's type.  Like the TPU kernel, the bf16 kernel never writes
-// the [M, F] activation to device memory; the f32 path does (below).
+// is cast to x's type.  Unlike the TPU kernel, both paths here write the
+// [M, F] activation to device memory between two GEMM passes (below).
 //
 // Weights are read in nn.Linear's layout: w1t = W1^T [F, H] and
 // w2t = W2^T [O, F] (the Python wrapper takes the JAX layout [H, F],
@@ -17,37 +17,40 @@
 // here has 227 KB, so the weights are streamed from L2 (50 MB holds them)
 // by every row tile.  At FACT's M (B*360 rows) the work is 4*M*H*F flops:
 // compute-bound, and the f32 FMA pipes (67 TFLOP/s) are 15x slower than
-// the bf16 tensor cores (989 TFLOP/s).  Hence two kernels:
+// the bf16 tensor cores (989 TFLOP/s).  Keeping the [M, O] output of the
+// fused form in registers caps a block at a few rows, so every weight
+// byte feeds few flops; both paths therefore run two GEMM passes,
+// C = A B^T with A [M, K] and B [N, K] both K-contiguous (x, the scratch
+// and nn.Linear weights as they are): fc1 with a b1 + tanh-GELU epilogue
+// into a scratch [M, F] the caller allocates, then fc2 with a b2 epilogue.
 //
-// - bf16 (mlp_tc_kernel): tensor cores through mma.sync.m16n8k16 (f32
-//   accumulate).  One block of 8 warps per 32-row tile of x; the x tile
-//   sits in shared memory as bf16, and the block's [32, O] f32 output
-//   accumulator lives in registers (each warp owns every 8th 8-column
-//   tile, O <= 1024).  The block walks F in chunks of 64: each warp
-//   computes 8 activation columns of fc1 for both 16-row halves, reading
-//   its w1t rows straight from L2 as mma B fragments; bias + GELU in f32,
-//   rounded to bf16, land in a shared-memory chunk; then every warp adds
-//   that chunk's fc2 contribution to its accumulator tiles.  With 32 rows
-//   per block the weights cross L2 M/32 times; more rows would not fit
-//   the accumulator in registers.
+// - bf16 (gemm_tc_kernel, launched twice): Hopper's TMA and wgmma.  The
+//   scratch is bf16, the TPU kernel's own rounding point; its round trip
+//   is 88 MB at M = 7200, ~0.026 ms at 3.35 TB/s against the 0.0716 ms
+//   tensor-core floor.  A block owns a 128 x BN tile of C (BN = 192 for
+//   fc1: F = 3072 makes 16 column tiles; 200 for fc2: O = 800 makes 4).
+//   Its producer warp streams 64-wide k-tiles of A and B through a
+//   4-stage ring of 128-byte-swizzled shared-memory stages (TMA, one
+//   full / empty mbarrier pair per stage); two consumer warpgroups of 64
+//   rows each run four m64nBNk16 wgmma per stage on them, f32
+//   accumulators in registers, and free the stage.  When a pass has fewer
+//   tiles than SMs (the decode's last block, M = B * 48; batch 1), K is
+//   split over up to 8 blocks per tile into f32 partial sums that a second
+//   kernel adds in a fixed order, then bias (and GELU): no atomics, so
+//   results repeat bit for bit.
 // - f32 (gemm_nt_kernel, launched twice): the reference's scoring path
 //   must stay exact f32 (no TF32), so it runs on the FMA pipes, whose
 //   67 TFLOP/s make the MLP compute-bound: 4*M*H*F flops (1.06 ms at
 //   M = 7200 and peak).  What keeps FMA pipes busy is reuse of every value
-//   loaded into shared memory, which a [M, O] f32 accumulator in registers
-//   forbids (it capped the first design at 16 rows per block, 8 flops per
-//   weight byte).  So the f32 path is two register-blocked SGEMM passes:
-//   fc1 with a b1 + tanh-GELU epilogue into an f32 scratch [M, F] that
-//   the caller allocates, then fc2 with a b2 epilogue.  The round trip of
-//   the scratch (2 * 4 * M * F bytes, 0.05 ms at M = 7200) is about 5% of
-//   the FMA floor.  Each pass computes C = A B^T with A [M, K] and
-//   B [N, K] both K-contiguous (x, the scratch and nn.Linear weights as
-//   they are).  A block of 256 threads owns a 112 x 80 output tile (O =
-//   800 makes 10 column tiles; F = 3072 makes 39, the last 32 wide), or
-//   144 x 80 where the grid makes 4 or more waves (fc1 at batch 20); each
-//   thread a 7 x 5 (9 x 5) outer-product micro-tile, rows ty + 16 i and
-//   columns tx + 16 j, fed
-//   by float4 reads along K, so 12 shared-memory loads feed 140 FMAs.  A and
+//   loaded into shared memory (the fused first design managed 8 flops per
+//   weight byte), so each pass is a register-blocked SGEMM; the f32
+//   scratch's round trip (2 * 4 * M * F bytes, 0.05 ms at M = 7200) is
+//   about 5% of the FMA floor.  A block of 256 threads owns a 112 x 80
+//   output tile (O = 800 makes 10 column tiles; F = 3072 makes 39, the
+//   last 32 wide), or 144 x 80 where the grid makes 4 or more waves (fc1
+//   at batch 20); each thread a 7 x 5 (9 x 5) outer-product micro-tile,
+//   rows ty + 16 i and columns tx + 16 j, fed by float4 reads along K, so
+//   12 shared-memory loads feed 140 FMAs.  A and
 //   B k-tiles of 32 arrive by cp.async in a 3-stage ring, so loads overlap
 //   the FMAs, with one barrier per k-tile; a weight value in shared memory
 //   feeds all of the block's rows.  Two blocks share an SM.  When a
@@ -65,6 +68,7 @@
 #include <atomic>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -312,155 +316,207 @@ cudaError_t gemm(const float* a, const float* b, const float* bias, float* c,
   return cudaGetLastError();
 }
 
-// ---- bf16 on tensor cores -------------------------------------------------
+// ---- bf16 on tensor cores: two wgmma GEMM passes ------------------------
 
-constexpr int kTcRows = 32;       // rows of x per block: two 16-row m-tiles
-constexpr int kTcWarps = kThreads / 32;
-constexpr int kTcChunk = 8 * kTcWarps;  // F columns per chunk: 8 per warp
-constexpr int kTcMaxTiles = 16;   // fc2 8-column tiles per warp: O <= 1024
-constexpr int kTcKGroup = 5;      // fc1 k-steps whose B loads go together
-constexpr int kPad = 8;           // bf16 padding per shared-memory row
+constexpr int kTcBM = 128;      // rows of c per block: 2 consumer warpgroups
+constexpr int kTcBK = 64;       // K per stage: one 128-byte swizzled row
+constexpr int kTcStages = 4;    // TMA ring depth
+constexpr int kTcThreads = 2 * 128 + 32;  // + one producer warp
+constexpr int kTcBN1 = 192;     // fc1 columns per block (F = 3072: 16)
+constexpr int kTcBN2 = 200;     // fc2 columns per block (O = 800: 4)
 
-size_t tc_smem_bytes(int h) {
-  return sizeof(__nv_bfloat16) *
-         ((size_t)kTcRows * (h + kPad) + kTcRows * (kTcChunk + kPad));
+template <int BN>
+constexpr size_t tc_smem() {
+  // 1 KB of slack to align the ring to the 128-byte swizzle's 1 KB atoms.
+  return 1024 + (size_t)kTcStages * (kTcBM + BN) * kTcBK * 2 +
+         2 * kTcStages * sizeof(uint64_t);
 }
 
-// B fragment of 8 columns x 16 k from a [n, k] row-major matrix (nn.Linear
-// layout): p points at row (n0 + g), column (k0 + 2 t).
-__device__ __forceinline__ void load_b(const __nv_bfloat16* p, uint32_t& b0,
-                                       uint32_t& b1) {
-  b0 = *reinterpret_cast<const uint32_t*>(p);
-  b1 = *reinterpret_cast<const uint32_t*>(p + 8);
-}
+// One (128 x BN) tile of c = a b^T over the K range of split blockIdx.z:
+// a [M, K] and b [N, K] bf16, row-major, read by TMA (128-byte swizzle)
+// into a ring of kTcStages stages.  Warp 8 is the producer: one lane waits
+// for a free stage, announces its bytes and issues its two loads.
+// Warpgroups 0 and 1 each own 64 rows: they wait for a full stage, run
+// four m64nBNk16 wgmma on it, and free it.  With one split the epilogue
+// adds the bias in f32 (then tanh-GELU when kGelu) and writes c as bf16;
+// with several, split z writes its raw f32 sum to part + z * M * N and
+// reduce_tc_kernel finishes.
+template <int BN, bool kGelu>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    gemm_tc_kernel(const __grid_constant__ CUtensorMap amap,
+                   const __grid_constant__ CUtensorMap bmap,
+                   const __nv_bfloat16* __restrict__ bias,
+                   __nv_bfloat16* __restrict__ c, float* __restrict__ part,
+                   int m, int n, int k, int split) {
+  constexpr uint32_t kABytes = kTcBM * kTcBK * 2;
+  constexpr uint32_t kBBytes = BN * kTcBK * 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = mint::smem_addr(smem_raw);
+  uint8_t* as = smem_raw + (1024 - raw % 1024) % 1024;  // [stages][128][64]
+  uint8_t* bs = as + kTcStages * kABytes;               // [stages][BN][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(bs + kTcStages * kBBytes);
+  uint64_t* empty = full + kTcStages;
 
-// GELU of two fc1 sums (bias added), rounded to bf16, stored as a pair.
-__device__ __forceinline__ void store_act(__nv_bfloat16* p, float v0,
-                                          float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) =
-      __floats2bfloat162_rn(gelu_tanh(v0), gelu_tanh(v1));
-}
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * kTcBM;
+  const int ktiles = (k + kTcBK - 1) / kTcBK;
+  const int per = (ktiles + split - 1) / split;
+  const int kt0 = blockIdx.z * per;
+  const int nt = max(0, min(ktiles, kt0 + per) - kt0);
 
-__global__ void __launch_bounds__(kThreads, 1)
-    mlp_tc_kernel(const __nv_bfloat16* __restrict__ x,
-                  const __nv_bfloat16* __restrict__ w1t,
-                  const __nv_bfloat16* __restrict__ b1,
-                  const __nv_bfloat16* __restrict__ w2t,
-                  const __nv_bfloat16* __restrict__ b2,
-                  __nv_bfloat16* __restrict__ out, int m, int h, int f,
-                  int o) {
-  extern __shared__ float4 smem4[];
-  const int ldx = h + kPad;
-  constexpr int ldh = kTcChunk + kPad;
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem4);  // [32][ldx]
-  __nv_bfloat16* hs = xs + kTcRows * ldx;                        // [32][ldh]
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int g = (tid % 32) / 4;
-  const int t = tid % 4;
-  const int row0 = blockIdx.x * kTcRows;
-
-  const int hv = h / 8;
-  for (int i = tid; i < kTcRows * hv; i += kThreads) {
-    const int r = i / hv;
-    const int c = (i - r * hv) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < m)
-      v = *reinterpret_cast<const uint4*>(x + (size_t)(row0 + r) * h + c);
-    *reinterpret_cast<uint4*>(xs + r * ldx + c) = v;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTcStages; ++s) {
+      mint::mbar_init(full + s, 1);
+      mint::mbar_init(empty + s, 2);  // one arrival per consumer warpgroup
+    }
+    mint::mbar_fence_init();
   }
   __syncthreads();
 
-  // acc[mt][jj]: rows 16 mt.., columns 8 (warp + kTcWarps jj)..
-  float acc[2][kTcMaxTiles][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int jj = 0; jj < kTcMaxTiles; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][jj][e] = 0.f;
-  const int n_tiles = o / 8;
-  const int ksteps = h / 16;
-
-  for (int c0 = 0; c0 < f; c0 += kTcChunk) {
-    // fc1: this warp's 8 activation columns, both 16-row halves.
-    const int fcol = c0 + 8 * warp;
-    if (fcol < f) {
-      float h0[4] = {0.f, 0.f, 0.f, 0.f};
-      float h1[4] = {0.f, 0.f, 0.f, 0.f};
-      const __nv_bfloat16* wrow = w1t + (size_t)(fcol + g) * h + 2 * t;
-      for (int ks = 0; ks < ksteps; ks += kTcKGroup) {
-        uint32_t b[kTcKGroup][2];
-#pragma unroll
-        for (int u = 0; u < kTcKGroup; ++u)
-          if (ks + u < ksteps) load_b(wrow + (ks + u) * 16, b[u][0], b[u][1]);
-#pragma unroll
-        for (int u = 0; u < kTcKGroup; ++u) {
-          if (ks + u < ksteps) {
-            uint32_t a[4];
-            mint::load_a(xs, ldx, 0, (ks + u) * 16, g, t, a);
-            mint::mma_bf16(h0, a, b[u][0], b[u][1]);
-            mint::load_a(xs, ldx, 16, (ks + u) * 16, g, t, a);
-            mint::mma_bf16(h1, a, b[u][0], b[u][1]);
-          }
-        }
-      }
-      // + b1, GELU in f32, rounded to bf16 (mlp.py:47).
-      const int col = 8 * warp + 2 * t;
-      const float bias0 = __bfloat162float(b1[c0 + col]);
-      const float bias1 = __bfloat162float(b1[c0 + col + 1]);
-      __nv_bfloat16* hrow = hs + g * ldh + col;
-      store_act(hrow, h0[0] + bias0, h0[1] + bias1);
-      store_act(hrow + 8 * ldh, h0[2] + bias0, h0[3] + bias1);
-      store_act(hrow + 16 * ldh, h1[0] + bias0, h1[1] + bias1);
-      store_act(hrow + 24 * ldh, h1[2] + bias0, h1[3] + bias1);
-    }
-    __syncthreads();
-
-    // fc2: acc += activation chunk . w2t[:, c0 : c0 + kc]^T.
-    const int kc = min(kTcChunk, f - c0);
-    for (int k0 = 0; k0 < kc; k0 += 16) {
-      uint32_t a0[4], a1[4];
-      mint::load_a(hs, ldh, 0, k0, g, t, a0);
-      mint::load_a(hs, ldh, 16, k0, g, t, a1);
-      uint32_t b[kTcMaxTiles][2];
-#pragma unroll
-      for (int jj = 0; jj < kTcMaxTiles; ++jj) {
-        const int j = warp + kTcWarps * jj;
-        if (j < n_tiles)
-          load_b(w2t + (size_t)(8 * j + g) * f + c0 + k0 + 2 * t, b[jj][0],
-                 b[jj][1]);
-      }
-#pragma unroll
-      for (int jj = 0; jj < kTcMaxTiles; ++jj) {
-        if (warp + kTcWarps * jj < n_tiles) {
-          mint::mma_bf16(acc[0][jj], a0, b[jj][0], b[jj][1]);
-          mint::mma_bf16(acc[1][jj], a1, b[jj][0], b[jj][1]);
-        }
+  if (threadIdx.x >= 256) {  // producer warp
+    if (threadIdx.x == 256) {
+      for (int i = 0; i < nt; ++i) {
+        const int s = i % kTcStages;
+        if (i >= kTcStages) mint::mbar_wait(empty + s, (i / kTcStages - 1) & 1);
+        mint::mbar_expect_tx(full + s, kABytes + kBBytes);
+        mint::tma_load_2d(as + s * kABytes, &amap, full + s, (kt0 + i) * kTcBK,
+                          m0);
+        mint::tma_load_2d(bs + s * kBBytes, &bmap, full + s, (kt0 + i) * kTcBK,
+                          n0);
       }
     }
-    __syncthreads();
+    return;
   }
 
+  const int wg = threadIdx.x / 128;
+  float acc[BN / 2];
 #pragma unroll
-  for (int jj = 0; jj < kTcMaxTiles; ++jj) {
-    const int j = warp + kTcWarps * jj;
-    if (j >= n_tiles) continue;
-    const int col = 8 * j + 2 * t;
-    const float bias0 = __bfloat162float(b2[col]);
-    const float bias1 = __bfloat162float(b2[col + 1]);
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < nt; ++i) {
+    const int s = i % kTcStages;
+    mint::mbar_wait(full + s, (i / kTcStages) & 1);
+    const uint8_t* at = as + s * kABytes + wg * 64 * 128;
+    const uint8_t* bt = bs + s * kBBytes;
+    mint::wgmma_fence();
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = row0 + 16 * mt + 8 * half + g;
-        if (row < m)
-          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * o + col) =
-              __floats2bfloat162_rn(acc[mt][jj][2 * half] + bias0,
-                                    acc[mt][jj][2 * half + 1] + bias1);
-      }
+    for (int kk = 0; kk < kTcBK / 16; ++kk)  // 32 bytes along the row
+      mint::wgmma_ss<BN>(acc, mint::smem_desc(at + 32 * kk, 16, 1024, 1),
+                         mint::smem_desc(bt + 32 * kk, 16, 1024, 1));
+    mint::wgmma_commit();
+    mint::wgmma_wait<0>();
+    if (threadIdx.x % 128 == 0) mint::mbar_arrive(empty + s);
   }
+
+  const int warp = (threadIdx.x % 128) / 32;
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int row0 = m0 + 64 * wg + 16 * warp + g;
+  float* pz = part + (size_t)blockIdx.z * m * n;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * t;
+    if (col >= n) continue;  // n is a multiple of 8: col + 1 < n too
+    const float bias0 = split == 1 ? __bfloat162float(bias[col]) : 0.f;
+    const float bias1 = split == 1 ? __bfloat162float(bias[col + 1]) : 0.f;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + 8 * hh;
+      if (row >= m) continue;
+      float v0 = acc[4 * j + 2 * hh] + bias0;
+      float v1 = acc[4 * j + 2 * hh + 1] + bias1;
+      if (split > 1) {
+        *reinterpret_cast<float2*>(pz + (size_t)row * n + col) =
+            make_float2(v0, v1);
+        continue;
+      }
+      if (kGelu) {
+        v0 = gelu_tanh(v0);
+        v1 = gelu_tanh(v1);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(c + (size_t)row * n + col) =
+          __floats2bfloat162_rn(v0, v1);
+    }
+  }
+}
+
+// c = bf16(epilogue(part[0] + ... + part[split - 1] + bias)), summed in
+// that order in f32, so the result does not depend on the schedule.
+template <bool kGelu>
+__global__ void reduce_tc_kernel(const float* __restrict__ part,
+                                 const __nv_bfloat16* __restrict__ bias,
+                                 __nv_bfloat16* __restrict__ c, int m, int n,
+                                 int split) {
+  const size_t mn = (size_t)m * n;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < mn;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float v = part[i];
+    for (int s = 1; s < split; ++s) v += part[s * mn + i];
+    v += __bfloat162float(bias[i % n]);
+    c[i] = __float2bfloat16_rn(kGelu ? gelu_tanh(v) : v);
+  }
+}
+
+// K is split only while the tiles cannot give every SM a block, into as
+// many parts as fill the card, each of at least 4 k-tiles.
+int tc_split(int m, int n, int k, int bn, int sms) {
+  const long long tiles =
+      (long long)((m + kTcBM - 1) / kTcBM) * ((n + bn - 1) / bn);
+  if (tiles >= sms) return 1;
+  const int ktiles = (k + kTcBK - 1) / kTcBK;
+  return std::max(1, (int)std::min<long long>(
+                         std::min(kMaxSplit, ktiles / 4), sms / tiles));
+}
+
+struct TcPlan {
+  int split1, split2;
+  size_t act_bytes, bytes;  // the bf16 activation, then f32 split sums
+};
+
+cudaError_t plan_bf16(int m, int h, int f, int o, TcPlan* p) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  p->split1 = tc_split(m, f, h, kTcBN1, sms);
+  p->split2 = tc_split(m, o, f, kTcBN2, sms);
+  p->act_bytes = ((size_t)m * f * 2 + 255) / 256 * 256;
+  const size_t part1 = p->split1 > 1 ? (size_t)p->split1 * m * f : 0;
+  const size_t part2 = p->split2 > 1 ? (size_t)p->split2 * m * o : 0;
+  p->bytes = p->act_bytes + 4 * std::max(part1, part2);
+  return cudaSuccess;
+}
+
+// TMA map of a row-major [rows, cols] bf16 matrix, boxes of 64 columns
+// (128 bytes, swizzled) x box_rows rows.
+bool tc_map(CUtensorMap* map, const void* p, int rows, int cols,
+            int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {2ull * cols};
+  const cuuint32_t box[2] = {kTcBK, (cuuint32_t)box_rows};
+  return mint::make_map(map, p, 2, dims, strides, box,
+                        CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// c [m, n] = epilogue(a [m, k] b[n, k]^T + bias), split `split` ways.
+template <int BN, bool kGelu>
+cudaError_t gemm_tc(const __nv_bfloat16* a, const __nv_bfloat16* b,
+                    const __nv_bfloat16* bias, __nv_bfloat16* c, float* part,
+                    int m, int n, int k, int split, cudaStream_t stream) {
+  CUtensorMap amap, bmap;
+  if (!tc_map(&amap, a, m, k, kTcBM) || !tc_map(&bmap, b, n, k, BN))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = tc_smem<BN>();
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_tc_kernel<BN, kGelu>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + BN - 1) / BN, (m + kTcBM - 1) / kTcBM, split);
+  gemm_tc_kernel<BN, kGelu><<<grid, kTcThreads, smem, stream>>>(
+      amap, bmap, bias, c, part, m, n, k, split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || split == 1) return err;
+  const int blocks =
+      (int)std::min<long long>(1024, ((long long)m * n + 255) / 256);
+  reduce_tc_kernel<kGelu><<<blocks, 256, 0, stream>>>(part, bias, c, m, n,
+                                                      split);
+  return cudaGetLastError();
 }
 
 int launch_f32(const void* x, const void* w1t, const void* b1,
@@ -485,22 +541,27 @@ int launch_f32(const void* x, const void* w1t, const void* b1,
 }
 
 int launch_bf16(const void* x, const void* w1t, const void* b1,
-                const void* w2t, const void* b2, void* out, int m, int h,
-                int f, int o, void* stream) {
-  if (m <= 0 || h <= 0 || f <= 0 || o <= 0 || h % 16 || f % 16 || o % 8 ||
-      o > 8 * kTcWarps * kTcMaxTiles)
+                const void* w2t, const void* b2, void* scratch, void* out,
+                int m, int h, int f, int o, void* stream) {
+  if (m <= 0 || h <= 0 || f <= 0 || o <= 0 || h % 16 || f % 16 || o % 8)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = tc_smem_bytes(h);
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  TcPlan p;
+  cudaError_t err = plan_bf16(m, h, f, o, &p);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((m + kTcRows - 1) / kTcRows);
   using bf16 = __nv_bfloat16;
-  mlp_tc_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1t),
-      static_cast<const bf16*>(b1), static_cast<const bf16*>(w2t),
-      static_cast<const bf16*>(b2), static_cast<bf16*>(out), m, h, f, o);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  auto* act = static_cast<bf16*>(scratch);
+  auto* part =
+      reinterpret_cast<float*>(static_cast<uint8_t*>(scratch) + p.act_bytes);
+  err = gemm_tc<kTcBN1, true>(static_cast<const bf16*>(x),
+                              static_cast<const bf16*>(w1t),
+                              static_cast<const bf16*>(b1), act, part, m, f,
+                              h, p.split1, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)gemm_tc<kTcBN2, false>(act, static_cast<const bf16*>(w2t),
+                                     static_cast<const bf16*>(b2),
+                                     static_cast<bf16*>(out), part, m, o, f,
+                                     p.split2, s);
 }
 
 }  // namespace
@@ -509,12 +570,20 @@ int launch_bf16(const void* x, const void* w1t, const void* b1,
 // contiguous and 16-byte aligned.  f32: h and f multiples of 8, and
 // scratch an f32 buffer of mint_mlp_f32_scratch(m, h, f, o) floats (the
 // activation, then split partial sums).  bf16: h and f multiples of 16, o
-// a multiple of 8 and <= 1024.
+// a multiple of 8, and scratch a buffer of mint_mlp_bf16_scratch(m, h, f,
+// o) bytes (the bf16 activation, then f32 split partial sums).
 extern "C" long long mint_mlp_f32_scratch(int m, int h, int f, int o) {
   Plan p;
   if (m <= 0 || f <= 0 || o <= 0 || plan_f32(m, h, f, o, &p) != cudaSuccess)
     return -1;
   return (long long)p.scratch;
+}
+
+extern "C" long long mint_mlp_bf16_scratch(int m, int h, int f, int o) {
+  TcPlan p;
+  if (m <= 0 || f <= 0 || o <= 0 || plan_bf16(m, h, f, o, &p) != cudaSuccess)
+    return -1;
+  return (long long)p.bytes;
 }
 
 extern "C" int mint_mlp_f32(const void* x, const void* w1t, const void* b1,
@@ -525,7 +594,8 @@ extern "C" int mint_mlp_f32(const void* x, const void* w1t, const void* b1,
 }
 
 extern "C" int mint_mlp_bf16(const void* x, const void* w1t, const void* b1,
-                             const void* w2t, const void* b2, void* out,
-                             int m, int h, int f, int o, void* stream) {
-  return launch_bf16(x, w1t, b1, w2t, b2, out, m, h, f, o, stream);
+                             const void* w2t, const void* b2, void* scratch,
+                             void* out, int m, int h, int f, int o,
+                             void* stream) {
+  return launch_bf16(x, w1t, b1, w2t, b2, scratch, out, m, h, f, o, stream);
 }

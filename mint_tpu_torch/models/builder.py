@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from mint_tpu.config.schema import MultiModalModelConfig
+from mint_tpu_torch.config.schema import MultiModalModelConfig
 from mint_tpu_torch.models.fact import FACT
 
 
@@ -21,10 +21,19 @@ MODEL_BUILDER_MAP = {
 
 def build(model_config: MultiModalModelConfig, is_training: bool,
           dtype: torch.dtype = torch.float32,
-          device: torch.device | str = "cpu") -> FACT:
+          device: torch.device | str = "cuda") -> FACT:
     """Build a model from a MultiModalModel config (dispatch on the oneof),
     cast once to `dtype` and placed on `device`.  Not training builds are
-    put in eval mode."""
+    put in eval mode.
+
+    The model runs on the card unless the caller asks for the CPU
+    (``device="cpu"``, as the tests do); without a card the default
+    raises rather than building on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("builder.build: device 'cuda' asked for (the "
+                           "default) but no CUDA card is available; pass "
+                           "device='cpu' to build on the CPU")
     build_func = MODEL_BUILDER_MAP[model_config.which()]
     model = build_func(model_config, is_training).to(device=device,
                                                      dtype=dtype)

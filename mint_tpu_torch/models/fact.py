@@ -13,7 +13,7 @@ from typing import Dict
 import torch
 from torch import nn
 
-from mint_tpu.config.schema import FACTModelConfig
+from mint_tpu_torch.config.schema import FACTModelConfig
 from mint_tpu_torch.models import layers
 from mint_tpu_torch.models.modalities import build_modalities_model
 
@@ -25,7 +25,7 @@ class FACT(nn.Module):
 
     `audio_dim` is the audio feature width; the flagship config leaves it
     unset, so it defaults to the AIST++ frontend's 35 (as
-    ``mint_tpu.models.fact.init_params`` does).
+    ``init_params`` in ``mint_tpu/models/fact.py`` does).
     """
 
     def __init__(self, config: FACTModelConfig, audio_dim: int = 0):

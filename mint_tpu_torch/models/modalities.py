@@ -1,5 +1,5 @@
-"""Modality config expansion (copy of ``mint_tpu/models/modalities.py``;
-``mint_tpu.models`` cannot be imported without flax).
+"""Modality config expansion (copy of ``mint_tpu/models/modalities.py``:
+the port imports nothing of the JAX package).
 
 Turns the repeated `Modality` configs into three lookups:
 ``feature_to_model`` (per-feature model pieces), ``feature_to_params``
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
-from mint_tpu.config.schema import ModalityConfig
+from mint_tpu_torch.config.schema import ModalityConfig
 
 
 def build_modalities_model(modality_configs: List[ModalityConfig]

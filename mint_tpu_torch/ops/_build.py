@@ -31,14 +31,15 @@ build_log: str = ""  # nvcc's output of this process's build (ptxas report)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_S = ctypes.POINTER(ctypes.c_longlong)
 # C entry points: name -> argtypes.  Each returns cudaError_t as int.
 _SIGNATURES = {
-    # q, k, v, out, B*H, nq, nk, d, scale, stream
-    "mint_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "mint_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # x, w1, b1, w2, b2, [scratch: f32 only,] out, m, h, f, o, stream
+    # q, k, v, out, strides (b, h, n of each), B, H, nq, nk, d, scale, stream
+    "mint_attention_f32": [_P, _P, _P, _P, _S, _I, _I, _I, _I, _I, _F, _P],
+    "mint_attention_bf16": [_P, _P, _P, _P, _S, _I, _I, _I, _I, _I, _F, _P],
+    # x, w1, b1, w2, b2, scratch, out, m, h, f, o, stream
     "mint_mlp_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "mint_mlp_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mint_mlp_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -112,9 +113,11 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.mint_error_string.argtypes = [ctypes.c_int]
         lib.mint_error_string.restype = ctypes.c_char_p
-        # m, h, f, o -> floats of scratch that mint_mlp_f32 needs (-1: error)
-        lib.mint_mlp_f32_scratch.argtypes = [_I, _I, _I, _I]
-        lib.mint_mlp_f32_scratch.restype = ctypes.c_longlong
+        # m, h, f, o -> scratch that mint_mlp_f32 (floats) and
+        # mint_mlp_bf16 (bytes) need; -1 on error
+        for name in ("mint_mlp_f32_scratch", "mint_mlp_bf16_scratch"):
+            getattr(lib, name).argtypes = [_I, _I, _I, _I]
+            getattr(lib, name).restype = ctypes.c_longlong
         _lib = lib
         return lib
 

@@ -10,6 +10,8 @@ head dim (``mint_tpu/models/layers.py:84``).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from mint_tpu_torch.ops import _build
@@ -37,22 +39,64 @@ _ENTRY = {torch.float32: "mint_attention_f32",
           torch.bfloat16: "mint_attention_bf16"}
 
 
+def bf16_max_keys(d: int) -> int:
+    """The most keys the bf16 kernel takes at head dim d (a multiple of 16,
+    <= 128): it holds the head's whole K in shared memory.  Mirrors
+    ``tc_smem_bytes`` in csrc/attention.cu: 2 KB of mbarriers and slack,
+    then every 64-key K tile and a ring of 3 V tiles, each 64 * 2 * d bytes,
+    within the 232448 bytes a block may take on an H100, and at most 64
+    tiles.  1216 keys at D = 80, 704 at D = 128."""
+    return 64 * min(64, (232448 - 2048) // (64 * 2 * d) - 3)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float) -> torch.Tensor:
     """Attention on [B, H, N, D] tensors; Nq may differ from Nk.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (or raises).
+    kernel (or raises).  The kernel reads q, k and v through their strides
+    (any on B, H and N, D contiguous), so views of a fused QKV projection
+    cost no copy, and returns a [B, H, Nq, D] view of [B, Nq, H, D]
+    storage, so merging the heads afterwards is a view too.
     """
     if q.device.type == "cpu":
         return attention_reference(q, k, v, scale)
     return _launch(q, k, v, scale)
 
 
+def _tma_ready(t: torch.Tensor) -> bool:
+    """Whether the bf16 kernel's TMA loads can read `t` as it is: a
+    16-byte aligned base and every stride of a dim longer than 1 a whole
+    number of 16-byte steps (D itself contiguous)."""
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st % 8 == 0 for st, n in zip(t.stride()[:3], t.shape[:3])
+                    if n > 1))
+
+
 def _launch(q, k, v, scale):
     global launches
     if q.device.type != "cuda":
         raise ValueError(f"attention: unsupported device {q.device}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("attention: q, k and v must share one device")
+    q, k, v, out = _operands(q, k, v)
+    strides = (ctypes.c_longlong * 12)(
+        *(st for t in (q, k, v, out) for st in t.stride()[:3]))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    b, h, nq, d = q.shape
+    err = getattr(_build.library(), _ENTRY[q.dtype])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+        b, h, nq, k.shape[2], d, float(scale), stream)
+    _build.check(err, "attention kernel launch")
+    launches += 1
+    return out
+
+
+def _operands(q, k, v):
+    """Checks q, k and v against what the kernel of their dtype takes and
+    returns what it is given: q, k and v as they are (a copy only of a
+    layout the kernel cannot read, never the model's) and the output, a
+    [B, H, Nq, D] view of new [B, Nq, H, D] storage."""
     if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"attention: dtypes {q.dtype}/{k.dtype}/{v.dtype} "
                          "(needs one of float32, bfloat16 for all three)")
@@ -72,17 +116,16 @@ def _launch(q, k, v, scale):
         raise ValueError(f"attention: the {q.dtype} kernel takes 0 < D <= "
                          f"128 (a multiple of {d_step}), N > 0 and "
                          f"B*H <= 65535; got {tuple(q.shape)}, Nk={nk}")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("attention: q, k and v must share one device")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("attention: kernel needs 16-byte aligned q, k, v")
-    out = torch.empty_like(q)
-    lib = _build.library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = getattr(lib, _ENTRY[q.dtype])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b * h, nq, nk, d, float(scale), stream)
-    _build.check(err, "attention kernel launch")
-    launches += 1
-    return out
+    if q.dtype == torch.bfloat16:
+        if nk > bf16_max_keys(d):
+            raise ValueError(f"attention: the bf16 kernel holds a head's K "
+                             f"in shared memory, at most {bf16_max_keys(d)} "
+                             f"keys at D={d}; got Nk={nk}")
+        # Layouts TMA cannot address are copied once (never the model's).
+        q, k, v = (t if _tma_ready(t) else t.contiguous() for t in (q, k, v))
+    else:
+        q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (q, k, v))
+    out = torch.empty((b, nq, h, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    return q, k, v, out

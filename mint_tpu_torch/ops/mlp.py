@@ -72,15 +72,14 @@ def _launch(x, w1, b1, w2, b2):
             f"fused_mlp: shapes x {tuple(x.shape)}, w1 {tuple(w1.shape)}, "
             f"b1 {tuple(b1.shape)}, w2 {tuple(w2.shape)}, "
             f"b2 {tuple(b2.shape)}")
-    # f32 runs on two FMA GEMM passes, bf16 on the tensor-core kernel
-    # (mlp.cu).
+    # f32 runs on two FMA GEMM passes, bf16 on two tensor-core ones
+    # (mlp.cu); both write the activation to a scratch buffer.
     f32 = x.dtype == torch.float32
     step, o_step = (8, 1) if f32 else (16, 8)
-    if h % step or f % step or o % o_step or not 0 < o <= 1024:
+    if h % step or f % step or o % o_step:
         raise ValueError(
             f"fused_mlp: the {x.dtype} kernel takes H and F multiples of "
-            f"{step}, O a multiple of {o_step} and O <= 1024; got H={h}, "
-            f"F={f}, O={o}")
+            f"{step} and O a multiple of {o_step}; got H={h}, F={f}, O={o}")
     if m == 0:
         return x.new_empty((0, o))
     x = x.contiguous()
@@ -93,24 +92,27 @@ def _launch(x, w1, b1, w2, b2):
     out = torch.empty((m, o), dtype=x.dtype, device=x.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    ptrs = [t.data_ptr() for t in (x, w1t, b1, w2t, b2)]
-    if f32:  # fc1's GELU'd activation for fc2, and split partial sums
-        scratch = torch.empty(_scratch_floats(x.device, m, h, f, o),
-                              dtype=x.dtype, device=x.device)
-        ptrs.append(scratch.data_ptr())
-    err = getattr(lib, _ENTRY[x.dtype])(*ptrs, out.data_ptr(), m, h, f, o,
-                                        stream)
+    # fc1's GELU'd activation for fc2, then split partial sums.
+    scratch = torch.empty(_scratch_bytes(x.device, x.dtype, m, h, f, o),
+                          dtype=torch.uint8, device=x.device)
+    err = getattr(lib, _ENTRY[x.dtype])(
+        *(t.data_ptr() for t in (x, w1t, b1, w2t, b2, scratch)),
+        out.data_ptr(), m, h, f, o, stream)
     _build.check(err, "fused MLP kernel launch")
     launches += 1
     return out
 
 
 @functools.lru_cache(maxsize=None)
-def _scratch_floats(device, m, h, f, o) -> int:
-    """Floats of scratch the f32 kernel needs on ``device`` (its plan
-    depends on the card's SM count), asked once per shape."""
+def _scratch_bytes(device, dtype, m, h, f, o) -> int:
+    """Bytes of scratch the kernel needs on ``device`` (its plan depends
+    on the card's SM count), asked once per shape."""
+    lib = _build.library()
     with torch.cuda.device(device):
-        floats = _build.library().mint_mlp_f32_scratch(m, h, f, o)
-    if floats < 0:
+        if dtype == torch.float32:
+            n = lib.mint_mlp_f32_scratch(m, h, f, o) * 4
+        else:
+            n = lib.mint_mlp_bf16_scratch(m, h, f, o)
+    if n < 0:
         raise RuntimeError(f"fused_mlp: cannot plan on {device}")
-    return floats
+    return n

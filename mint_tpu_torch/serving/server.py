@@ -447,7 +447,7 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    from mint_tpu.config.schema import load_pipeline_config
+    from mint_tpu_torch.config.schema import load_pipeline_config
     from mint_tpu_torch.models import builder
     from mint_tpu_torch.models.fact import init_params
 

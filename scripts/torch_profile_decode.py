@@ -4,7 +4,8 @@ Runs the flagship FACT (seeded random weights) through
 ``mint_tpu_torch.infer.decoder.infer_auto_regressive`` at batch 20 (the
 bench dispatch) for a few steps under ``torch.profiler`` and prints, per
 dtype: wall ms/step, device busy ms/step (sum of kernel times), the
-device's idle share, and the kernels by total device time.
+device's idle share, the kernels by total device time, and the layout
+copies among them.
 
     python scripts/torch_profile_decode.py [--steps 4] [--batch 20]
 
@@ -39,7 +40,7 @@ def _kernel_rows(prof):
 
 
 def run(dtype, batch, steps):
-    from mint_tpu.config.schema import load_pipeline_config
+    from mint_tpu_torch.config.schema import load_pipeline_config
     from mint_tpu_torch.infer import decoder
     from mint_tpu_torch.models import builder
     from mint_tpu_torch.models.fact import init_params
@@ -73,6 +74,11 @@ def run(dtype, batch, steps):
     for dev, count, key in rows[:12]:
         print(f"  {dev / 1e3 / steps:9.3f} ms/step  {count // steps:5d}/step"
               f"  {key[:90]}")
+    # Layout copies (.contiguous() and the like) among all kernels.
+    copies = [r for r in rows if "copy" in r[2].lower()]
+    print(f"  copy kernels: {sum(r[1] for r in copies) // steps}/step, "
+          f"{sum(r[0] for r in copies) / 1e3 / steps:.3f} ms/step"
+          + "".join(f"; {r[1] // steps}/step {r[2][:60]}" for r in copies))
 
 
 def main():

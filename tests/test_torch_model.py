@@ -65,16 +65,19 @@ def test_first_n_out_is_the_first_rows(pair):
                                        rtol=1e-6, atol=1e-6)
 
 
-def test_attention_truncation_matches_jax():
-    """``n_queries`` rows of the port's Attention equal the first rows of
-    the JAX module's full output."""
+@pytest.mark.parametrize("n_queries", [7, None])
+def test_attention_truncation_matches_jax(n_queries):
+    """The port's Attention (heads split from the fused QKV projection as
+    strided views, merged from the kernel's output layout) equals the JAX
+    module's output on identical weights; with ``n_queries`` its rows are
+    the first rows of that output."""
     from mint_tpu.models.layers import Attention as JaxAttention
     import jax
 
     x = RNG.standard_normal((2, 24, 32)).astype(np.float32)
     jax_mod = JaxAttention(32, 4)
     variables = jax_mod.init(jax.random.PRNGKey(0), jnp.asarray(x))
-    want = np.asarray(jax_mod.apply(variables, jnp.asarray(x)))[:, :7]
+    want = np.asarray(jax_mod.apply(variables, jnp.asarray(x)))[:, :n_queries]
     p = variables["params"]
     mod = layers.Attention(32, 4)
     with torch.no_grad():
@@ -83,7 +86,7 @@ def test_attention_truncation_matches_jax():
         mod.to_out.weight.copy_(torch.from_numpy(
             np.asarray(p["to_out"]["kernel"]).T.copy()))
         mod.to_out.bias.copy_(torch.tensor(np.asarray(p["to_out"]["bias"])))
-        got = mod(torch.from_numpy(x), n_queries=7).numpy()
+        got = mod(torch.from_numpy(x), n_queries=n_queries).numpy()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
@@ -101,8 +104,9 @@ def test_bf16_build_casts_once_and_runs():
     from mint_tpu.config import schema as S
 
     cfg = S.MultiModalModelConfig(fact_model=tiny_config())
-    m32 = builder.build(cfg, is_training=False)
-    m16 = builder.build(cfg, is_training=False, dtype=torch.bfloat16)
+    m32 = builder.build(cfg, is_training=False, device="cpu")
+    m16 = builder.build(cfg, is_training=False, dtype=torch.bfloat16,
+                        device="cpu")
     m16.load_state_dict(m32.state_dict())
     assert all(p.dtype == torch.bfloat16 for p in m16.parameters())
     assert not m16.training
@@ -112,6 +116,18 @@ def test_bf16_build_casts_once_and_runs():
         b = m16(inputs)
     assert b.dtype == torch.bfloat16 and torch.isfinite(b.float()).all()
     assert (a - b.float()).abs().max() < 0.1 * max(1.0, a.abs().max())
+
+
+def test_build_defaults_to_the_card():
+    """Without ``device`` the builder asks for CUDA: where there is no
+    card it raises, and never quietly builds on the CPU."""
+    from mint_tpu_torch.config import schema as S
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default build succeeds")
+    cfg = S.MultiModalModelConfig(fact_model=tiny_config())
+    with pytest.raises(RuntimeError, match="cuda"):
+        builder.build(cfg, is_training=False)
 
 
 def test_gelu_is_tanh_form():

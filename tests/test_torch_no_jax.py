@@ -1,10 +1,12 @@
 """The port stands alone: no JAX stack, no CUDA toolchain on the CPU path.
 
 The machine with the card has no jax, flax, optax, orbax or absl, so
-``mint_tpu_torch`` and ``chip_smoke.py`` must import none of them, and
-from ``mint_tpu`` only the pure-Python ``mint_tpu.config``.
+``mint_tpu_torch``, ``chip_smoke.py`` and the port's profile script must
+import none of them, and nothing of the JAX package ``mint_tpu`` either:
+the port keeps its own copy of the config schema (``mint_tpu_torch.config``).
 """
 
+import ast
 import os
 import re
 import shutil
@@ -23,7 +25,7 @@ names = [m.name for m in pkgutil.walk_packages(mint_tpu_torch.__path__,
                                                "mint_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-from mint_tpu.config import schema as S
+from mint_tpu_torch.config import schema as S
 from mint_tpu_torch.infer import decoder
 from mint_tpu_torch.models.fact import FACT, init_params
 from mint_tpu_torch.ops import _build
@@ -72,24 +74,40 @@ def test_port_imports_no_jax_stack_and_builds_nothing_on_cpu():
     roots = {name.split(".")[0] for name in loaded}
     assert not roots & set(FORBIDDEN), roots & set(FORBIDDEN)
     from_jax_pkg = [n for n in loaded if n.split(".")[0] == "mint_tpu"]
-    assert all(n == "mint_tpu" or n.startswith("mint_tpu.config")
-               for n in from_jax_pkg), from_jax_pkg
+    assert not from_jax_pkg, from_jax_pkg
 
 
 def _port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "scripts", "torch_profile_decode.py")]
     for root, _, names in os.walk(os.path.join(REPO, "mint_tpu_torch")):
         files += [os.path.join(root, n) for n in names
                   if n.endswith((".py", ".cu", ".cuh"))]
     return files
 
 
+def _without_function(text, name):
+    """`text` with the lines of the top-level function `name` blanked,
+    and those lines."""
+    lines = text.splitlines()
+    fn = next(node for node in ast.parse(text).body
+              if isinstance(node, ast.FunctionDef) and node.name == name)
+    span = range(fn.lineno - 1, fn.end_lineno)
+    body = "\n".join(lines[i] for i in span)
+    rest = "\n".join("" if i in span else line
+                     for i, line in enumerate(lines))
+    return rest, body
+
+
+SDPA = "scaled_dot_product_attention"
+
+
 def test_sources_use_no_jax_and_no_stand_in_kernels():
     imports = re.compile(
         r"^\s*(import|from)\s+(%s)\b" % "|".join(FORBIDDEN), re.M)
-    jax_pkg = re.compile(r"^\s*(import|from)\s+mint_tpu\.(?!config\b)",
+    jax_pkg = re.compile(r"^\s*(import\s+mint_tpu\b|from\s+mint_tpu[.\s])",
                          re.M)
-    stand_ins = re.compile(r"scaled_dot_product_attention|torch\.compile|"
+    stand_ins = re.compile(SDPA + r"|sdpa|torch\.compile|"
                            r"cudnn\.(?!allow_tf32)|cublas", re.I)
     for path in _port_sources():
         with open(path) as f:
@@ -97,6 +115,11 @@ def test_sources_use_no_jax_and_no_stand_in_kernels():
         rel = os.path.relpath(path, REPO)
         assert not imports.search(text), rel
         assert not jax_pkg.search(text), rel
+        if rel == "chip_smoke.py":
+            # The library call is timed as a yardstick (library_ms) in
+            # time_kernels and nowhere else; the port never calls it.
+            text, yardstick = _without_function(text, "time_kernels")
+            assert SDPA in yardstick
         assert not stand_ins.search(text), rel
 
 

@@ -92,6 +92,101 @@ def test_attention_fewer_queries_than_keys():
                                atol=1e-7)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq", [360, 48])
+def test_kernel_takes_fused_qkv_views_without_copies(nq, dtype):
+    """The model passes q, k, v as strided views of its fused QKV output,
+    a [B, N, 3, H, D] buffer (models/layers.py).  The CUDA path hands the
+    kernel those views themselves, so their strides, and an output that is
+    a [B, H, Nq, D] view of [B, Nq, H, D] storage (the head merge's
+    layout).  The kernel's reads of them are held to the plain version on
+    the card by chip_smoke.py."""
+    buf = torch.zeros(2, 360, 3, 10, 80, dtype=dtype)
+    q, k, v = buf.permute(2, 0, 3, 1, 4).unbind(0)
+    q = q[:, :, :nq]
+    assert not q.is_contiguous() and not k.is_contiguous()
+    *given, out = att._operands(q, k, v)
+    assert all(g is t for g, t in zip(given, (q, k, v)))
+    assert out.shape == (2, 10, nq, 80) and out.dtype == dtype
+    assert out.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.parametrize("d,max_keys", [(80, 1216), (128, 704), (16, 4096)])
+def test_bf16_kernel_key_limit(d, max_keys):
+    """The bf16 kernel holds a head's whole K in shared memory, so it takes
+    at most max_keys keys (csrc/attention.cu, tc_smem_bytes); past that the
+    wrapper raises before any launch.  The f32 kernel streams K: no
+    limit."""
+    assert att.bf16_max_keys(d) == max_keys
+    q = torch.zeros(1, 2, 48, d, dtype=torch.bfloat16)
+    for nk in (360, max_keys):
+        k = torch.zeros(1, 2, nk, d, dtype=torch.bfloat16)
+        assert att._operands(q, k, k)[-1].shape == q.shape
+    k = torch.zeros(1, 2, max_keys + 1, d, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=f"at most {max_keys} keys"):
+        att._operands(q, k, k)
+    q32, k32 = q.float(), torch.zeros(1, 2, 4 * max_keys, d)
+    assert att._operands(q32, k32, k32)[-1].shape == q.shape
+
+
+def test_model_layout_needs_no_copy_for_tma():
+    """The bf16 kernel's TMA loads read the model's fused QKV views as they
+    are (16-byte steps); a layout they cannot address would be copied."""
+    buf = torch.zeros(20, 360, 3, 10, 80, dtype=torch.bfloat16)
+    q, k, v = buf.permute(2, 0, 3, 1, 4).unbind(0)
+    assert all(att._tma_ready(t) for t in (q[:, :, :48], k, v))
+    assert att._tma_ready(torch.zeros(1, 2, 37, 16, dtype=torch.bfloat16))
+    odd = torch.zeros(2, 3, 5, 88, dtype=torch.bfloat16)[..., :80]
+    assert odd.stride(2) == 88 and att._tma_ready(odd)
+    assert not att._tma_ready(torch.zeros(2, 3, 5, 84,
+                                          dtype=torch.bfloat16)[..., :80])
+    assert not att._tma_ready(torch.zeros(2, 3, 80, 5,
+                                          dtype=torch.bfloat16).transpose(
+                                              -1, -2))
+
+
+def _two_pass_bf16_attention(q, k, v, scale, tile=64):
+    """The bf16 CUDA kernel's arithmetic (csrc/attention.cu), in f32 numpy
+    on bf16-valued inputs: pass 1 keeps each row's running max and sum of
+    exp2 over `tile`-key tiles; pass 2 forms P = exp2(s - max) / sum,
+    rounds it to bf16 and accumulates P.V in f32; the output is rounded to
+    bf16."""
+    log2e = np.float32(1.4426950408889634)
+    q, k, v = (np.asarray(t, np.float32) for t in (q, k, v))
+    s = (q @ np.swapaxes(k, -1, -2)) * np.float32(scale) * log2e
+    m = np.full(q.shape[:-1] + (1,), -np.inf, np.float32)
+    l = np.zeros_like(m)
+    for k0 in range(0, k.shape[-2], tile):
+        st = s[..., k0:k0 + tile]
+        m_new = np.maximum(m, st.max(axis=-1, keepdims=True))
+        l = l * np.exp2(m - m_new) + np.exp2(st - m_new).sum(
+            axis=-1, keepdims=True)
+        m = m_new
+    p = torch.from_numpy(np.exp2(s - m) * (1 / l)).bfloat16().float()
+    out = p.numpy() @ v
+    return torch.from_numpy(out).bfloat16().float().numpy()
+
+
+@pytest.mark.parametrize("nq", [360, 48])
+def test_two_pass_bf16_attention_matches_jax(nq):
+    """The bf16 kernel's two passes against the Pallas kernel (Nq = Nk) or
+    the sliced XLA attention (Nq = 48 < Nk), both in bf16, at FACT's
+    widths; 2 bf16 ulps of the output's peak."""
+    q, k, v = (torch.from_numpy(a).bfloat16().float().numpy()
+               for a in _qkv(2, 10, nq, 360, 80))
+    if nq == 360:
+        want = jax_attention.pallas_attention(
+            *_jax(q, k, v, dtype=jnp.bfloat16), 800 ** -0.5)
+    else:
+        full_q = np.concatenate([q, RNG.standard_normal(
+            (2, 10, 360 - nq, 80)).astype(np.float32)], axis=2)
+        want = jax_attention.xla_attention(
+            *_jax(full_q, k, v, dtype=jnp.bfloat16), 800 ** -0.5)[:, :, :nq]
+    got = _two_pass_bf16_attention(q, k, v, 800 ** -0.5)
+    assert got.shape == want.shape
+    _close_bf16(got, np.asarray(want.astype(jnp.float32)))
+
+
 def _online_softmax_attention(q, k, v, scale, tile):
     """The f32 CUDA kernel's arithmetic (csrc/attention.cu), in f32 numpy:
     one pass over tiles of `tile` keys (the kernel's are 32) with a running
@@ -134,14 +229,14 @@ def test_online_softmax_tiles_match_jax_f32(b, h, nq, nk, d, scale, tile):
     np.testing.assert_allclose(got, want, atol=2e-6)
 
 
-def _gemm_sequential(a, bt, bias, split=1):
-    """c[m, n] = sum_k a[m, k] bt[n, k] + bias[n] in f32 as the f32 MLP's
-    GEMM passes sum it: K cut into `split` ranges of whole 32-wide k-tiles,
-    each range summed in order, the ranges' sums added in order, then the
-    bias."""
+def _gemm_sequential(a, bt, bias, split=1, ktile=32):
+    """c[m, n] = sum_k a[m, k] bt[n, k] + bias[n] in f32 as the MLP's GEMM
+    passes sum it: K cut into `split` ranges of whole `ktile`-wide k-tiles
+    (32 in the f32 kernel, 64 in the bf16 one), each range summed in order,
+    the ranges' sums added in order, then the bias."""
     k = a.shape[1]
-    per = -(-k // split)          # ceil(k / split)
-    kper = 32 * -(-per // 32)     # rounded up to whole k-tiles
+    per = -(-k // split)                 # ceil(k / split)
+    kper = ktile * -(-per // ktile)      # rounded up to whole k-tiles
     total = np.zeros((a.shape[0], bt.shape[0]), np.float32)
     for k0 in range(0, split * kper, kper):
         acc = np.zeros_like(total)
@@ -192,6 +287,31 @@ def test_two_pass_mlp_matches_pallas_f32(shape, split):
     got = _gemm_sequential(scratch, w2.T, b2, split)
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("split", [1, 4])
+@pytest.mark.parametrize("m", [40, 257])
+def test_two_pass_bf16_mlp_matches_pallas(m, split):
+    """The bf16 CUDA path (csrc/mlp.cu): fc1 + b1 + GELU in f32 rounded to
+    a bf16 scratch (the TPU kernel's own rounding point), then fc2 + b2 in
+    f32 rounded to bf16; with split > 1 each pass sums 64-wide k-tiles in
+    parts added in a fixed order, as at small M.  Against the fused Pallas
+    kernel in bf16 (interpret mode), to 2 bf16 ulps of the output's
+    peak."""
+    params = _mlp_params(h=256, f=512, o=64)
+    x = RNG.standard_normal((m, 256)).astype(np.float32)
+    x, w1, b1, w2, b2 = (torch.from_numpy(a).bfloat16().float().numpy()
+                         for a in (x, *params))
+    want = jax_mlp._fused_mlp_fwd_2d(*_jax(x, w1, b1, w2, b2,
+                                           dtype=jnp.bfloat16),
+                                     interpret=True)
+    act = torch.nn.functional.gelu(
+        torch.from_numpy(_gemm_sequential(x, w1.T, b1, split, ktile=64)),
+        approximate="tanh").bfloat16().float().numpy()
+    got = torch.from_numpy(_gemm_sequential(act, w2.T, b2, split, ktile=64)
+                           ).bfloat16().float().numpy()
+    assert got.shape == want.shape
+    _close_bf16(got, np.asarray(want.astype(jnp.float32)))
 
 
 def test_mlp_reference_matches_pallas_bf16(_interpret):
