@@ -21,10 +21,26 @@ CPU):
 4. the same f32 weights on the card (kernels) and on the CPU (plain
    versions): one forward and a 60-step decode, compared (the first 3
    frames held to a tolerance, the drift over 60 recorded);
-5. batch-20 decode frames/s in bf16 and f32, for the record.
+5. batch-20 decode frames/s in bf16 and f32, for the record;
+6. the training path: (a) the flagship f32 at batch 2, one forward and
+   backward on the card (kernels, through their autograd Functions) and on
+   the CPU (plain versions) with the same weights and batch: the losses and
+   every parameter's gradient compared, and 16 launches of each kernel per
+   forward; the same in bf16 compute (f32 parameters): every gradient there
+   and finite; (b) the port's train CLI as a subprocess on the full
+   flagship at the config's batch of 32, in f32 and with
+   ``--use_bfloat16``, on a synthetic AIST-shaped corpus it reads from
+   ``<tmp>/data`` through the config's own ``data_files``, with the host
+   pipeline and, in bf16, once more with ``--input_backend=device`` (the
+   corpus resident on the card, windows drawn there): it trains,
+   checkpoints and writes finite, falling losses, and a second invocation
+   resumes from its checkpoint; (c) train steps/s at batch 32 in bf16 and
+   f32.
 
-The last lines are one JSON object describing the kernels, the card's
-``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
+Phase 2 also checks and times both kernels at the training shapes
+(batch 32).  The last lines are one JSON object describing the kernels,
+the card's ``nvidia-smi`` name and power limit, and ``{"ok": true,
+"device": ...}``.
 """
 
 from __future__ import annotations
@@ -33,8 +49,11 @@ import io
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -47,6 +66,7 @@ CONFIG = os.path.join(REPO, "configs", "fact_v5_deeper_t10_cm12.config")
 SCALE = 800 ** -0.5  # FACT's attention scale: the full model dim
 DISPATCH = 20        # bench.py's decode batch per dispatch
 THROUGHPUT_STEPS = 32
+TRAIN_BATCH = 32     # the flagship config's train batch_size
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -97,13 +117,15 @@ def check_attention(att, gen):
     worst = {"f32": 0.0, "bf16": 0.0}
     cases = [(2, 10, 120, 120, 80), (2, 10, 240, 240, 80),
              (2, 10, 360, 360, 80), (2, 10, 48, 360, 80),
-             (1, 2, 37, 37, 16)]
+             (1, 2, 37, 37, 16)] + [
+        (TRAIN_BATCH, 10, n, n, 80) for n in (360, 240, 120)]
     # The f32 kernel takes any D <= 128: one not a multiple of 4 (4-byte
     # copies) and one over 80 (the wider instance).
     f32_cases = [(1, 2, 37, 37, 18), (1, 3, 70, 50, 100)]
     # The model's own layout at FACT's shapes: strided views in.
     fused = [(2, 10, 360, 360, 80), (2, 10, 48, 360, 80),
-             (DISPATCH, 10, 360, 360, 80), (DISPATCH, 10, 48, 360, 80)]
+             (DISPATCH, 10, 360, 360, 80), (DISPATCH, 10, 48, 360, 80),
+             (TRAIN_BATCH, 10, 360, 360, 80)]
     for dtype in (torch.float32, torch.bfloat16):
         for layout, (b, h, nq, nk, d) in (
                 [("contiguous", c) for c in cases + (
@@ -153,11 +175,13 @@ def check_mlp(mlp, gen):
     # Also at the batch-20 decode's M: in f32 the cross and audio blocks'
     # fc1 (M = 7200, 4800) take the 144-row GEMM instance; in both dtypes
     # the last block's fc2 (M = 960) is split over K, and at batch 1
-    # (M = 360) both bf16 passes are.
+    # (M = 360) both bf16 passes are.  And at the batch-32 training M
+    # (11520, 7680, 3840), which the kernels plan by M and the SM count.
     for dtype in (torch.float32, torch.bfloat16):
         w1, b1, w2, b2 = mlp_weights(gen, dtype)
         for m in (2 * 360, 2 * 48, 257, 3, 360, DISPATCH * 360,
-                  DISPATCH * 240, DISPATCH * 48):
+                  DISPATCH * 240, DISPATCH * 48, TRAIN_BATCH * 360,
+                  TRAIN_BATCH * 240, TRAIN_BATCH * 120):
             x = torch.randn(m, 800, device="cuda", generator=gen).to(dtype)
             got = mlp.fused_mlp(x, w1, b1, w2, b2)
             torch.cuda.synchronize()
@@ -223,11 +247,14 @@ def mlp_work(m, h, f, o, elem):
             elem * (m * h + h * f + f + f * o + o + m * o))
 
 
-def time_kernels(att, mlp, gen, card):
+def time_kernels(att, mlp, gen, card, batch, attn_shapes, mlp_rows,
+                 host=True):
     """Kernel, plain version and, for attention, one PyTorch call
     (F.scaled_dot_product_attention, the yardstick: the port never calls
-    it) at the batch-20 decode's shapes, with each one's bound.  Returns
-    {(kernel, dtype name): {shape label: row}} for the summary line."""
+    it) at `batch` and the given shapes (attention's (Nq, Nk), the MLP's
+    rows per sample), with each one's bound and, if `host`, the host's
+    cost of a call.  Returns {(kernel, dtype name): {Nq or rows: row}} for
+    the summary line."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -242,12 +269,10 @@ def time_kernels(att, mlp, gen, card):
     for dtype in (torch.bfloat16, torch.float32):
         name = DTYPES[dtype]
         elem = torch.empty((), dtype=dtype).element_size()
-        # The decode's shapes: Nq = Nk = 360 (11 blocks a step), 48 queries
-        # against 360 keys (1), and the encoders' 240 and 120 (2 each).
-        for nq, nk in ((360, 360), (48, 360), (240, 240), (120, 120)):
-            q = torch.randn(DISPATCH, 10, nq, 80, device="cuda",
+        for nq, nk in attn_shapes:
+            q = torch.randn(batch, 10, nq, 80, device="cuda",
                             generator=gen).to(dtype)
-            k = torch.randn(DISPATCH, 10, nk, 80, device="cuda",
+            k = torch.randn(batch, 10, nk, 80, device="cuda",
                             generator=gen).to(dtype)
             v = torch.randn_like(k)
             t_k = cuda_ms(lambda: att.attention(q, k, v, SCALE))
@@ -261,9 +286,9 @@ def time_kernels(att, mlp, gen, card):
                     t_b = cuda_ms(lambda: F.scaled_dot_product_attention(
                         q, k, v, scale=SCALE))
                 named = f" (under sdpa_kernel({backend.name}) {t_b:.4f})"
-            flops, nbytes = attention_work(DISPATCH, 10, nq, nk, 80, elem)
+            flops, nbytes = attention_work(batch, 10, nq, nk, 80, elem)
             b_ms, b_by = bound(flops, nbytes, name)
-            row = {"shape": f"q[{DISPATCH},10,{nq},80] k[{DISPATCH},10,{nk},"
+            row = {"shape": f"q[{batch},10,{nq},80] k[{batch},10,{nk},"
                             f"80]", "ms": t_k, "plain_ms": t_p,
                    "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by,
                    "library": f"scaled_dot_product_attention "
@@ -274,39 +299,48 @@ def time_kernels(att, mlp, gen, card):
                 # the log only: the kernel runs on the FMA pipes).
                 extra = (f", 3xTF32 floor "
                          f"{1e3 * 3 * flops / PEAK_FLOPS['tf32']:.4f} ms")
-            row["host_us"] = host_us(lambda: att.attention(q, k, v, SCALE))
+            hosted = ""
+            if host:
+                row["host_us"] = host_us(
+                    lambda: att.attention(q, k, v, SCALE))
+                hosted = f"; host {row['host_us']:.1f} us a call"
             log(f"time attention {name} {row['shape']}: kernel {t_k:.4f} ms,"
                 f" plain {t_p:.4f} ms, SDPA {t_l:.4f} ms{named}, bound "
-                f"{b_ms:.4f} ms ({b_by}){extra}; host {row['host_us']:.1f} "
-                f"us a call ({card})")
+                f"{b_ms:.4f} ms ({b_by}){extra}{hosted} ({card})")
             summary.setdefault(("attention", name), {})[nq] = row
         w1, b1, w2, b2 = mlp_weights(gen, dtype)
-        for m in (DISPATCH * 360, DISPATCH * 48, DISPATCH * 240,
-                  DISPATCH * 120):
+        for rows in mlp_rows:
+            m = batch * rows
             x = torch.randn(m, 800, device="cuda", generator=gen).to(dtype)
             t_k = cuda_ms(lambda: mlp.fused_mlp(x, w1, b1, w2, b2))
             t_p = cuda_ms(lambda: mlp.mlp_reference(x, w1, b1, w2, b2))
             b_ms, b_by = bound(*mlp_work(m, 800, 3072, 800, elem), name)
-            t_h = host_us(lambda: mlp.fused_mlp(x, w1, b1, w2, b2))
+            row = {"shape": f"x[{m},800]", "ms": t_k, "plain_ms": t_p,
+                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+            hosted = ""
+            if host:
+                row["host_us"] = host_us(
+                    lambda: mlp.fused_mlp(x, w1, b1, w2, b2))
+                hosted = f"; host {row['host_us']:.1f} us a call"
             log(f"time fused_mlp {name} x[{m},800]: kernel {t_k:.4f} ms, "
                 f"plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}), no "
-                f"single library call; host {t_h:.1f} us a call ({card})")
-            summary.setdefault(("fused_mlp", name), {})[m // DISPATCH] = {
-                "shape": f"x[{m},800]", "ms": t_k, "plain_ms": t_p,
-                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-                "host_us": t_h}
+                f"single library call{hosted} ({card})")
+            summary.setdefault(("fused_mlp", name), {})[rows] = row
     return summary
 
 
 # -- phase 3: the server ---------------------------------------------------
 
-def flagship(dtype, device):
+def flagship(dtype, device, compute_dtype=None, is_training=False):
+    """The flagship FACT with the weights of a CPU generator seeded 0 (the
+    same on every device)."""
     from mint_tpu_torch.config.schema import load_pipeline_config
     from mint_tpu_torch.models import builder
     from mint_tpu_torch.models.fact import init_params
 
     cfg = load_pipeline_config(CONFIG).multi_modal_model
-    model = builder.build(cfg, is_training=False, dtype=dtype, device=device)
+    model = builder.build(cfg, is_training=is_training, dtype=dtype,
+                          device=device, compute_dtype=compute_dtype)
     return init_params(model, torch.Generator().manual_seed(0))
 
 
@@ -472,6 +506,242 @@ def throughput(model, dtype_name, card):
     return rate
 
 
+# -- phase 6: training ------------------------------------------------------
+
+def train_batch(b, device, seed):
+    """A training batch of the flagship's shapes from numpy: motion and
+    audio windows and a 20-frame target."""
+    rng = np.random.default_rng(seed)
+    shapes = {"motion_input": (b, 120, 225), "audio_input": (b, 240, 35),
+              "target": (b, 20, 225)}
+    return {k: torch.from_numpy(rng.standard_normal(v).astype(np.float32)
+                                * 0.5).to(device)
+            for k, v in shapes.items()}
+
+
+def train_gradients(att, mlp):
+    """One forward and backward of the flagship through Trainer on the card
+    and on the CPU with the same weights and batch: in f32 every gradient
+    compared, in bf16 compute every gradient present and finite; 16
+    launches of each kernel per forward."""
+    from mint_tpu_torch.train import Trainer, schedules
+
+    def grads(model, batch):
+        trainer = Trainer(model, schedules.constant(0.0))
+        params = trainer.init_state(model).params
+        att.launches = mlp.launches = 0
+        loss, g = trainer.loss_and_grads(params, batch)
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
+        counts = {"attention": att.launches, "fused_mlp": mlp.launches}
+        if set(g) != set(params):
+            raise AssertionError(f"parameters without a gradient: "
+                                 f"{sorted(set(params) - set(g))}")
+        return float(loss), g, counts
+
+    batch = train_batch(2, "cpu", seed=3)
+    card = flagship(torch.float32, "cuda", is_training=True)
+    loss, g_card, counts = grads(card, {k: v.cuda() for k, v in
+                                        batch.items()})
+    loss_cpu, g_cpu, _ = grads(flagship(torch.float32, "cpu",
+                                        is_training=True), batch)
+    rel = abs(loss - loss_cpu) / abs(loss_cpu)
+    worst_name, worst = None, 0.0
+    for name, want in g_cpu.items():
+        peak = want.abs().max().item()
+        err = (g_card[name].cpu() - want).abs().max().item()
+        ratio = err / peak if peak > 0 else err
+        if ratio > worst:
+            worst_name, worst = name, ratio
+    log(f"train f32 batch 2 card vs CPU: loss {loss:.6f} vs {loss_cpu:.6f} "
+        f"(rel {rel:.2e}, tol 1e-5); all {len(g_card)} parameters have a "
+        f"gradient on the card; worst gradient error {worst:.2e} of its "
+        f"leaf's peak ({worst_name}; tol 1e-4: f32 sums in another order "
+        f"through 16 blocks and back); launches per forward {counts}")
+    if not rel <= 1e-5 or not worst <= 1e-4:
+        raise AssertionError("card and CPU gradients disagree")
+    expect = {"attention": 16, "fused_mlp": 16}
+    if counts != expect:
+        raise AssertionError(f"launches per forward {counts}, want {expect}")
+    del card, g_card
+    torch.cuda.empty_cache()
+
+    mixed = flagship(torch.float32, "cuda", compute_dtype=torch.bfloat16,
+                     is_training=True)
+    loss16, g16, counts16 = grads(mixed, {k: v.cuda()
+                                          for k, v in batch.items()})
+    bad = [k for k, v in g16.items()
+           if v.dtype != torch.float32 or not torch.isfinite(v).all()]
+    # Against the CPU's f32 gradients: all of them as one vector, and each
+    # leaf on its own, so that a fault in one family of leaves (one bf16
+    # GEMM of a backward) cannot hide behind the large leaves' norm.
+    sq_err = {k: float(((g16[k].cpu() - g) ** 2).sum())
+              for k, g in g_cpu.items()}
+    sq_ref = {k: float((g ** 2).sum()) for k, g in g_cpu.items()}
+    rel16 = math.sqrt(sum(sq_err.values()) / sum(sq_ref.values()))
+    per_leaf = {k: math.sqrt(sq_err[k] / sq_ref[k]) if sq_ref[k] > 0
+                else math.sqrt(sq_err[k]) for k in g_cpu}
+    worst16 = max(per_leaf, key=per_leaf.get)
+    median16 = float(np.median(list(per_leaf.values())))
+    log(f"train bf16 compute (f32 parameters) batch 2 on the card: loss "
+        f"{loss16:.6f}, all {len(g16)} gradients present, f32 and finite: "
+        f"{not bad}; against the CPU's f32 gradients: relative L2 of all "
+        f"{rel16:.3e}, of each leaf median {median16:.3e}, worst "
+        f"{per_leaf[worst16]:.3e} ({worst16}) (tol 0.1 for all and for "
+        f"each leaf: bf16 rounding, 8 significant bits, through 16 blocks "
+        f"and back; a wrong GEMM gives an error of order 1); launches per "
+        f"forward {counts16}")
+    if (bad or counts16 != expect or not math.isfinite(loss16)
+            or not rel16 <= 0.1 or not per_leaf[worst16] <= 0.1):
+        raise AssertionError(f"bf16 training gradients: bad {bad}, "
+                             f"relative L2 {rel16}, worst leaf {worst16} "
+                             f"{per_leaf[worst16]}, launches {counts16}")
+    del mixed, g16
+    torch.cuda.empty_cache()
+
+
+def write_corpus(data_dir, n_seq=32, length=300, shards=2):
+    """A synthetic AIST-shaped corpus (219-dim motion, 35-dim audio, one
+    sequence per Example) from np.random.default_rng(0), named as the
+    flagship config's ``data_files`` expect.  Every motion frame is one
+    fixed pose plus noise (std 0.1), so there is something to learn: the
+    loss falls within a few steps."""
+    from mint_tpu_torch.data.example import encode_example
+    from mint_tpu_torch.data.tfrecord import TFRecordWriter
+
+    rng = np.random.default_rng(0)
+    pose = rng.standard_normal(219)
+    os.makedirs(data_dir, exist_ok=True)
+    for shard in range(shards):
+        path = os.path.join(data_dir, f"aist_tfrecord-train-"
+                                      f"{shard:05d}-of-{shards:05d}")
+        with TFRecordWriter(path) as w:
+            for i in range(shard, n_seq, shards):
+                motion = (pose + 0.1 * rng.standard_normal((length, 219))
+                          ).astype(np.float32)
+                audio = rng.standard_normal((length, 35)).astype(np.float32)
+                w.write(encode_example({
+                    "motion_sequence": motion.ravel(),
+                    "motion_sequence_shape": np.asarray(motion.shape,
+                                                        np.int64),
+                    "motion_name": [f"gSY_sBM_cAll_d01_m{i:03d}_ch01"],
+                    "audio_sequence": audio.ravel(),
+                    "audio_sequence_shape": np.asarray(audio.shape,
+                                                       np.int64),
+                    "audio_name": [f"m{i:03d}"],
+                }))
+
+
+def run_train_cli(work, model_dir, steps, bf16, backend):
+    """One invocation of the port's train CLI with `backend` as its
+    ``--input_backend``, run from `work` (where the config's relative
+    data_files finds ./data); returns its launch counts and stderr."""
+    cmd = [sys.executable, "-m", "mint_tpu_torch.tools.train",
+           f"--config_path={CONFIG}", f"--model_dir={model_dir}",
+           f"--steps={steps}", "--steps_per_loop=2",
+           "--checkpoint_interval=3", "--summary_interval=1",
+           f"--input_backend={backend}"]
+    if bf16:
+        cmd.append("--use_bfloat16")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=work, env=env, capture_output=True,
+                          text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"train CLI exited {proc.returncode}:\n"
+                           f"{proc.stderr[-4000:]}")
+    found = re.findall(r"kernel launches: (\{.*\})", proc.stderr)
+    if not found:
+        raise AssertionError("the train CLI reported no kernel launches")
+    return json.loads(found[-1]), proc.stderr, seconds
+
+
+def train_cli(work, name, backend):
+    """The train CLI on the full flagship at batch 32 with input from
+    `backend` ("python": the host pipeline; "device": the corpus resident
+    on the card, windows drawn there): 4 steps, then a second invocation
+    that resumes at 4 and runs to 6.  Returns the first invocation's
+    launch counts."""
+    bf16 = name == "bf16"
+    name = f"{name}, {backend} input"
+    model_dir = os.path.join(work, "run")
+
+    def rows():
+        with open(os.path.join(model_dir, "train", "metrics.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    def ckpts():
+        return sorted(int(d) for d in os.listdir(model_dir) if d.isdigit())
+
+    counts, err, seconds = run_train_cli(work, model_dir, 4, bf16, backend)
+    if (backend == "device") != ("device-resident dataset" in err):
+        raise AssertionError(f"train CLI {name}: input backend not used")
+    first = rows()
+    # Saves at step 1, then when 3 steps have elapsed (never, by step 4),
+    # then the final forced save.
+    if ckpts() != [1, 4] or [r["step"] for r in first] != [1, 3, 4]:
+        raise AssertionError(f"train CLI {name}: checkpoints {ckpts()}, "
+                             f"summaries at {[r['step'] for r in first]}")
+    expect = {"attention": 16 * 4, "fused_mlp": 16 * 4}
+    if counts != expect:
+        raise AssertionError(f"train CLI {name}: launches {counts}, want "
+                             f"{expect} (16 a step)")
+    counts2, err2, seconds2 = run_train_cli(work, model_dir, 6, bf16,
+                                            backend)
+    every = rows()
+    losses = [r["loss"] for r in every]
+    resumed = "restored checkpoint at step 4" in err2
+    log(f"train CLI {name} batch {TRAIN_BATCH}: steps 0-4 in {seconds:.1f} "
+        f"s, launches {counts}; resumed at step 4: {resumed}, steps 4-6 in "
+        f"{seconds2:.1f} s, launches {counts2}; checkpoints {ckpts()}; "
+        f"losses by step {[(r['step'], round(r['loss'], 5)) for r in every]}")
+    if (not resumed or ckpts() != [1, 4, 6]
+            or [r["step"] for r in every] != [1, 3, 4, 6]
+            or counts2 != {"attention": 32, "fused_mlp": 32}):
+        raise AssertionError(f"train CLI {name} did not resume as expected")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train CLI {name}: losses {losses}")
+    return counts
+
+
+def train_rate(att, mlp, name, card, steps):
+    """Train steps/s of Trainer.train_step at batch 32 on a batch resident
+    on the card, after two warm-up steps; with the launches of the timed
+    steps and the peak device memory."""
+    from mint_tpu_torch.train import Trainer, schedules
+
+    model = flagship(torch.float32, "cuda", is_training=True,
+                     compute_dtype=torch.bfloat16 if name == "bf16" else None)
+    trainer = Trainer(model, schedules.constant(1e-4))
+    state = trainer.init_state(model)
+    batch = train_batch(TRAIN_BATCH, "cuda", seed=4)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        state, metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    att.launches = mlp.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, metrics = trainer.train_step(state, batch)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {"attention": att.launches, "fused_mlp": mlp.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"train {name} batch {TRAIN_BATCH} x {steps} steps: {seconds:.4f} s, "
+        f"{steps / seconds:.3f} steps/s, {1000 * seconds / steps:.2f} "
+        f"ms/step, peak memory {peak:.2f} GiB, loss {loss:.5f}, launches "
+        f"{counts} ({card})")
+    if counts != {"attention": 16 * steps, "fused_mlp": 16 * steps} \
+            or not math.isfinite(loss):
+        raise AssertionError(f"train {name}: launches {counts}, loss {loss}")
+    del model, trainer, state
+    torch.cuda.empty_cache()
+    return steps / seconds
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; "
@@ -506,7 +776,15 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {"attention": check_attention(att, gen),
             "fused_mlp": check_mlp(mlp, gen)}
-    times = time_kernels(att, mlp, gen, card)
+    # The decode's shapes: Nq = Nk = 360 (11 blocks a step), 48 queries
+    # against 360 keys (1), and the encoders' 240 and 120 (2 each); then
+    # training's, at batch 32 with no truncated block.
+    times = time_kernels(att, mlp, gen, card, DISPATCH,
+                         ((360, 360), (48, 360), (240, 240), (120, 120)),
+                         (360, 48, 240, 120))
+    train_times = time_kernels(att, mlp, gen, card, TRAIN_BATCH,
+                               ((360, 360), (240, 240), (120, 120)),
+                               (360, 240, 120), host=False)
 
     # Each dtype has its own kernel; its launches are those of its server,
     # and its launches a step those over that server's decode steps.
@@ -521,18 +799,40 @@ def main():
     card_vs_cpu(model32)
     throughput(model16, "bf16", card)
     throughput(model32, "f32", card)
+    del model16, model32
+    torch.cuda.empty_cache()
+
+    train_gradients(att, mlp)
+    train_launches = {}
+    with tempfile.TemporaryDirectory() as work:
+        write_corpus(os.path.join(work, "data"))
+        for name, backend in (("f32", "python"), ("bf16", "python"),
+                              ("bf16", "device")):
+            counts = train_cli(work, name, backend)
+            if backend == "python":
+                for k, n in counts.items():
+                    train_launches[k, name] = n
+            shutil.rmtree(os.path.join(work, "run"))
+    train_rate(att, mlp, "bf16", card, steps=10)
+    train_rate(att, mlp, "f32", card, steps=5)
 
     sources = {"attention": ("mint_tpu_torch/csrc/attention.cu",
                              "mint_tpu/ops/attention.py:43"),
                "fused_mlp": ("mint_tpu_torch/csrc/mlp.cu",
                              "mint_tpu/ops/mlp.py:44")}
     # Each row's times are at the batch-20 full shape (Nq or M/20 = 360);
-    # "small" holds the same at the final block's 48 rows.
+    # "small" holds the same at the final block's 48 rows.  `launches` is
+    # the serving path's count; `train_launches` the train CLI's first
+    # invocation's (4 steps), and "train" the times at the training
+    # shapes (batch 32; Nq or M/32 = 360, 240, 120).
     kernels = [{"name": f"{name}_{dt}", "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name, dt],
                 "launches_per_step": per_step[name, dt],
+                "train_launches": train_launches[name, dt],
                 "max_abs_err": errs[name][dt],
-                **times[name, dt][360], "small": times[name, dt][48]}
+                **times[name, dt][360], "small": times[name, dt][48],
+                "train": {str(n): row for n, row in
+                          train_times[name, dt].items()}}
                for name, (src, rep) in sources.items()
                for dt in ("f32", "bf16")]
     print(json.dumps({"kernels": kernels}))

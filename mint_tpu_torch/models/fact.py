@@ -26,11 +26,15 @@ class FACT(nn.Module):
     `audio_dim` is the audio feature width; the flagship config leaves it
     unset, so it defaults to the AIST++ frontend's 35 (as
     ``init_params`` in ``mint_tpu/models/fact.py`` does).
+    `compute_dtype` is the JAX model's: every layer casts to it on each
+    call while the parameters keep their dtype (``models/layers.py``).
     """
 
-    def __init__(self, config: FACTModelConfig, audio_dim: int = 0):
+    def __init__(self, config: FACTModelConfig, audio_dim: int = 0,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.config = config
+        self.compute_dtype = compute_dtype
         motion_cfg = config.modality_by_name("motion")
         audio_cfg = config.modality_by_name("audio")
         feature_to_model, _, _ = build_modalities_model(config.modality)
@@ -51,23 +55,24 @@ class FACT(nn.Module):
         def transformer(tf):
             return layers.Transformer(tf.hidden_size, tf.num_hidden_layers,
                                       tf.num_attention_heads,
-                                      tf.intermediate_size)
+                                      tf.intermediate_size, compute_dtype)
 
         self.motion_linear_embedding = layers.LinearEmbedding(
-            self.motion_dim, motion_tf.hidden_size)
+            self.motion_dim, motion_tf.hidden_size, compute_dtype)
         self.motion_pos_embedding = layers.PositionEmbedding(
-            motion_cfg.sequence_length, motion_tf.hidden_size)
+            motion_cfg.sequence_length, motion_tf.hidden_size, compute_dtype)
         self.motion_transformer = transformer(motion_tf)
         self.audio_linear_embedding = layers.LinearEmbedding(
-            self.audio_dim, audio_tf.hidden_size)
+            self.audio_dim, audio_tf.hidden_size, compute_dtype)
         self.audio_pos_embedding = layers.PositionEmbedding(
-            audio_cfg.sequence_length, audio_tf.hidden_size)
+            audio_cfg.sequence_length, audio_tf.hidden_size, compute_dtype)
         self.audio_transformer = transformer(audio_tf)
         self.cross_modal_layer = layers.CrossModalLayer(
             cm.transformer.hidden_size, cm.transformer.num_hidden_layers,
             cm.transformer.num_attention_heads,
             cm.transformer.intermediate_size, cm.output_layer.out_dim,
-            output_initializer_range=cm.output_layer.initializer_range)
+            output_initializer_range=cm.output_layer.initializer_range,
+            compute_dtype=compute_dtype)
 
     @property
     def motion_seq_length(self) -> int:

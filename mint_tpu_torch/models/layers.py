@@ -15,14 +15,27 @@ so the Flax parameter tree maps onto ``state_dict`` keys one to one
 ``ops.fused_mlp``: on a CUDA tensor those launch the hand-written kernels,
 on a CPU tensor they run the kernels' plain versions.
 
-Dtype: a model is cast as a whole (``module.to(dtype)``) once at build.
-Flax's ``Dense(dtype=bf16)`` casts the f32 params to bf16 on every call,
-which gives the same values.
+Dtype, two ways (``models/builder.py`` picks one):
+
+- **Whole-model cast** (``compute_dtype=None``, the default): the model is
+  cast once at build (``module.to(dtype)``) and every layer computes in its
+  parameters' dtype.  The server and the decoder use it: in bf16 it gives
+  the forward values of Flax's per-call cast without a cast per call.
+- **``compute_dtype``**, as the JAX package's ``compute_dtype``: the
+  parameters stay in their own dtype (f32) and each layer casts on every
+  call, at the Flax cast points: ``Dense`` casts its input, kernel and bias
+  (``Dense(dtype=...)``), ``LayerNorm`` takes its statistics and affine in
+  f32 and casts its output (Flax's ``LayerNorm(dtype=...)``,
+  ``mint_tpu/models/layers.py:143-153``), ``PositionEmbedding`` casts its
+  table (``:236``).  The trainer uses it: the casts are differentiable, so
+  the gradients and Adam's state stay f32 while the kernels see bf16
+  operands, as they do in serving.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from mint_tpu_torch.ops import attention as attention_op
@@ -45,8 +58,15 @@ class Dense(nn.Linear):
     """nn.Linear with the Keras defaults: glorot-uniform kernel, zero bias.
 
     The input is cast to the layer's dtype first, as Flax's
-    ``Dense(dtype=...)`` does.
+    ``Dense(dtype=...)`` does; with a ``compute_dtype`` the kernel and bias
+    are cast to it too, on every call.
     """
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True,
+                 compute_dtype: torch.dtype | None = None):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = compute_dtype
 
     def reset_parameters(self) -> None:
         with torch.no_grad():
@@ -55,22 +75,41 @@ class Dense(nn.Linear):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(self.weight.dtype))
+        if self.compute_dtype is None:
+            return super().forward(x.to(self.weight.dtype))
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
 
 
-def layer_norm(dim: int) -> nn.LayerNorm:
-    return nn.LayerNorm(dim, eps=1e-5)
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm, epsilon 1e-5.  With a ``compute_dtype`` it follows
+    Flax's ``LayerNorm(dtype=...)``: statistics and the affine in f32 with
+    the f32 parameters, the output cast to ``compute_dtype``."""
+
+    def __init__(self, dim: int, compute_dtype: torch.dtype | None = None):
+        super().__init__(dim, eps=1e-5)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is None:
+            return super().forward(x)
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            self.weight.float(), self.bias.float(),
+                            self.eps).to(self.compute_dtype)
 
 
 class Attention(nn.Module):
     """Unmasked multi-head self-attention (``layers.py:61-96``)."""
 
-    def __init__(self, dim: int, heads: int = 8):
+    def __init__(self, dim: int, heads: int = 8,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.dim = dim
         self.heads = heads
-        self.to_qkv = Dense(dim, 3 * dim, bias=False)
-        self.to_out = Dense(dim, dim)
+        self.to_qkv = Dense(dim, 3 * dim, bias=False,
+                            compute_dtype=compute_dtype)
+        self.to_out = Dense(dim, dim, compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor, n_queries: int | None = None
                 ) -> torch.Tensor:
@@ -92,29 +131,38 @@ class Attention(nn.Module):
 class MLP(nn.Module):
     """GELU feedforward (``layers.py:99-116``) through ``ops.fused_mlp``."""
 
-    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int):
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
-        self.fc1 = Dense(in_dim, hidden_dim)
-        self.fc2 = Dense(hidden_dim, out_dim)
+        self.fc1 = Dense(in_dim, hidden_dim, compute_dtype=compute_dtype)
+        self.fc2 = Dense(hidden_dim, out_dim, compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # Weights enter in the JAX layout [in, out]: .t() of nn.Linear's
         # [out, in] is a view, and the kernel reads that storage as is.
-        return mlp_op.fused_mlp(x.to(self.fc1.weight.dtype),
-                                self.fc1.weight.t(), self.fc1.bias,
-                                self.fc2.weight.t(), self.fc2.bias)
+        dt = self.fc1.compute_dtype
+        if dt is None:
+            return mlp_op.fused_mlp(x.to(self.fc1.weight.dtype),
+                                    self.fc1.weight.t(), self.fc1.bias,
+                                    self.fc2.weight.t(), self.fc2.bias)
+        return mlp_op.fused_mlp(x.to(dt), self.fc1.weight.to(dt).t(),
+                                self.fc1.bias.to(dt),
+                                self.fc2.weight.to(dt).t(),
+                                self.fc2.bias.to(dt))
 
 
 class Block(nn.Module):
     """One pre-LN block: Residual(Norm(Attn)) + Residual(Norm(MLP))."""
 
     def __init__(self, hidden_size: int, num_heads: int,
-                 intermediate_size: int):
+                 intermediate_size: int,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
-        self.norm_attn = layer_norm(hidden_size)
-        self.attn = Attention(hidden_size, num_heads)
-        self.norm_mlp = layer_norm(hidden_size)
-        self.mlp = MLP(hidden_size, intermediate_size, hidden_size)
+        self.norm_attn = LayerNorm(hidden_size, compute_dtype)
+        self.attn = Attention(hidden_size, num_heads, compute_dtype)
+        self.norm_mlp = LayerNorm(hidden_size, compute_dtype)
+        self.mlp = MLP(hidden_size, intermediate_size, hidden_size,
+                       compute_dtype)
 
     def forward(self, x: torch.Tensor, n_out: int | None = None
                 ) -> torch.Tensor:
@@ -130,12 +178,14 @@ class Transformer(nn.Module):
 
     def __init__(self, hidden_size: int = 768, num_hidden_layers: int = 12,
                  num_attention_heads: int = 12,
-                 intermediate_size: int = 3072):
+                 intermediate_size: int = 3072,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.num_hidden_layers = num_hidden_layers
         for i in range(num_hidden_layers):
             self.add_module(f"block_{i}", Block(
-                hidden_size, num_attention_heads, intermediate_size))
+                hidden_size, num_attention_heads, intermediate_size,
+                compute_dtype))
 
     def forward(self, x: torch.Tensor, last_n_out: int | None = None
                 ) -> torch.Tensor:
@@ -152,9 +202,10 @@ class Transformer(nn.Module):
 class LinearEmbedding(nn.Module):
     """Linear input projection (``layers.py:212-220``)."""
 
-    def __init__(self, in_dim: int, dim: int):
+    def __init__(self, in_dim: int, dim: int,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
-        self.dense = Dense(in_dim, dim)
+        self.dense = Dense(in_dim, dim, compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.dense(x)
@@ -163,12 +214,15 @@ class LinearEmbedding(nn.Module):
 class PositionEmbedding(nn.Module):
     """Additive learned position embedding (``layers.py:223-236``)."""
 
-    def __init__(self, seq_length: int, dim: int):
+    def __init__(self, seq_length: int, dim: int,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.pos_embedding = nn.Parameter(torch.empty(seq_length, dim))
         trunc_normal_(self.pos_embedding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x if self.compute_dtype is None else x.to(self.compute_dtype)
         return x + self.pos_embedding.to(x.dtype)
 
 
@@ -178,13 +232,15 @@ class CrossModalLayer(nn.Module):
 
     def __init__(self, hidden_size: int, num_hidden_layers: int,
                  num_attention_heads: int, intermediate_size: int,
-                 out_dim: int, output_initializer_range: float = 0.02):
+                 out_dim: int, output_initializer_range: float = 0.02,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.output_initializer_range = output_initializer_range
         self.transformer = Transformer(hidden_size, num_hidden_layers,
                                        num_attention_heads,
-                                       intermediate_size)
-        self.cross_output_layer = Dense(hidden_size, out_dim)
+                                       intermediate_size, compute_dtype)
+        self.cross_output_layer = Dense(hidden_size, out_dim,
+                                        compute_dtype=compute_dtype)
         trunc_normal_(self.cross_output_layer.weight,
                       output_initializer_range)
 

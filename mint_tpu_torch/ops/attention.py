@@ -6,6 +6,13 @@ port of the Pallas kernel ``pallas_attention`` (its source is
 plain PyTorch version with the kernel's cast points.  The scale is always
 passed in: FACT scales by the full model dim, ``800 ** -0.5``, not the
 head dim (``mint_tpu/models/layers.py:84``).
+
+Gradients: where one is wanted, the kernel's launch runs inside
+:class:`AttentionFunction`, whose backward is the VJP of
+:func:`attention_formula` recomputed from the saved q, k and v, as the
+JAX custom VJP differentiates its plain formula ``xla_attention``
+(``mint_tpu/ops/attention.py:127-142``).  No backward kernel exists there
+either.
 """
 
 from __future__ import annotations
@@ -35,6 +42,19 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
+def attention_formula(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      scale: float) -> torch.Tensor:
+    """The JAX package's ``xla_attention``, the formula its custom VJP
+    differentiates: Q.K^T and P.V in the inputs' dtype (on the card a bf16
+    GEMM accumulates in f32 and rounds its output), the softmax in f32, P
+    cast to the inputs' dtype.  In f32 it is :func:`attention_reference`
+    up to summation order."""
+    dots = torch.matmul(q, k.transpose(-1, -2)) * scale
+    p = torch.softmax(dots.to(torch.promote_types(q.dtype, torch.float32)),
+                      dim=-1).to(q.dtype)
+    return torch.matmul(p, v)
+
+
 _ENTRY = {torch.float32: "mint_attention_f32",
           torch.bfloat16: "mint_attention_bf16"}
 
@@ -57,11 +77,43 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel (or raises).  The kernel reads q, k and v through their strides
     (any on B, H and N, D contiguous), so views of a fused QKV projection
     cost no copy, and returns a [B, H, Nq, D] view of [B, Nq, H, D]
-    storage, so merging the heads afterwards is a view too.
+    storage, so merging the heads afterwards is a view too.  The launch
+    goes through :class:`AttentionFunction` only where autograd needs it
+    (grad mode on and an input that requires grad): the decode, under
+    ``no_grad``, launches directly.
     """
     if q.device.type == "cpu":
         return attention_reference(q, k, v, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return AttentionFunction.apply(q, k, v, scale, _launch)
     return _launch(q, k, v, scale)
+
+
+class AttentionFunction(torch.autograd.Function):
+    """``forward(q, k, v, scale)`` as the forward, and the VJP of
+    :func:`attention_formula` as the backward (the JAX package's
+    ``_pallas_attention_fwd`` / ``_pallas_attention_bwd``: in bf16 the
+    backward's GEMMs run in bf16, as XLA's VJP of ``xla_attention`` does).
+
+    ``forward`` is the kernel's launch on the card; the CPU tests pass the
+    plain version in its place.  q, k and v are saved as they are (the
+    model's strided views of its fused QKV output: no copy)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, forward):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return forward(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = attention_formula(*inputs, ctx.scale)
+            grads = torch.autograd.grad(out, inputs, grad_out)
+        return (*(g if need else None for g, need in
+                  zip(grads, ctx.needs_input_grad)), None, None)
 
 
 def _tma_ready(t: torch.Tensor) -> bool:

@@ -8,6 +8,11 @@ PyTorch version with the kernel's cast points.  Weights are taken in the
 JAX layout, W1 [H, F] and W2 [F, O].  The kernel reads them transposed
 (nn.Linear's [out, in] layout), so passing ``linear.weight.t()`` costs no
 copy, while a contiguous JAX-layout tensor is copied once per call.
+
+Gradients: where one is wanted, the kernel's launch runs inside
+:class:`MLPFunction`, whose backward is the VJP of :func:`mlp_formula`
+recomputed from the saved inputs, as the JAX custom VJP differentiates its
+plain formula ``_reference_mlp`` (``mint_tpu/ops/mlp.py:111-121``).
 """
 
 from __future__ import annotations
@@ -37,6 +42,14 @@ def mlp_reference(x, w1, b1, w2, b2) -> torch.Tensor:
     return (h.float() @ w2.float() + b2.float()).to(x.dtype)
 
 
+def mlp_formula(x, w1, b1, w2, b2) -> torch.Tensor:
+    """The JAX package's ``_reference_mlp``, the formula its custom VJP
+    differentiates: ``gelu_tanh(x W1 + b1) W2 + b2`` in the inputs' dtype
+    (on the card a bf16 GEMM accumulates in f32 and rounds its output).
+    In f32 it is :func:`mlp_reference` up to summation order."""
+    return gelu_tanh(x @ w1 + b1) @ w2 + b2
+
+
 _ENTRY = {torch.float32: "mint_mlp_f32", torch.bfloat16: "mint_mlp_bf16"}
 
 
@@ -44,13 +57,43 @@ def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
     """Fused MLP on [..., H] inputs; weights [H, F], [F], [F, O], [O].
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (or raises).
+    kernel (or raises), through :class:`MLPFunction` only where autograd
+    needs it (grad mode on and an input that requires grad).
     """
     if x.device.type == "cpu":
         return mlp_reference(x, w1, b1, w2, b2)
     lead = x.shape[:-1]
-    out = _launch(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2)
+    args = (x.reshape(-1, x.shape[-1]), w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        out = MLPFunction.apply(*args, _launch)
+    else:
+        out = _launch(*args)
     return out.reshape(*lead, out.shape[-1])
+
+
+class MLPFunction(torch.autograd.Function):
+    """``forward(x, w1, b1, w2, b2)`` as the forward, and the VJP of
+    :func:`mlp_formula` as the backward (the JAX package's ``_fwd`` /
+    ``_bwd``: in bf16 the backward's GEMMs run in bf16, as XLA's VJP of
+    ``_reference_mlp`` does).
+
+    ``forward`` is the kernel's launch on the card; the CPU tests pass the
+    plain version in its place.  The inputs are saved as they are (the
+    model's ``.t()`` views of its weights: no copy)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, forward):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return forward(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = mlp_formula(*inputs)
+            grads = torch.autograd.grad(out, inputs, grad_out)
+        return (*(g if need else None for g, need in
+                  zip(grads, ctx.needs_input_grad)), None)
 
 
 def _launch(x, w1, b1, w2, b2):

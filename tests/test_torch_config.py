@@ -35,3 +35,25 @@ def test_port_config_matches_jax(override):
     assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
     assert (ours.multi_modal_model.which()
             == theirs.multi_modal_model.which() == "fact_model")
+
+
+@pytest.mark.parametrize("override", [
+    None,
+    "train_config { batch_size: 8 use_bfloat16: true }",
+    "train_config { learning_rate { cosine_decay_learning_rate {"
+    " total_steps: 100 } } }",
+], ids=["none", "train_scalars", "oneof"])
+def test_config_snapshot_text_matches_jax(override, tmp_path):
+    """The train CLI's snapshot (the port's copy of serialize.py) writes
+    the JAX package's text, and loading it gives the config back."""
+    from mint_tpu.config import serialize as jax_serialize
+    from mint_tpu_torch.config import serialize
+
+    ours = schema.load_pipeline_config(CONFIG, config_override=override)
+    theirs = jax_schema.load_pipeline_config(CONFIG,
+                                             config_override=override)
+    text = serialize.pipeline_to_text(ours)
+    assert text == jax_serialize.pipeline_to_text(theirs)
+    path = serialize.save_pipeline_config(ours, str(tmp_path / "run"))
+    assert path == str(tmp_path / "run" / "pipeline.config")
+    assert schema.load_pipeline_config(path) == ours

@@ -1,8 +1,8 @@
 """The port stands alone: no JAX stack, no CUDA toolchain on the CPU path.
 
 The machine with the card has no jax, flax, optax, orbax or absl, so
-``mint_tpu_torch``, ``chip_smoke.py`` and the port's profile script must
-import none of them, and nothing of the JAX package ``mint_tpu`` either:
+``mint_tpu_torch``, ``chip_smoke.py`` and the port's profile scripts
+(``scripts/torch_*.py``) must import none of them, and nothing of the JAX package ``mint_tpu`` either:
 the port keeps its own copy of the config schema (``mint_tpu_torch.config``).
 """
 
@@ -55,6 +55,25 @@ frames = decoder.infer_auto_regressive(
             "audio_input": rng.standard_normal((2, 10, 35), np.float32)},
     steps=5)
 assert frames.shape == (2, 5, 9) and torch.isfinite(frames).all()
+
+import tempfile
+from mint_tpu_torch.train import (CheckpointManager, Controller, Trainer,
+                                  schedules)
+trainer = Trainer(model, schedules.constant(1e-3), grad_clip_norm=1.0)
+batch = {"motion_input": rng.standard_normal((2, 4, 9), np.float32),
+         "audio_input": rng.standard_normal((2, 6, 35), np.float32),
+         "target": rng.standard_normal((2, 2, 9), np.float32)}
+def batches():
+    while True:
+        yield batch
+with tempfile.TemporaryDirectory() as tmp:
+    ctl = Controller(trainer=trainer, train_iter=batches(),
+                     state=trainer.init_state(model), steps_per_loop=2,
+                     checkpoint_manager=CheckpointManager(tmp),
+                     summary_dir=tmp)
+    metrics = ctl.train(3)
+    ctl.close()
+assert ctl.global_step == 3 and np.isfinite(metrics["loss"])
 assert _build._lib is None, "the CPU path must not build the kernels"
 print("MODULES", len(names))
 print("LOADED", " ".join(sorted(sys.modules)))
@@ -69,7 +88,7 @@ def test_port_imports_no_jax_stack_and_builds_nothing_on_cpu():
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines()
                  if line.startswith(("MODULES", "LOADED")))
-    assert int(lines["MODULES"]) >= 15
+    assert int(lines["MODULES"]) >= 35
     loaded = lines["LOADED"].split()
     roots = {name.split(".")[0] for name in loaded}
     assert not roots & set(FORBIDDEN), roots & set(FORBIDDEN)
@@ -78,8 +97,10 @@ def test_port_imports_no_jax_stack_and_builds_nothing_on_cpu():
 
 
 def _port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "scripts", "torch_profile_decode.py")]
+    scripts = os.path.join(REPO, "scripts")
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(scripts, n) for n in sorted(os.listdir(scripts))
+        if n.startswith("torch_") and n.endswith(".py")]
     for root, _, names in os.walk(os.path.join(REPO, "mint_tpu_torch")):
         files += [os.path.join(root, n) for n in names
                   if n.endswith((".py", ".cu", ".cuh"))]
