@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's serving path once on one CUDA card.
+"""Drive the PyTorch port's serving, training and scoring paths once on one
+CUDA card.
 
 Run from the repo root with no arguments: ``python3 chip_smoke.py``.
 
@@ -9,15 +10,17 @@ CPU):
    and the build of ``mint_tpu_torch/csrc/*.cu`` for sm_90a;
 2. each kernel against its plain PyTorch version on the card, at FACT's
    shapes in f32 and bf16 (and two more f32 head dims; attention also on
-   the model's strided q/k/v views), with the tolerance stated; each
-   kernel's time at the batch-20 decode's shapes beside the plain
-   version's, its bound and, for attention, that of PyTorch's own fused
-   attention call (timed in ``time_kernels`` as a yardstick only);
+   the model's strided q/k/v views; the bf16 LayerNorm, which takes f32
+   parameters, in bf16 only), with the tolerance stated; each kernel's
+   time at the batch-20 decode's shapes beside the plain version's, its
+   bound and, for attention, that of PyTorch's own fused attention call
+   (timed in ``time_kernels`` as a yardstick only);
 3. the slice: the flagship FACT (configs/fact_v5_deeper_t10_cm12.config,
    full width and depth, weights from a torch.Generator seeded 0) behind
    the port's GenerationService and HTTP server answers concurrent
    requests in two length buckets, in f32 and in bf16; the kernels'
-   launch counts must equal 16 blocks x decode steps;
+   launch counts must equal 16 blocks x decode steps (the bf16 LayerNorm
+   kernel: 32 LayerNorms x decode steps in bf16, none in f32);
 4. the same f32 weights on the card (kernels) and on the CPU (plain
    versions): one forward and a 60-step decode, compared (the first 3
    frames held to a tolerance, the drift over 60 recorded);
@@ -36,9 +39,25 @@ CPU):
    checkpoints and writes finite, falling losses, and a second invocation
    resumes from its checkpoint; (c) train steps/s at batch 32 in bf16 and
    f32.
+7. the scoring path, from phase 6's f32 checkpoint: (a) a synthetic eval
+   corpus (``*_tfrecord-testval*``: the protocol's 40 clips of 1200 steps,
+   three in a 384-step bucket that a partial batch pads, one too short to
+   decode); (b) the port's evaluate CLI as a subprocess on the full
+   flagship in f32 at the default decode batch (the 1200-step bucket
+   dispatches a full batch of it, then the rest): one clip per decodable
+   clip, 16 launches of each f32 kernel per decode step, its first bucket
+   against a direct decode of the restored weights on the card; (c) the
+   same CLI with ``--use_bfloat16`` on the 384-step bucket;
+   (d) the extract_features CLI on a synthetic AIST++ annotation
+   directory; (e) the calculate_scores CLI on (b)'s clips (FID_k, FID_g,
+   Beat Alignment, finite); (f) the same scores on the card and on the CPU;
+   then the f32 decode batch sweep and the protocol's generated frames/s
+   it gives at each cap, which set the evaluator's default, and the
+   kernels timed at the eval's shapes.
 
 Phase 2 also checks and times both kernels at the training shapes
-(batch 32).  The last lines are one JSON object describing the kernels,
+(batch 32), and checks them at the eval's (the batches phase 7 dispatches
+and the evaluator's default).  The last lines are one JSON object describing the kernels,
 the card's ``nvidia-smi`` name and power limit, and ``{"ok": true,
 "device": ...}``.
 """
@@ -125,7 +144,9 @@ def check_attention(att, gen):
     # The model's own layout at FACT's shapes: strided views in.
     fused = [(2, 10, 360, 360, 80), (2, 10, 48, 360, 80),
              (DISPATCH, 10, 360, 360, 80), (DISPATCH, 10, 48, 360, 80),
-             (TRAIN_BATCH, 10, 360, 360, 80)]
+             (TRAIN_BATCH, 10, 360, 360, 80)] + [
+        (b, 10, nq, nk, 80) for b in eval_batches()
+        for nq, nk in ((360, 360), (240, 240), (120, 120), (48, 360))]
     for dtype in (torch.float32, torch.bfloat16):
         for layout, (b, h, nq, nk, d) in (
                 [("contiguous", c) for c in cases + (
@@ -176,12 +197,15 @@ def check_mlp(mlp, gen):
     # fc1 (M = 7200, 4800) take the 144-row GEMM instance; in both dtypes
     # the last block's fc2 (M = 960) is split over K, and at batch 1
     # (M = 360) both bf16 passes are.  And at the batch-32 training M
-    # (11520, 7680, 3840), which the kernels plan by M and the SM count.
+    # (11520, 7680, 3840), which the kernels plan by M and the SM count,
+    # and at the eval's (phase 7).
+    rows = [2 * 360, 2 * 48, 257, 3, 360, DISPATCH * 360, DISPATCH * 240,
+            DISPATCH * 48, TRAIN_BATCH * 360, TRAIN_BATCH * 240,
+            TRAIN_BATCH * 120] + [b * n for b in eval_batches()
+                                  for n in (360, 240, 120, 48)]
     for dtype in (torch.float32, torch.bfloat16):
         w1, b1, w2, b2 = mlp_weights(gen, dtype)
-        for m in (2 * 360, 2 * 48, 257, 3, 360, DISPATCH * 360,
-                  DISPATCH * 240, DISPATCH * 48, TRAIN_BATCH * 360,
-                  TRAIN_BATCH * 240, TRAIN_BATCH * 120):
+        for m in rows:
             x = torch.randn(m, 800, device="cuda", generator=gen).to(dtype)
             got = mlp.fused_mlp(x, w1, b1, w2, b2)
             torch.cuda.synchronize()
@@ -203,6 +227,67 @@ def check_mlp(mlp, gen):
                 raise AssertionError(f"fused MLP kernel disagrees: {err}")
             worst[DTYPES[dtype]] = max(worst[DTYPES[dtype]], err)
     return worst
+
+
+def ln_params(gen, cols=800):
+    """f32 LayerNorm scale and bias no bf16 value holds: scales near 1,
+    biases of order 1 (as a trained checkpoint's)."""
+    w = 1 + 0.05 * torch.randn(cols, device="cuda", generator=gen)
+    return w, 0.5 * torch.randn(cols, device="cuda", generator=gen)
+
+
+def check_layer_norm(ln, gen):
+    """Worst error of the bf16 LayerNorm kernel (bf16 input, f32
+    parameters) against its plain version, at the decode's, training's
+    and eval's rows and three other widths."""
+    rows = [(m, 800) for m in [2 * 360, 2 * 48, 3, 257]
+            + [DISPATCH * n for n in (360, 240, 120, 48)]
+            + [TRAIN_BATCH * n for n in (360, 240, 120)]
+            + [b * n for b in eval_batches() for n in (360, 240, 120, 48)]]
+    worst = 0.0
+    for m, cols in rows + [(5, 64), (3, 1024), (4, 2)]:
+        x = (torch.randn(m, cols, device="cuda", generator=gen) * 2
+             + 0.5).bfloat16()
+        w, b = ln_params(gen, cols)
+        got = ln.layer_norm(x, w, b, 1e-5)
+        torch.cuda.synchronize()
+        want = ln.layer_norm_reference(x, w, b, 1e-5)
+        err = (got.float() - want.float()).abs()
+        # 1 bf16 ulp of each output (floored at the ulp of 2^-8, below
+        # which the two sides' f32 sums, not bf16, rule): both take f32
+        # statistics in another order and round once.
+        ulp = torch.exp2(torch.floor(torch.log2(
+            want.float().abs().clamp_min(2.0 ** -8))) - 7)
+        ulps = (err / ulp).max().item()
+        ok = ulps <= 1.0 and got.shape == want.shape and got.dtype == x.dtype
+        log(f"layer_norm bf16 x[{m},{cols}] f32 scale/bias: max_abs_err "
+            f"{err.max().item():.3e}, {ulps:.2f} ulps of the output (tol 1 "
+            f"bf16 ulp: f32 statistics in another order, one rounding) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"layer_norm kernel disagrees: {ulps} ulps")
+        worst = max(worst, err.max().item())
+    return worst
+
+
+def reset_launches():
+    """Every kernel's launch count to 0."""
+    from mint_tpu_torch.ops import attention, layer_norm, mlp
+    attention.launches = mlp.launches = layer_norm.launches = 0
+
+
+def launch_counts():
+    """Every kernel's launches since the last :func:`reset_launches`."""
+    from mint_tpu_torch.ops import attention, layer_norm, mlp
+    return {"attention": attention.launches, "fused_mlp": mlp.launches,
+            "layer_norm": layer_norm.launches}
+
+
+def expected_launches(forwards: int, bf16: bool):
+    """Launches of `forwards` flagship forwards: 16 blocks of attention and
+    MLP each, and in bf16 two LayerNorms a block."""
+    return {"attention": 16 * forwards, "fused_mlp": 16 * forwards,
+            "layer_norm": 32 * forwards if bf16 else 0}
 
 
 def host_us(fn, iters: int = 200) -> float:
@@ -247,14 +332,14 @@ def mlp_work(m, h, f, o, elem):
             elem * (m * h + h * f + f + f * o + o + m * o))
 
 
-def time_kernels(att, mlp, gen, card, batch, attn_shapes, mlp_rows,
+def time_kernels(att, mlp, ln, gen, card, batch, attn_shapes, mlp_rows,
                  host=True):
     """Kernel, plain version and, for attention, one PyTorch call
     (F.scaled_dot_product_attention, the yardstick: the port never calls
     it) at `batch` and the given shapes (attention's (Nq, Nk), the MLP's
-    rows per sample), with each one's bound and, if `host`, the host's
-    cost of a call.  Returns {(kernel, dtype name): {Nq or rows: row}} for
-    the summary line."""
+    and the bf16 LayerNorm's rows per sample), with each one's bound and,
+    if `host`, the host's cost of a call.  Returns {(kernel, dtype name):
+    {Nq or rows: row}} for the summary line."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -326,6 +411,29 @@ def time_kernels(att, mlp, gen, card, batch, attn_shapes, mlp_rows,
                 f"plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}), no "
                 f"single library call{hosted} ({card})")
             summary.setdefault(("fused_mlp", name), {})[rows] = row
+    # The LayerNorm kernel takes bf16 rows with f32 parameters.  No single
+    # PyTorch call computes that on the card: layer_norm refuses the mixed
+    # dtypes, so the plain version casts in and out (three launches).
+    w, b = ln_params(gen)
+    for rows in mlp_rows:
+        m = batch * rows
+        x = torch.randn(m, 800, device="cuda", generator=gen).bfloat16()
+        t_k = cuda_ms(lambda: ln.layer_norm(x, w, b, 1e-5))
+        t_p = cuda_ms(lambda: ln.layer_norm_reference(x, w, b, 1e-5))
+        # Read x, scale and bias once, write the output once; about 8 f32
+        # operations an element (sum, deviation, square, affine).
+        b_ms, b_by = bound(8.0 * m * 800, 2 * 2 * m * 800 + 2 * 4 * 800,
+                           "f32")
+        row = {"shape": f"x[{m},800]", "ms": t_k, "plain_ms": t_p,
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        hosted = ""
+        if host:
+            row["host_us"] = host_us(lambda: ln.layer_norm(x, w, b, 1e-5))
+            hosted = f"; host {row['host_us']:.1f} us a call"
+        log(f"time layer_norm bf16 x[{m},800] f32 scale/bias: kernel "
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), no single library call{hosted} ({card})")
+        summary.setdefault(("layer_norm", "bf16"), {})[rows] = row
     return summary
 
 
@@ -356,7 +464,7 @@ def _post(url: str, body: bytes) -> np.ndarray:
         return np.load(io.BytesIO(r.read()), allow_pickle=False)
 
 
-def serve_requests(model, att, mlp, dtype_name):
+def serve_requests(model, dtype_name):
     """Concurrent HTTP requests: three that co-batch in the 128-steps
     bucket and one in the 256-steps bucket.  Returns each kernel's launches
     in this run and the server's decode steps."""
@@ -384,7 +492,7 @@ def serve_requests(model, att, mlp, dtype_name):
             errors.append(e)
 
     try:
-        att.launches = mlp.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         threads = [threading.Thread(target=call, args=(i,))
                    for i in range(len(asks))]
@@ -394,7 +502,7 @@ def serve_requests(model, att, mlp, dtype_name):
             t.join(timeout=900)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {"attention": att.launches, "fused_mlp": mlp.launches}
+        launches = launch_counts()
         if errors or any(t.is_alive() for t in threads):
             raise RuntimeError(f"requests failed: {errors}")
         with urllib.request.urlopen(f"{url}/stats", timeout=60) as r:
@@ -413,7 +521,9 @@ def serve_requests(model, att, mlp, dtype_name):
     n_blocks = sum(len(list(m.children())) for m in (
         model.motion_transformer, model.audio_transformer,
         model.cross_modal_layer.transformer))
-    expect = n_blocks * stats["decode_steps"]
+    if n_blocks != 16:
+        raise AssertionError(f"the flagship has {n_blocks} blocks, not 16")
+    expect = expected_launches(stats["decode_steps"], dtype_name == "bf16")
     log(f"server {dtype_name}: {len(asks)} requests answered in "
         f"{seconds:.3f} s; shapes {[r.shape for r in results]} all finite; "
         f"stats {stats}; healthz {health['status']}")
@@ -421,11 +531,11 @@ def serve_requests(model, att, mlp, dtype_name):
             or stats["decode_steps"] != 128 + 256):
         raise AssertionError(f"requests did not co-batch as expected: "
                              f"{stats}")
-    for name, n in launches.items():
-        log(f"server {dtype_name}: {name} launches {n} == {n_blocks} "
-            f"blocks x {stats['decode_steps']} decode steps = {expect}")
-        if n != expect:
-            raise AssertionError(f"{name}: {n} launches, expected {expect}")
+    log(f"server {dtype_name}: launches {launches} == {expect} (16 blocks, "
+        f"32 LayerNorms in bf16, x {stats['decode_steps']} decode steps)")
+    if launches != expect:
+        raise AssertionError(f"server {dtype_name}: launches {launches}, "
+                             f"expected {expect}")
     return launches, stats["decode_steps"]
 
 
@@ -519,7 +629,7 @@ def train_batch(b, device, seed):
             for k, v in shapes.items()}
 
 
-def train_gradients(att, mlp):
+def train_gradients():
     """One forward and backward of the flagship through Trainer on the card
     and on the CPU with the same weights and batch: in f32 every gradient
     compared, in bf16 compute every gradient present and finite; 16
@@ -529,11 +639,11 @@ def train_gradients(att, mlp):
     def grads(model, batch):
         trainer = Trainer(model, schedules.constant(0.0))
         params = trainer.init_state(model).params
-        att.launches = mlp.launches = 0
+        reset_launches()
         loss, g = trainer.loss_and_grads(params, batch)
         if model.device.type == "cuda":
             torch.cuda.synchronize()
-        counts = {"attention": att.launches, "fused_mlp": mlp.launches}
+        counts = launch_counts()
         if set(g) != set(params):
             raise AssertionError(f"parameters without a gradient: "
                                  f"{sorted(set(params) - set(g))}")
@@ -560,7 +670,7 @@ def train_gradients(att, mlp):
         f"through 16 blocks and back); launches per forward {counts}")
     if not rel <= 1e-5 or not worst <= 1e-4:
         raise AssertionError("card and CPU gradients disagree")
-    expect = {"attention": 16, "fused_mlp": 16}
+    expect = expected_launches(1, bf16=False)
     if counts != expect:
         raise AssertionError(f"launches per forward {counts}, want {expect}")
     del card, g_card
@@ -591,7 +701,8 @@ def train_gradients(att, mlp):
         f"each leaf: bf16 rounding, 8 significant bits, through 16 blocks "
         f"and back; a wrong GEMM gives an error of order 1); launches per "
         f"forward {counts16}")
-    if (bad or counts16 != expect or not math.isfinite(loss16)
+    if (bad or counts16 != expected_launches(1, bf16=True)
+            or not math.isfinite(loss16)
             or not rel16 <= 0.1 or not per_leaf[worst16] <= 0.1):
         raise AssertionError(f"bf16 training gradients: bad {bad}, "
                              f"relative L2 {rel16}, worst leaf {worst16} "
@@ -632,30 +743,42 @@ def write_corpus(data_dir, n_seq=32, length=300, shards=2):
                 }))
 
 
+def run_module(module, args, cwd):
+    """``python -m module args`` from `cwd` with the repo on the path;
+    returns its stdout, stderr and wall seconds, raising if it fails."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"{module} exited {proc.returncode}:\n"
+                           f"{proc.stderr[-4000:]}")
+    return proc.stdout, proc.stderr, seconds
+
+
+def logged_launches(stderr, what):
+    """The kernel launch counts a CLI logged ("kernel launches: {...}")."""
+    found = re.findall(r"kernel launches: (\{.*\})", stderr)
+    if not found:
+        raise AssertionError(f"the {what} reported no kernel launches")
+    return json.loads(found[-1])
+
+
 def run_train_cli(work, model_dir, steps, bf16, backend):
     """One invocation of the port's train CLI with `backend` as its
     ``--input_backend``, run from `work` (where the config's relative
     data_files finds ./data); returns its launch counts and stderr."""
-    cmd = [sys.executable, "-m", "mint_tpu_torch.tools.train",
-           f"--config_path={CONFIG}", f"--model_dir={model_dir}",
-           f"--steps={steps}", "--steps_per_loop=2",
-           "--checkpoint_interval=3", "--summary_interval=1",
-           f"--input_backend={backend}"]
+    args = [f"--config_path={CONFIG}", f"--model_dir={model_dir}",
+            f"--steps={steps}", "--steps_per_loop=2",
+            "--checkpoint_interval=3", "--summary_interval=1",
+            f"--input_backend={backend}"]
     if bf16:
-        cmd.append("--use_bfloat16")
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=work, env=env, capture_output=True,
-                          text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"train CLI exited {proc.returncode}:\n"
-                           f"{proc.stderr[-4000:]}")
-    found = re.findall(r"kernel launches: (\{.*\})", proc.stderr)
-    if not found:
-        raise AssertionError("the train CLI reported no kernel launches")
-    return json.loads(found[-1]), proc.stderr, seconds
+        args.append("--use_bfloat16")
+    _, err, seconds = run_module("mint_tpu_torch.tools.train", args, work)
+    return logged_launches(err, "train CLI"), err, seconds
 
 
 def train_cli(work, name, backend):
@@ -684,10 +807,11 @@ def train_cli(work, name, backend):
     if ckpts() != [1, 4] or [r["step"] for r in first] != [1, 3, 4]:
         raise AssertionError(f"train CLI {name}: checkpoints {ckpts()}, "
                              f"summaries at {[r['step'] for r in first]}")
-    expect = {"attention": 16 * 4, "fused_mlp": 16 * 4}
+    expect = expected_launches(4, bf16)
     if counts != expect:
         raise AssertionError(f"train CLI {name}: launches {counts}, want "
-                             f"{expect} (16 a step)")
+                             f"{expect} (16 a step, and 32 LayerNorms in "
+                             f"bf16)")
     counts2, err2, seconds2 = run_train_cli(work, model_dir, 6, bf16,
                                             backend)
     every = rows()
@@ -699,14 +823,14 @@ def train_cli(work, name, backend):
         f"losses by step {[(r['step'], round(r['loss'], 5)) for r in every]}")
     if (not resumed or ckpts() != [1, 4, 6]
             or [r["step"] for r in every] != [1, 3, 4, 6]
-            or counts2 != {"attention": 32, "fused_mlp": 32}):
+            or counts2 != expected_launches(2, bf16)):
         raise AssertionError(f"train CLI {name} did not resume as expected")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"train CLI {name}: losses {losses}")
     return counts
 
 
-def train_rate(att, mlp, name, card, steps):
+def train_rate(name, card, steps):
     """Train steps/s of Trainer.train_step at batch 32 on a batch resident
     on the card, after two warm-up steps; with the launches of the timed
     steps and the peak device memory."""
@@ -721,25 +845,443 @@ def train_rate(att, mlp, name, card, steps):
     for _ in range(2):
         state, metrics = trainer.train_step(state, batch)
     torch.cuda.synchronize()
-    att.launches = mlp.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     for _ in range(steps):
         state, metrics = trainer.train_step(state, batch)
     loss = float(metrics["loss"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = {"attention": att.launches, "fused_mlp": mlp.launches}
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"train {name} batch {TRAIN_BATCH} x {steps} steps: {seconds:.4f} s, "
         f"{steps / seconds:.3f} steps/s, {1000 * seconds / steps:.2f} "
         f"ms/step, peak memory {peak:.2f} GiB, loss {loss:.5f}, launches "
         f"{counts} ({card})")
-    if counts != {"attention": 16 * steps, "fused_mlp": 16 * steps} \
+    if counts != expected_launches(steps, name == "bf16") \
             or not math.isfinite(loss):
         raise AssertionError(f"train {name}: launches {counts}, loss {loss}")
     del model, trainer, state
     torch.cuda.empty_cache()
     return steps / seconds
+
+
+# -- phase 7: the scoring path ----------------------------------------------
+
+SEED_FRAMES = 120    # the flagship's motion window: the saved clips' seed
+EVAL_BUCKET = 128    # the evaluate CLI's default --steps_bucket
+SWEEP_BATCHES = (8, 16, 32, 64)
+PROTOCOL_CLIPS = 40  # the scoring protocol: 40 clips of 1200 steps
+
+
+def eval_clips():
+    """(motion name, audio name, audio frames) of the synthetic eval
+    corpus: the protocol's 40 of 1439 frames (1200 steps each: a full
+    batch at the default cap of 32, then 8), three whose 300, 290 and 270
+    steps share the 384-step bucket (a partial batch of 3, padded to 4),
+    and one of 200 frames, which cannot fill the 240-frame audio window
+    and is skipped."""
+    steps = [1200] * PROTOCOL_CLIPS + [300, 290, 270] + [200 - 239]
+    return [(f"gBR_sBM_cAll_d04_mBR{i}_ch{i:02d}", f"mBR{i}", n + 239)
+            for i, n in enumerate(steps)]
+
+
+def true_steps(audio_frames):
+    return max(0, min(1200, audio_frames - 240 + 1))
+
+
+def write_eval_corpus(data_dir, audio_dir):
+    """The clips of :func:`eval_clips` as ``*_tfrecord-testval*`` shards
+    (shard 0: the full-length clips and the short one; shard 1: the
+    384-step bucket), one per Example, from np.random.default_rng(1): 150
+    frames of 219-dim motion and 35-dim audio whose column 34 marks a beat
+    every 30 frames at a phase of its own.  Each clip's audio features also
+    go to ``audio_dir/{audio name}.npy``, the scorer's audio cache.
+    Returns {motion name: audio features}."""
+    from mint_tpu_torch.data.example import encode_example
+    from mint_tpu_torch.data.tfrecord import TFRecordWriter
+
+    rng = np.random.default_rng(1)
+    os.makedirs(audio_dir, exist_ok=True)
+    audio_of = {}
+    clips = eval_clips()
+    shards = [[c for c in clips if true_steps(c[2]) in (0, 1200)],
+              [c for c in clips if 0 < true_steps(c[2]) < 1200]]
+    for k, shard in enumerate(shards):
+        path = os.path.join(data_dir, f"aist_tfrecord-testval-{k:05d}-of-"
+                                      f"{len(shards):05d}")
+        with TFRecordWriter(path) as w:
+            for i, (motion_name, audio_name, n) in enumerate(shard):
+                motion = rng.standard_normal((150, 219)).astype(np.float32)
+                audio = rng.standard_normal((n, 35)).astype(np.float32)
+                audio[:, 34] = (np.arange(n) + 7 * i) % 30 == 0
+                np.save(os.path.join(audio_dir, f"{audio_name}.npy"), audio)
+                audio_of[motion_name] = audio
+                w.write(encode_example({
+                    "motion_sequence": motion.ravel(),
+                    "motion_sequence_shape": np.asarray(motion.shape,
+                                                        np.int64),
+                    "motion_name": [motion_name],
+                    "audio_sequence": audio.ravel(),
+                    "audio_sequence_shape": np.asarray(audio.shape,
+                                                       np.int64),
+                    "audio_name": [audio_name],
+                }))
+    return audio_of
+
+
+def write_annotations(anno_dir, n_seq=80, frames=300):
+    """An AIST++-layout annotation directory from np.random.default_rng(2):
+    ``splits/crossmodal_{train,val,test}.txt`` (60 / 10 / 10 sequences and
+    two more on ``ignore_list.txt``) and ``motions/*.pkl`` holding
+    ``smpl_poses`` [T, 72], ``smpl_scaling`` [1] and ``smpl_trans`` [T, 3]
+    (scaled units).  Poses are random walks, half of them with jumps, of
+    a size of their own per sequence, and the translation moves at a speed
+    of its own, so that every kinetic and geometric feature varies over the
+    set (FID z-normalises by its spread)."""
+    import pickle
+
+    rng = np.random.default_rng(2)
+    names = [f"g{g}_sBM_cAll_d{i % 30:02d}_m{g}{i % 6}_ch{i:02d}"
+             for i, g in zip(range(n_seq + 2), ["BR", "PO", "LO", "MH"] * 99)]
+    os.makedirs(os.path.join(anno_dir, "splits"))
+    os.makedirs(os.path.join(anno_dir, "motions"))
+    parts = {"train": names[:60], "val": names[60:70],
+             "test": names[70:n_seq + 2]}
+    for part, seqs in parts.items():
+        with open(os.path.join(anno_dir, "splits",
+                               f"crossmodal_{part}.txt"), "w") as f:
+            f.write("\n".join(seqs))
+    with open(os.path.join(anno_dir, "ignore_list.txt"), "w") as f:
+        f.write("\n".join(names[n_seq:]))
+    for i, name in enumerate(names):
+        # Step sizes log-uniform over two decades; every other sequence
+        # also jumps from frame to frame, as a random model's output does.
+        walk = 10 ** rng.uniform(-3, -1) * rng.standard_normal((frames, 72))
+        jumps = (i % 2) * 10 ** rng.uniform(-2, 0) * rng.standard_normal(
+            (frames, 72))
+        scaling = rng.uniform(80.0, 100.0, 1)
+        speed = 10 ** rng.uniform(-1.5, 0.7)
+        trans = (speed * rng.standard_normal((frames, 3))).cumsum(0) \
+            + [0.0, scaling[0], 0.0]
+        with open(os.path.join(anno_dir, "motions", f"{name}.pkl"),
+                  "wb") as f:
+            pickle.dump({"smpl_poses": walk.cumsum(0) + jumps,
+                         "smpl_scaling": scaling, "smpl_trans": trans}, f)
+    return names[:n_seq]
+
+
+def dispatch_plan(clips, decode_batch):
+    """(clips, pad clips, steps) of each decode dispatch the evaluator owes
+    `clips`: buckets of true steps rounded up to EVAL_BUCKET (at most
+    1200), at most `decode_batch` clips a dispatch, a partial one padded
+    to the next power of two."""
+    buckets = {}
+    for _, _, n in clips:
+        steps = true_steps(n)
+        if steps:
+            key = min(-(-steps // EVAL_BUCKET) * EVAL_BUCKET, 1200)
+            buckets[key] = buckets.get(key, 0) + 1
+    plan = []
+    for steps, count in sorted(buckets.items()):
+        for i in range(0, count, decode_batch):
+            k = min(decode_batch, count - i)
+            pad = min(1 << (k - 1).bit_length(), max(decode_batch, k)) - k
+            plan.append((k, pad, steps))
+    return plan
+
+
+def eval_batches():
+    """The decode batches phase 7's eval passes dispatch (power-of-two
+    padded), and the evaluator's default, at which its kernels are timed:
+    phase 2 checks the kernels at each."""
+    from mint_tpu_torch.eval.evaluator import DECODE_BATCH
+
+    return sorted({n + pad for n, pad, _ in dispatch_plan(eval_clips(),
+                                                          DECODE_BATCH)}
+                  | {DECODE_BATCH})
+
+
+def run_eval_cli(cwd, model_dir, out_dir, bf16):
+    """The port's evaluate CLI on the full flagship from `cwd` (whose
+    ./data holds the config's ``*_tfrecord-testval*``): one pass over the
+    latest checkpoint in `model_dir` at the default decode batch.  Returns
+    its launch counts, its dispatches as (clips, pad clips, steps), the
+    seconds of each (decode and copy to the host), the pass's line (clips,
+    buckets, frames, wall seconds, generated frames / s) and the CLI's
+    wall seconds."""
+    args = [f"--config_path={CONFIG}", f"--model_dir={model_dir}",
+            f"--output_dir={out_dir}", "--timeout=1", "--poll_seconds=0.5"]
+    if bf16:
+        args.append("--use_bfloat16")
+    _, err, seconds = run_module("mint_tpu_torch.tools.evaluate", args, cwd)
+    found = re.findall(r"decode batch=(\d+)\(\+(\d+) pad\) steps=(\d+): "
+                       r"([\d.]+) s", err)
+    dispatches = [(int(n), int(pad), int(steps)) for n, pad, steps, _ in
+                  found]
+    dispatch_seconds = [float(t) for *_, t in found]
+    log(f"evaluate CLI: seconds per dispatch (decode and copy to the host) "
+        f"{list(zip(dispatches, dispatch_seconds))}")
+    passes = re.findall(r"eval pass done: (\d+) clip\(s\), (\d+) bucket\(s\)"
+                        r", (\d+) frames generated in ([\d.]+) s wall, "
+                        r"([\d.]+) frames/s", err)
+    if len(passes) != 1:
+        raise AssertionError(f"evaluate CLI: {len(passes)} passes, want 1:"
+                             f"\n{err[-3000:]}")
+    return (logged_launches(err, "evaluate CLI"), dispatches,
+            dispatch_seconds, passes[0], seconds)
+
+
+def check_clips(out_dir, clips, what):
+    """One finite .npy of [120 + true steps, 225] per decodable clip."""
+    want = {f"{m}_{a}.npy": true_steps(n) for m, a, n in clips
+            if true_steps(n) > 0}
+    got = sorted(os.listdir(out_dir))
+    if got != sorted(want):
+        raise AssertionError(f"{what}: clips {got}, want {sorted(want)}")
+    for name, n in want.items():
+        clip = np.load(os.path.join(out_dir, name))
+        if clip.shape != (SEED_FRAMES + n, 225) or not np.isfinite(
+                clip).all():
+            raise AssertionError(f"{what}: {name} {clip.shape}, finite "
+                                 f"{np.isfinite(clip).all()}")
+    return want
+
+
+def check_eval_launches(counts, dispatches, want_steps, name):
+    """16 launches of attention and MLP per decode step, and in bf16 32 of
+    the LayerNorm, pad rows included."""
+    steps = sum(s for _, _, s in dispatches)
+    expect = expected_launches(steps, name == "bf16")
+    log(f"evaluate CLI {name}: dispatches (clips, pad, steps) {dispatches};"
+        f" launches {counts} == {expect} ({steps} decode steps)")
+    if steps != want_steps or counts != expect:
+        raise AssertionError(f"evaluate CLI {name}: {steps} decode steps "
+                             f"(want {want_steps}), launches {counts}, want "
+                             f"{expect}")
+
+
+def decode_sweep(model, card):
+    """f32 decode frames/s of the flagship at each batch of SWEEP_BATCHES,
+    THROUGHPUT_STEPS steps after a 2-step warm-up, inputs from
+    np.random.default_rng(0)."""
+    from mint_tpu_torch.infer import decoder
+
+    rng = np.random.default_rng(0)
+    audio_len = THROUGHPUT_STEPS + model.audio_seq_length - 1
+    rates = {}
+    for b in SWEEP_BATCHES:
+        inputs = {"motion_input": torch.from_numpy(rng.standard_normal(
+                      (b, 120, 225)).astype(np.float32)).cuda(),
+                  "audio_input": torch.from_numpy(rng.standard_normal(
+                      (b, audio_len, 35)).astype(np.float32)).cuda()}
+        decoder.infer_auto_regressive(model, inputs, steps=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = decoder.infer_auto_regressive(model, inputs,
+                                            steps=THROUGHPUT_STEPS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"decode sweep batch {b}: non-finite")
+        rates[b] = b * THROUGHPUT_STEPS / seconds
+        log(f"decode sweep f32 batch {b} x {THROUGHPUT_STEPS} steps: "
+            f"{seconds:.4f} s, {rates[b]:.2f} frames/s, "
+            f"{1000 * seconds / THROUGHPUT_STEPS:.3f} ms/step ({card})")
+    best = max(rates, key=rates.get)
+    log(f"decode sweep f32: fastest batch per frame {best} "
+        f"({rates[best]:.2f} frames/s) ({card})")
+    return rates
+
+
+def protocol_rates(rates):
+    """Generated frames/s over the protocol's 40 clips of 1200 steps at
+    each cap of SWEEP_BATCHES: the dispatches the evaluator makes (full
+    batches of the cap, the rest padded to a power of two), each at the
+    sweep's rate for its padded batch; pad rows generate nothing."""
+    clips = [("m", "a", 1200 + 239)] * PROTOCOL_CLIPS
+    out = {}
+    for cap in SWEEP_BATCHES:
+        plan = dispatch_plan(clips, cap)
+        seconds = sum((k + pad) * steps / rates[k + pad]
+                      for k, pad, steps in plan)
+        out[cap] = sum(k * steps for k, _, steps in plan) / seconds
+    return out
+
+
+def scoring_path(att, mlp, ln, gen, work, run_dir, card):
+    """Phase 7: the eval corpus decoded by the evaluate CLI from the f32
+    train CLI's checkpoint in `run_dir` (f32 in full, bf16 on the 384-step
+    bucket), checked against a direct decode; ground-truth features by the
+    extract_features CLI; FID_k, FID_g and Beat Alignment by the
+    calculate_scores CLI, and the same scores on the card and on the CPU;
+    the f32 decode batch sweep and the kernels at the eval's shapes.
+    Returns ({(kernel, dtype): eval launches}, kernel rows)."""
+    from mint_tpu_torch.eval import evaluator as ev_lib
+    from mint_tpu_torch.infer import decoder
+    from mint_tpu_torch.tools import calculate_scores
+    from mint_tpu_torch.train.checkpoint import CheckpointManager
+
+    clips = eval_clips()
+    audio_dir = os.path.join(work, "audio")
+    audio_of = write_eval_corpus(os.path.join(work, "data"), audio_dir)
+    short = [c for c in clips if 0 < true_steps(c[2]) < 1200]
+
+    # (b) f32, every clip.
+    out32 = os.path.join(work, "out_f32")
+    counts32, disp32, secs32, pass32, wall32 = run_eval_cli(
+        work, run_dir, out32, bf16=False)
+    want = check_clips(out32, clips, "evaluate CLI f32")
+    plan = dispatch_plan(clips, ev_lib.DECODE_BATCH)
+    check_eval_launches(counts32, disp32, sum(s for _, _, s in plan), "f32")
+    if sorted(disp32) != sorted(plan):
+        raise AssertionError(f"evaluate CLI f32 dispatches {disp32}, want "
+                             f"{plan}")
+    log(f"evaluate CLI f32: {pass32[0]} clips in {pass32[1]} buckets, "
+        f"{pass32[2]} frames generated in {pass32[3]} s of the pass's wall "
+        f"time: {pass32[4]} frames/s, dispatched as (clips, pad, steps) "
+        f"{plan} at the default cap {ev_lib.DECODE_BATCH} (the CLI's whole "
+        f"run {wall32:.1f} s) ({card})")
+    full = [d for d in disp32 if d[2] == 1200]
+    seconds_full = sum(t for d, t in zip(disp32, secs32) if d[2] == 1200)
+    log(f"evaluate CLI f32, the protocol's {PROTOCOL_CLIPS} clips of 1200 "
+        f"steps alone: {PROTOCOL_CLIPS * 1200} frames in {seconds_full:.3f} "
+        f"s of decode and copy ({full}): "
+        f"{PROTOCOL_CLIPS * 1200 / seconds_full:.2f} generated frames/s "
+        f"({card})")
+
+    # The first bucket against a direct decode on the card from the same
+    # restored weights.
+    model = flagship(torch.float32, "cuda")
+    model.load_state_dict(CheckpointManager(run_dir).restore_params(
+        model.state_dict()))
+    saved = [np.load(os.path.join(out32, f"{m}_{a}.npy")) for m, a, _ in
+             short]
+    n_max = max(true_steps(n) for _, _, n in short)
+    audio = np.stack([np.pad(audio_of[m][:n_max + 239],
+                             [[0, n_max + 239 - min(n, n_max + 239)], [0, 0]])
+                      for m, _, n in short])
+    direct = decoder.infer_auto_regressive(
+        model, {"motion_input": np.stack([c[:SEED_FRAMES] for c in saved]),
+                "audio_input": audio}, steps=n_max).cpu().numpy()
+    held, worst, drift = 3, 0.0, 0.0
+    for clip, row, (_, _, n) in zip(saved, direct, short):
+        diff = np.abs(clip[SEED_FRAMES:] - row[:true_steps(n)]).max(axis=1)
+        worst = max(worst, diff[:held].max())
+        drift = max(drift, diff.max())
+    log(f"evaluate CLI f32 vs a direct decode of its first bucket "
+        f"({len(short)} clips at batch {len(short)}, the CLI's at "
+        f"{len(short) + 1}): max_abs_err over the first {held} frames "
+        f"{worst:.3e} tol 1e-3 (the card-vs-CPU decode tolerance: f32 sums "
+        f"in another order at another batch); over all {n_max} frames "
+        f"{drift:.3e}")
+    if not worst <= 1e-3:
+        raise AssertionError(f"evaluate CLI and direct decode disagree: "
+                             f"{worst}")
+
+    # (c) bf16, the 384-step bucket: its shard alone in a ./data of its own.
+    short_dir = os.path.join(work, "short")
+    os.makedirs(os.path.join(short_dir, "data"))
+    shutil.copy(os.path.join(work, "data",
+                             "aist_tfrecord-testval-00001-of-00002"),
+                os.path.join(short_dir, "data",
+                             "aist_tfrecord-testval-00000-of-00001"))
+    out16 = os.path.join(work, "out_bf16")
+    counts16, disp16, _, pass16, wall16 = run_eval_cli(
+        short_dir, run_dir, out16, bf16=True)
+    check_clips(out16, short, "evaluate CLI bf16")
+    plan16 = dispatch_plan(short, ev_lib.DECODE_BATCH)
+    check_eval_launches(counts16, disp16, sum(s for _, _, s in plan16),
+                        "bf16")
+    gap = max(np.abs(np.load(os.path.join(out16, f"{m}_{a}.npy"))
+                     - np.load(os.path.join(out32, f"{m}_{a}.npy"))).max()
+              for m, a, _ in short)
+    log(f"evaluate CLI bf16: {pass16[0]} clips, {pass16[2]} frames generated"
+        f" in {pass16[3]} s of the pass's wall time: {pass16[4]} frames/s "
+        f"(the CLI's whole run {wall16:.1f} s); largest difference from the "
+        f"f32 clips {gap:.3e} ({card})")
+
+    # (d) ground-truth features.
+    anno = os.path.join(work, "anno")
+    names = write_annotations(anno)
+    feat = os.path.join(work, "features")
+    _, _, wall_feat = run_module("mint_tpu_torch.tools.extract_features",
+                                 [f"--anno_dir={anno}",
+                                  f"--save_dir={feat}"], work)
+    made = sorted(os.listdir(feat))
+    if made != sorted(f"{n}_{k}.npy" for n in names
+                      for k in ("kinetic", "manual")):
+        raise AssertionError(f"extract_features wrote {len(made)} files")
+    log(f"extract_features: {len(names)} sequences on the card in "
+        f"{wall_feat:.1f} s")
+
+    # (e) the scores, by the CLI.
+    glob32 = os.path.join(out32, "*.npy")
+    out, _, wall_cli = run_module(
+        "mint_tpu_torch.tools.calculate_scores",
+        [f"--result_files={glob32}", f"--feature_dir={feat}",
+         f"--audio_cache_dir={audio_dir}"], work)
+    fids = re.findall(r"Evaluation: FID_k: (\S+), FID_g: (\S+)", out)
+    beats = re.findall(r"Beat Alignment Score: (\S+) over (\d+) clips", out)
+    if not fids or not beats:
+        raise AssertionError(f"calculate_scores printed:\n{out}")
+    printed = [float(x) for x in (*fids[0], beats[0][0])]
+    if not all(math.isfinite(x) for x in printed) or \
+            int(beats[0][1]) != len(want):
+        raise AssertionError(f"calculate_scores printed {fids} {beats}")
+    log(f"calculate_scores CLI on the card: FID_k {printed[0]}, FID_g "
+        f"{printed[1]}, Beat Alignment {printed[2]} over {beats[0][1]} "
+        f"clips, in {wall_cli:.1f} s of wall time (the process included)")
+
+    # (f) the card against the CPU.
+    smpl_model = calculate_scores.load_model("")
+    fk_worst = 0.0
+    for name in want:
+        motion = np.load(os.path.join(out32, name))[None, SEED_FRAMES:]
+        fk_worst = max(fk_worst, float(np.abs(
+            calculate_scores.joints_of(motion, smpl_model, "cuda")
+            - calculate_scores.joints_of(motion, smpl_model, "cpu")).max()))
+    walls, scores = {}, {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        scores[device] = calculate_scores.scores(
+            glob32, feat, audio_cache_dir=audio_dir, device=device)
+        walls[device] = time.perf_counter() - t0
+    rel = {k: abs(scores["cuda"][k] - scores["cpu"][k])
+           / max(abs(scores["cpu"][k]), 1e-30)
+           for k in ("fid_k", "fid_g", "beat_align")}
+    log(f"scores card vs CPU: card {scores['cuda']}, CPU {scores['cpu']}; "
+        f"relative differences {rel} (tol 1e-4: f32 FK in another order, "
+        f"SVD by cuSOLVER against LAPACK); worst joint difference of FK "
+        f"{fk_worst:.3e} m over {len(want)} clips; scoring wall time "
+        f"{walls['cuda']:.3f} s (card) vs {walls['cpu']:.3f} s (CPU), "
+        f"in-process ({card})")
+    if not all(v <= 1e-4 for v in rel.values()):
+        raise AssertionError(f"card and CPU scores disagree: {rel}")
+    if abs(scores["cuda"]["fid_k"] - printed[0]) > 1e-3 * max(
+            1.0, abs(printed[0])):
+        raise AssertionError("the CLI's FID_k is not the in-process one")
+
+    # The decode batch sweep, what it gives over the protocol at each cap
+    # (the evaluator's DECODE_BATCH is the cap of the most), and the
+    # kernels at the eval's shapes.
+    plan_rates = protocol_rates(decode_sweep(model, card))
+    best = max(plan_rates, key=plan_rates.get)
+    log(f"decode sweep f32 over the protocol's {PROTOCOL_CLIPS} clips of "
+        f"1200 steps: generated frames/s by cap "
+        + ", ".join(f"{c}: {r:.2f}" for c, r in plan_rates.items())
+        + f"; the most at cap {best}; the evaluator's DECODE_BATCH is "
+        f"{ev_lib.DECODE_BATCH} ({card})")
+    del model
+    torch.cuda.empty_cache()
+    times = time_kernels(att, mlp, ln, gen, card, ev_lib.DECODE_BATCH,
+                         ((360, 360), (240, 240), (120, 120), (48, 360)),
+                         (360, 240, 120, 48), host=False)
+    launches = {}
+    for dt, counts in (("f32", counts32), ("bf16", counts16)):
+        for k, n in counts.items():
+            launches[k, dt] = n
+    return launches, times
 
 
 def main():
@@ -749,6 +1291,7 @@ def main():
     sys.path.insert(0, REPO)
     from mint_tpu_torch.ops import _build
     from mint_tpu_torch.ops import attention as att
+    from mint_tpu_torch.ops import layer_norm as ln
     from mint_tpu_torch.ops import mlp
 
     # f32 runs true f32 (the reference's scoring semantics): no TF32.
@@ -775,14 +1318,15 @@ def main():
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {"attention": check_attention(att, gen),
-            "fused_mlp": check_mlp(mlp, gen)}
+            "fused_mlp": check_mlp(mlp, gen),
+            "layer_norm": {"bf16": check_layer_norm(ln, gen)}}
     # The decode's shapes: Nq = Nk = 360 (11 blocks a step), 48 queries
     # against 360 keys (1), and the encoders' 240 and 120 (2 each); then
     # training's, at batch 32 with no truncated block.
-    times = time_kernels(att, mlp, gen, card, DISPATCH,
+    times = time_kernels(att, mlp, ln, gen, card, DISPATCH,
                          ((360, 360), (48, 360), (240, 240), (120, 120)),
                          (360, 48, 240, 120))
-    train_times = time_kernels(att, mlp, gen, card, TRAIN_BATCH,
+    train_times = time_kernels(att, mlp, ln, gen, card, TRAIN_BATCH,
                                ((360, 360), (240, 240), (120, 120)),
                                (360, 240, 120), host=False)
 
@@ -792,7 +1336,7 @@ def main():
     model32 = flagship(torch.float32, "cuda")
     model16 = flagship(torch.bfloat16, "cuda")
     for model, name in ((model32, "f32"), (model16, "bf16")):
-        counts, steps = serve_requests(model, att, mlp, name)
+        counts, steps = serve_requests(model, name)
         for k, n in counts.items():
             launches[k, name] = n
             per_step[k, name] = n / steps
@@ -802,7 +1346,7 @@ def main():
     del model16, model32
     torch.cuda.empty_cache()
 
-    train_gradients(att, mlp)
+    train_gradients()
     train_launches = {}
     with tempfile.TemporaryDirectory() as work:
         write_corpus(os.path.join(work, "data"))
@@ -812,19 +1356,32 @@ def main():
             if backend == "python":
                 for k, n in counts.items():
                     train_launches[k, name] = n
-            shutil.rmtree(os.path.join(work, "run"))
-    train_rate(att, mlp, "bf16", card, steps=10)
-    train_rate(att, mlp, "f32", card, steps=5)
+            run = os.path.join(work, "run")
+            if name == "f32":  # phase 7 scores this run's checkpoint
+                os.rename(run, os.path.join(work, "f32_run"))
+            else:
+                shutil.rmtree(run)
+        train_rate("bf16", card, steps=10)
+        train_rate("f32", card, steps=5)
+        eval_launches, eval_times = scoring_path(
+            att, mlp, ln, gen, work, os.path.join(work, "f32_run"), card)
 
+    # The bf16 LayerNorm kernel replaces no TPU kernel: it is Flax's
+    # LayerNorm(dtype=bf16) with f32 parameters, which XLA fuses there.
     sources = {"attention": ("mint_tpu_torch/csrc/attention.cu",
-                             "mint_tpu/ops/attention.py:43"),
+                             "mint_tpu/ops/attention.py:43", ("f32", "bf16")),
                "fused_mlp": ("mint_tpu_torch/csrc/mlp.cu",
-                             "mint_tpu/ops/mlp.py:44")}
+                             "mint_tpu/ops/mlp.py:44", ("f32", "bf16")),
+               "layer_norm": ("mint_tpu_torch/csrc/layer_norm.cu",
+                              "mint_tpu/models/layers.py:143", ("bf16",))}
     # Each row's times are at the batch-20 full shape (Nq or M/20 = 360);
     # "small" holds the same at the final block's 48 rows.  `launches` is
     # the serving path's count; `train_launches` the train CLI's first
     # invocation's (4 steps), and "train" the times at the training
-    # shapes (batch 32; Nq or M/32 = 360, 240, 120).
+    # shapes (batch 32; Nq or M/32 = 360, 240, 120); `eval_launches` the
+    # evaluate CLI's (f32: every clip; bf16: the 384-step bucket), and
+    # "eval" the times at the eval's default decode batch (Nq or M/batch
+    # = 360, 240, 120, 48).
     kernels = [{"name": f"{name}_{dt}", "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name, dt],
                 "launches_per_step": per_step[name, dt],
@@ -832,9 +1389,11 @@ def main():
                 "max_abs_err": errs[name][dt],
                 **times[name, dt][360], "small": times[name, dt][48],
                 "train": {str(n): row for n, row in
-                          train_times[name, dt].items()}}
-               for name, (src, rep) in sources.items()
-               for dt in ("f32", "bf16")]
+                          train_times[name, dt].items()},
+                "eval_launches": eval_launches[name, dt],
+                "eval": {str(n): row for n, row in
+                         eval_times[name, dt].items()}}
+               for name, (src, rep, dts) in sources.items() for dt in dts]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

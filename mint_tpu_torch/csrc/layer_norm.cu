@@ -1,0 +1,88 @@
+// LayerNorm of bf16 rows with f32 scale and bias, as Flax's
+// LayerNorm(dtype=bfloat16) computes it (mint_tpu/models/layers.py:143-153
+// keeps the parameters f32): each row's mean and variance in f32, the
+// affine in f32 with the f32 parameters, the output rounded to bf16 once.
+// PyTorch's CUDA layer_norm takes no bf16 input with f32 parameters, so
+// the plain version (ops/layer_norm.py) casts the input to f32 and the
+// output back: three launches where this kernel is one.  It replaces no
+// TPU kernel: the JAX package leaves LayerNorm to XLA, which fuses the
+// casts.
+//
+// Bound by bytes (about 8 f32 operations per 4 bytes moved): each x is
+// read once and each output written once.  One warp per row, four rows a
+// block; the row stays in registers (bf16 pairs, 32-bit loads, 128 bytes
+// a warp per step) across three passes over it: the mean, the sum of
+// squared deviations from it, then the affine.  Rows of up to kMaxCols
+// columns, an even count.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kWarps = 4;                 // rows a block
+constexpr int kMaxCols = 1024;            // held in registers
+constexpr int kPairs = kMaxCols / 2 / 32;  // bf16 pairs a lane
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
+    layer_norm_bf16_kernel(const __nv_bfloat162* __restrict__ x,
+                           const float2* __restrict__ gamma,
+                           const float2* __restrict__ beta,
+                           __nv_bfloat162* __restrict__ out, int rows,
+                           int pairs, float inv_cols, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const __nv_bfloat162* xr = x + (size_t)row * pairs;
+  float2 v[kPairs];
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+    const int i = lane + 32 * j;
+    v[j] = i < pairs ? __bfloat1622float2(xr[i]) : make_float2(0.f, 0.f);
+    sum += v[j].x + v[j].y;
+  }
+  const float mean = warp_sum(sum) * inv_cols;
+  float sq = 0.f;
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+    if (lane + 32 * j < pairs) {
+      const float a = v[j].x - mean, b = v[j].y - mean;
+      sq += a * a + b * b;
+    }
+  }
+  const float rstd = rsqrtf(warp_sum(sq) * inv_cols + eps);
+  __nv_bfloat162* orow = out + (size_t)row * pairs;
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+    const int i = lane + 32 * j;
+    if (i < pairs) {
+      const float2 g = gamma[i], b = beta[i];
+      orow[i] = __floats2bfloat162_rn((v[j].x - mean) * rstd * g.x + b.x,
+                                      (v[j].y - mean) * rstd * g.y + b.y);
+    }
+  }
+}
+
+}  // namespace
+
+// x and out [rows, cols] bf16, row-major, 4-byte aligned; gamma and beta
+// [cols] f32, 8-byte aligned; 0 < cols <= 1024, even.
+extern "C" int mint_layer_norm_bf16(const void* x, const void* gamma,
+                                    const void* beta, void* out, int rows,
+                                    int cols, float eps, void* stream) {
+  if (rows <= 0 || cols <= 0 || cols % 2 || cols > kMaxCols)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (rows + kWarps - 1) / kWarps;
+  layer_norm_bf16_kernel<<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat162*>(x),
+      static_cast<const float2*>(gamma), static_cast<const float2*>(beta),
+      static_cast<__nv_bfloat162*>(out), rows, cols / 2, 1.0f / cols, eps);
+  return (int)cudaGetLastError();
+}

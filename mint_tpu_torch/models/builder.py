@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from mint_tpu_torch.config.schema import MultiModalModelConfig
 from mint_tpu_torch.models.fact import FACT
@@ -28,10 +29,11 @@ def build(model_config: MultiModalModelConfig, is_training: bool,
     put in eval mode.
 
     Two ways to run in bf16 (``models/layers.py``): ``dtype=bf16`` casts
-    the whole model once (serving); ``compute_dtype=bf16`` keeps the
-    parameters in `dtype` (f32) and casts to bf16 in every layer on every
-    call, as the JAX package's ``build(..., compute_dtype=...)`` does
-    (training: f32 parameters, gradients and Adam state).
+    the whole model once, LayerNorm kept in f32 (serving, eval);
+    ``compute_dtype=bf16`` keeps the parameters in `dtype` (f32) and casts
+    to bf16 in every layer on every call, as the JAX package's
+    ``build(..., compute_dtype=...)`` does (training: f32 parameters,
+    gradients and Adam state).
 
     The model runs on the card unless the caller asks for the CPU
     (``device="cpu"``, as the tests do); without a card the default
@@ -45,4 +47,10 @@ def build(model_config: MultiModalModelConfig, is_training: bool,
     model = build_func(model_config, is_training,
                        compute_dtype=compute_dtype).to(device=device,
                                                        dtype=dtype)
+    # LayerNorm keeps f32 parameters under any cast, as Flax's
+    # LayerNorm(dtype=...) keeps its scale and bias (models/layers.py).
+    # They are 1 and 0 at this point, so the cast above lost nothing.
+    for module in model.modules():
+        if isinstance(module, nn.LayerNorm):
+            module.float()
     return model.train(is_training)

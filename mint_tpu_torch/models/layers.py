@@ -18,9 +18,16 @@ on a CPU tensor they run the kernels' plain versions.
 Dtype, two ways (``models/builder.py`` picks one):
 
 - **Whole-model cast** (``compute_dtype=None``, the default): the model is
-  cast once at build (``module.to(dtype)``) and every layer computes in its
-  parameters' dtype.  The server and the decoder use it: in bf16 it gives
-  the forward values of Flax's per-call cast without a cast per call.
+  cast once at build (``module.to(dtype)``), all but the LayerNorms, whose
+  weight and bias stay f32 as Flax keeps them under ``dtype=...``.  Dense,
+  attention, MLP and the position table compute in their parameters'
+  dtype, with no cast per call; LayerNorm computes statistics and affine
+  in f32 from its bf16 input and f32 parameters and returns bf16, in one
+  launch of ``ops.layer_norm``'s kernel on the card.  The server, the
+  decoder and the evaluator use it: in bf16 it gives the forward values of
+  Flax's per-call cast, for any LayerNorm parameters (a bf16 copy of
+  trained ones would round them: 2^-9 relative, which lands on a small
+  output where the bias cancels the normalised term).
 - **``compute_dtype``**, as the JAX package's ``compute_dtype``: the
   parameters stay in their own dtype (f32) and each layer casts on every
   call, at the Flax cast points: ``Dense`` casts its input, kernel and bias
@@ -39,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mint_tpu_torch.ops import attention as attention_op
+from mint_tpu_torch.ops import layer_norm as layer_norm_op
 from mint_tpu_torch.ops import mlp as mlp_op
 
 gelu_tanh = mlp_op.gelu_tanh
@@ -83,20 +91,30 @@ class Dense(nn.Linear):
 
 
 class LayerNorm(nn.LayerNorm):
-    """nn.LayerNorm, epsilon 1e-5.  With a ``compute_dtype`` it follows
-    Flax's ``LayerNorm(dtype=...)``: statistics and the affine in f32 with
-    the f32 parameters, the output cast to ``compute_dtype``."""
+    """nn.LayerNorm, epsilon 1e-5, with f32 parameters in either dtype mode
+    (``models/builder.py`` keeps them f32 under the whole-model cast).
+
+    A bf16 input, or a ``compute_dtype``, follows Flax's
+    ``LayerNorm(dtype=...)``: statistics and the affine in f32 with the f32
+    parameters, the output cast to ``compute_dtype`` (or kept in the
+    input's dtype).  A bf16 input that stays bf16 goes through
+    ``ops.layer_norm``: one kernel launch on the card, its plain version on
+    the CPU.  An f32 input without a ``compute_dtype`` is one
+    ``layer_norm`` call."""
 
     def __init__(self, dim: int, compute_dtype: torch.dtype | None = None):
         super().__init__(dim, eps=1e-5)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.compute_dtype is None:
+        out_dtype = self.compute_dtype or x.dtype
+        if x.dtype == out_dtype == self.weight.dtype:
             return super().forward(x)
-        return F.layer_norm(x.float(), self.normalized_shape,
-                            self.weight.float(), self.bias.float(),
-                            self.eps).to(self.compute_dtype)
+        if x.dtype == out_dtype == torch.bfloat16:
+            return layer_norm_op.layer_norm(x, self.weight, self.bias,
+                                            self.eps)
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(out_dtype)
 
 
 class Attention(nn.Module):

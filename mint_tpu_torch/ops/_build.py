@@ -40,6 +40,8 @@ _SIGNATURES = {
     # x, w1, b1, w2, b2, scratch, out, m, h, f, o, stream
     "mint_mlp_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mint_mlp_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, gamma, beta, out, rows, cols, eps, stream
+    "mint_layer_norm_bf16": [_P, _P, _P, _P, _I, _I, _F, _P],
 }
 
 
@@ -99,6 +101,8 @@ def _compile_and_link(out: str) -> str:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, building it first if needed."""
     global _lib, build_log
+    if _lib is not None:  # every launch asks: no lock once loaded
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib

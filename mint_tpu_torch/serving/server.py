@@ -19,7 +19,8 @@ Batching: requests wait up to ``batch_window_ms`` (or until
 power-of-two batch and the bucket's audio length, and decoded in one
 batched decode per bucket.
 
-Run: ``python -m mint_tpu_torch.serving.server --config_path=<config>``.
+Run: ``python -m mint_tpu_torch.serving.server --config_path=<config>
+[--checkpoint_dir=<train model_dir>]``.
 """
 
 from __future__ import annotations
@@ -415,8 +416,13 @@ def serve(service: GenerationService, host: str = "127.0.0.1",
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Batched FACT dance-generation server (PyTorch port). "
-        "Weights come from the port's initialization, seeded 0.")
+        "Weights come from --checkpoint_dir, else from the port's "
+        "initialization, seeded 0.")
     p.add_argument("--config_path", required=True, help="Pipeline config.")
+    p.add_argument("--checkpoint_dir", default=None,
+                   help="Checkpoint directory in the port's format (the "
+                   "train CLI's model_dir): its latest step's parameters "
+                   "are served.")
     p.add_argument("--host", default="0.0.0.0", help="Bind host.")
     p.add_argument("--port", type=int, default=8490, help="Bind port.")
     p.add_argument("--steps", type=int, default=1200,
@@ -446,21 +452,36 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None):
+def load_model(args: argparse.Namespace) -> FACT:
+    """The model the CLI serves: built from ``--config_path`` on
+    ``--device`` in f32 or bf16, holding the parameters of the latest
+    checkpoint in ``--checkpoint_dir`` (a params-only restore: the Adam
+    state, two thirds of a checkpoint, is never read) or, without one, the
+    port's initialization seeded 0."""
     from mint_tpu_torch.config.schema import load_pipeline_config
     from mint_tpu_torch.models import builder
     from mint_tpu_torch.models.fact import init_params
+    from mint_tpu_torch.train.checkpoint import CheckpointManager
 
-    args = _parser().parse_args(argv)
-    # f32 serving is the reference's scoring semantics: no TF32.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     pipeline = load_pipeline_config(args.config_path)
     model = builder.build(
         pipeline.multi_modal_model, is_training=False,
         dtype=torch.bfloat16 if args.use_bfloat16 else torch.float32,
         device=args.device)
-    init_params(model, torch.Generator().manual_seed(0))
+    if args.checkpoint_dir:
+        model.load_state_dict(CheckpointManager(
+            args.checkpoint_dir).restore_params(model.state_dict()))
+    else:
+        init_params(model, torch.Generator().manual_seed(0))
+    return model
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    # f32 serving is the reference's scoring semantics: no TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = load_model(args)
     service = GenerationService(model, batch_window_ms=args.batch_window_ms,
                                 max_batch=args.max_batch,
                                 default_steps=args.steps,

@@ -1,2 +1,2 @@
 """Command-line tools of the port (counterparts of ``mint_tpu/tools``):
-``train``."""
+``train``, ``evaluate``, ``calculate_scores`` and ``extract_features``."""

@@ -39,6 +39,7 @@ from mint_tpu_torch.data.prefetch import DevicePrefetcher, to_device
 from mint_tpu_torch.models import builder
 from mint_tpu_torch.models.fact import init_params
 from mint_tpu_torch.ops import attention as attention_op
+from mint_tpu_torch.ops import layer_norm as layer_norm_op
 from mint_tpu_torch.ops import mlp as mlp_op
 from mint_tpu_torch.train import schedules
 from mint_tpu_torch.train.checkpoint import CheckpointManager
@@ -144,7 +145,8 @@ def train(args: argparse.Namespace) -> None:
         # the CPU, where the plain versions run).
         log.info("kernel launches: %s", json.dumps(
             {"attention": attention_op.launches,
-             "fused_mlp": mlp_op.launches}))
+             "fused_mlp": mlp_op.launches,
+             "layer_norm": layer_norm_op.launches}))
     finally:
         controller.close()
         if batches is not None:

@@ -5,9 +5,12 @@ decode's shapes, with the flagship's weights (seeded random), it measures
 the host's time for:
 
 - each kernel wrapper call, per kernel, dtype and shape (inputs checked,
-  launch enqueued: ``chip_smoke.py``'s ``host_us``);
-- one call of a block's ``MLP`` module (the casts around the wrapper);
-- one whole flagship forward (what a decode step enqueues).
+  launch enqueued: ``chip_smoke.py``'s ``host_us``), the bf16 LayerNorm
+  kernel's where the tree has it;
+- one call of a block's ``MLP`` module (the casts around the wrapper) and
+  of its first ``LayerNorm``;
+- one whole flagship forward (what a decode step enqueues);
+- batch-20 decode frames/s (3 decodes of 32 steps), the end-to-end effect.
 
 Each is timed in rounds (a synchronise before each round, none inside):
 the median and the least round, per call.  Beside each, the Python and C
@@ -82,6 +85,27 @@ def per_call_us(fn, calls, rounds):
             "min_us": min(readings), "function_calls": n_calls}
 
 
+def decode_rates(model, rng, steps=32, runs=3):
+    """Frames/s of `runs` batch-BATCH decodes of `steps` steps (a host
+    clock around each, ending in a synchronise), after a 2-step warm-up:
+    what the host's cost does to decode end to end."""
+    from mint_tpu_torch.infer import decoder
+
+    inputs = {"motion_input": rng.standard_normal(
+                  (BATCH, 120, 225)).astype(np.float32),
+              "audio_input": rng.standard_normal(
+                  (BATCH, steps + 239, 35)).astype(np.float32)}
+    decoder.infer_auto_regressive(model, inputs, steps=2)
+    rates = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decoder.infer_auto_regressive(model, inputs, steps=steps)
+        torch.cuda.synchronize()
+        rates.append(BATCH * steps / (time.perf_counter() - t0))
+    return {"frames_per_s": rates, "max_frames_per_s": max(rates)}
+
+
 def mlp_weights(gen, dtype, h=800, f=3072, o=800):
     """W1 [H, F], b1, W2 [F, O], b2 as the model passes them: transposed
     views of nn.Linear's [out, in] weights."""
@@ -117,6 +141,18 @@ def measure(dtype):
                         ).to(dtype)
         out[f"fused_mlp_{name}_x{BATCH * rows}"] = per_call_us(
             lambda: mlp.fused_mlp(x, w1, b1, w2, b2), 100, ROUNDS)
+    try:
+        from mint_tpu_torch.ops import layer_norm as ln
+    except ImportError:  # a tree from before the bf16 LayerNorm kernel
+        ln = None
+    if ln is not None and dtype == torch.bfloat16:
+        w = 1 + 0.05 * torch.randn(800, device="cuda", generator=gen)
+        b = 0.5 * torch.randn(800, device="cuda", generator=gen)
+        for rows in (360, 48, 240, 120):
+            x = torch.randn(BATCH * rows, 800, device="cuda", generator=gen
+                            ).to(dtype)
+            out[f"layer_norm_{name}_x{BATCH * rows}"] = per_call_us(
+                lambda: ln.layer_norm(x, w, b, 1e-5), 100, ROUNDS)
 
     cfg = load_pipeline_config(CONFIG).multi_modal_model
     model = init_params(builder.build(cfg, False, dtype=dtype,
@@ -126,6 +162,8 @@ def measure(dtype):
     x = torch.randn(BATCH, 360, 800, device="cuda", generator=gen).to(dtype)
     out[f"mlp_module_{name}_x{BATCH * 360}"] = per_call_us(
         lambda: block.mlp(x), 100, ROUNDS)
+    out[f"norm_module_{name}_x{BATCH * 360}"] = per_call_us(
+        lambda: block.norm_attn(x), 100, ROUNDS)
     rng = np.random.default_rng(0)
     inputs = {
         "motion_input": torch.from_numpy(rng.standard_normal(
@@ -135,6 +173,7 @@ def measure(dtype):
     }
     out[f"forward_{name}_batch{BATCH}"] = per_call_us(
         lambda: model(inputs), 1, ROUNDS * 4)
+    out[f"decode_{name}_batch{BATCH}"] = decode_rates(model, rng)
     del model
     torch.cuda.empty_cache()
     return out

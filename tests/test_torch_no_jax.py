@@ -2,8 +2,12 @@
 
 The machine with the card has no jax, flax, optax, orbax or absl, so
 ``mint_tpu_torch``, ``chip_smoke.py`` and the port's profile scripts
-(``scripts/torch_*.py``) must import none of them, and nothing of the JAX package ``mint_tpu`` either:
-the port keeps its own copy of the config schema (``mint_tpu_torch.config``).
+(``scripts/torch_*.py``) must import none of them, and nothing of the JAX
+package ``mint_tpu`` either: the port keeps its own copy of the config
+schema (``mint_tpu_torch.config``) and of the host NumPy modules of the
+scoring path (``eval/fid.py``, ``eval/features.py``, ``eval/beat_align.py``,
+``data/aist.py``).  The child process below imports every module of the
+port and runs its forward, decode, training and scoring paths on the CPU.
 """
 
 import ast
@@ -74,6 +78,32 @@ with tempfile.TemporaryDirectory() as tmp:
     metrics = ctl.train(3)
     ctl.close()
 assert ctl.global_step == 3 and np.isfinite(metrics["loss"])
+
+import os
+from mint_tpu_torch.eval import (extract_kinetic_features,
+                                 extract_manual_features)
+from mint_tpu_torch.eval.beat_align import clip_beat_alignment
+from mint_tpu_torch.eval.evaluator import Evaluator
+from mint_tpu_torch.eval.fid import frechet_feature_distance
+from mint_tpu_torch.motion.rotation import recover_to_axis_angles
+from mint_tpu_torch.motion.smpl import smpl_joints
+with tempfile.TemporaryDirectory() as tmp:
+    clip = {"motion_input": batch["motion_input"][:1],
+            "audio_input": rng.standard_normal((1, 9, 35), np.float32),
+            "motion_name": ["m"], "audio_name": ["a"]}
+    Evaluator(model, [clip], output_dir=tmp, steps=3).evaluate()
+    assert np.load(os.path.join(tmp, "m_a.npy")).shape == (4 + 3, 9)
+motion = torch.from_numpy(rng.standard_normal((1, 40, 225), np.float32))
+aa, transl = recover_to_axis_angles(motion)
+joints = smpl_joints(aa[0], transl[0], device="cpu").numpy()
+feats = np.concatenate([extract_kinetic_features(joints),
+                        extract_manual_features(joints)])
+assert feats.shape == (72 + 32,) and np.isfinite(feats).all()
+assert np.isfinite(frechet_feature_distance(
+    rng.standard_normal((8, 3)), rng.standard_normal((8, 3))))
+beats = np.zeros((60, 35), np.float32)
+beats[::10, 34] = 1
+assert clip_beat_alignment(joints, beats) is not None
 assert _build._lib is None, "the CPU path must not build the kernels"
 print("MODULES", len(names))
 print("LOADED", " ".join(sorted(sys.modules)))
@@ -88,7 +118,7 @@ def test_port_imports_no_jax_stack_and_builds_nothing_on_cpu():
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines()
                  if line.startswith(("MODULES", "LOADED")))
-    assert int(lines["MODULES"]) >= 35
+    assert int(lines["MODULES"]) >= 49
     loaded = lines["LOADED"].split()
     roots = {name.split(".")[0] for name in loaded}
     assert not roots & set(FORBIDDEN), roots & set(FORBIDDEN)

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 from mint_tpu.ops import attention as jax_attention
 from mint_tpu.ops import mlp as jax_mlp
 from mint_tpu_torch.ops import attention as att
+from mint_tpu_torch.ops import layer_norm as ln_op
 from mint_tpu_torch.ops import mlp
 
 RNG = np.random.default_rng(41)
@@ -335,12 +336,14 @@ def test_mlp_takes_linear_weights_transposed():
 
 
 def test_cpu_path_launches_nothing():
-    before = (att.launches, mlp.launches)
+    before = (att.launches, mlp.launches, ln_op.launches)
     q, k, v = _torch(*_qkv(1, 2, 4, 4, 8))
     att.attention(q, k, v, 0.5)
     mlp.fused_mlp(*_torch(RNG.standard_normal((3, 64)).astype(np.float32),
                           *_mlp_params()))
-    assert (att.launches, mlp.launches) == before
+    ln_op.layer_norm(torch.ones(3, 64, dtype=torch.bfloat16),
+                     torch.ones(64), torch.zeros(64), 1e-5)
+    assert (att.launches, mlp.launches, ln_op.launches) == before
 
 
 def test_wrappers_reject_other_devices():
@@ -353,3 +356,69 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="device"):
         mlp.fused_mlp(x, w1, torch.empty(256, device="meta"), w2,
                       torch.empty(64, device="meta"))
+    with pytest.raises(ValueError, match="device"):
+        ln_op.layer_norm(x.bfloat16(), x[0], x[0], 1e-5)
+
+
+# -- bf16 LayerNorm with f32 parameters (csrc/layer_norm.cu) ---------------
+
+def _layer_norm_like_kernel(x, weight, bias, eps):
+    """csrc/layer_norm.cu's arithmetic in f32: the mean, then the mean of
+    squared deviations from it (not E[x^2] - mean^2), rsqrt, the affine
+    with the f32 parameters, one rounding to bf16."""
+    v = x.float()
+    mean = v.mean(-1, keepdim=True)
+    var = ((v - mean) ** 2).mean(-1, keepdim=True)
+    return ((v - mean) * torch.rsqrt(var + eps) * weight
+            + bias).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("rows,cols,offset", [(7, 800, 0.0), (5, 64, 3.0),
+                                              (3, 1024, -1.5)])
+def test_layer_norm_matches_flax_bf16(rows, cols, offset):
+    """The plain version and the kernel's arithmetic both give Flax's
+    ``LayerNorm(epsilon=1e-5, dtype=bf16)`` from the same bf16 input and
+    f32 parameters (scales near 1, biases no bf16 value holds), within 1
+    bf16 ulp of each output: both round once, from f32 values that differ
+    by summation order only."""
+    import flax.linen as fnn
+
+    x = (RNG.standard_normal((rows, cols)) + offset).astype(np.float32)
+    x = np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    scale = (1 + 0.05 * RNG.standard_normal(cols)).astype(np.float32)
+    bias = (0.5 * RNG.standard_normal(cols)).astype(np.float32)
+    want = fnn.LayerNorm(epsilon=1e-5, dtype=jnp.bfloat16).apply(
+        {"params": {"scale": scale, "bias": bias}},
+        jnp.asarray(x, jnp.bfloat16))
+    want = np.asarray(want.astype(jnp.float32))
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -8)))
+                  - 7)
+    xt = torch.from_numpy(x).bfloat16()
+    w, b = torch.from_numpy(scale), torch.from_numpy(bias)
+    for got in (ln_op.layer_norm(xt, w, b, 1e-5),
+                _layer_norm_like_kernel(xt, w, b, 1e-5)):
+        assert got.dtype == torch.bfloat16 and got.shape == xt.shape
+        assert (np.abs(got.float().numpy() - want) / ulp).max() <= 1.0
+
+
+def test_layer_norm_function_gradients_are_the_plain_versions():
+    """Through LayerNormFunction (forward: the kernel's arithmetic) the
+    gradients of a bf16 input and of f32 parameters are those of the plain
+    version, as the trainer's bf16 compute path takes them."""
+    x = torch.from_numpy(RNG.standard_normal((6, 64)).astype(np.float32)
+                         ).bfloat16().requires_grad_()
+    w = torch.from_numpy((1 + 0.1 * RNG.standard_normal(64)).astype(
+        np.float32)).requires_grad_()
+    b = torch.from_numpy(RNG.standard_normal(64).astype(np.float32)
+                         ).requires_grad_()
+    g = torch.from_numpy(RNG.standard_normal((6, 64)).astype(np.float32)
+                         ).bfloat16()
+    out = ln_op.LayerNormFunction.apply(x, w, b, 1e-5,
+                                        _layer_norm_like_kernel)
+    got = torch.autograd.grad(out, (x, w, b), g)
+    want = torch.autograd.grad(ln_op.layer_norm_reference(x, w, b, 1e-5),
+                               (x, w, b), g)
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.float32,
+                                      torch.float32]
+    for a, e in zip(got, want):
+        assert torch.equal(a, e)

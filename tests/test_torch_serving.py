@@ -155,3 +155,57 @@ def test_cli_parses_the_jax_flag_names():
     assert (args.port, args.steps, args.max_batch, args.warmup) == \
         (0, 64, 16, False)
     assert args.use_bfloat16 and args.warmup_all_buckets
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_cli_serves_the_latest_checkpoint(tmp_path, bf16):
+    """--checkpoint_dir: the server's model holds the latest checkpoint's
+    parameters (a params-only restore of the port's train CLI output), and
+    GenerationService gives the frames of a model loaded with them; bf16
+    keeps LayerNorm's parameters f32, the checkpoint's values."""
+    from mint_tpu_torch.config.schema import load_pipeline_config
+    from mint_tpu_torch.config.serialize import pipeline_to_text
+    from mint_tpu_torch.models import builder
+    from mint_tpu_torch.serving import server
+    from test_torch_train import _cli as train
+    from test_torch_train import tiny_pipeline_config, write_corpus
+
+    (tmp_path / "data").mkdir()
+    write_corpus(str(tmp_path / "data"))
+    cfg_path = tmp_path / "tiny.config"
+    cfg_path.write_text(pipeline_to_text(tiny_pipeline_config(
+        str(tmp_path / "data" / "*_tfrecord-train*"))))
+    run = tmp_path / "run"
+    train(str(cfg_path), str(run), 3)
+    flags = [f"--config_path={cfg_path}", f"--checkpoint_dir={run}",
+             "--device=cpu"] + (["--use_bfloat16"] if bf16 else [])
+    model = server.load_model(server._parser().parse_args(flags))
+
+    saved = torch.load(run / "3" / "params.pt")
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    for name, p in model.state_dict().items():
+        want = saved[name]
+        if ".norm_" not in name:
+            want = want.to(dtype)
+        assert p.dtype == want.dtype, name
+        torch.testing.assert_close(p, want, rtol=0, atol=0)
+    # Without --checkpoint_dir: the seeded initialization, other weights.
+    seeded = server.load_model(server._parser().parse_args(
+        flags[:1] + flags[2:]))
+    key = "cross_modal_layer.transformer.block_0.mlp.fc1.weight"
+    assert not torch.equal(seeded.state_dict()[key], model.state_dict()[key])
+
+    ref = builder.build(load_pipeline_config(str(cfg_path)).multi_modal_model,
+                        is_training=False, dtype=dtype, device="cpu")
+    ref.load_state_dict(saved)
+    svc = GenerationService(model, batch_window_ms=1, default_steps=5)
+    try:
+        audio = _audio(5 + model.audio_seq_length - 1)
+        out = svc.generate(audio, steps=5, timeout=120)
+    finally:
+        svc.close()
+    zeros = np.zeros((1, model.motion_seq_length, svc.motion_dim),
+                     np.float32)
+    want = decoder.infer_auto_regressive(
+        ref, {"motion_input": zeros, "audio_input": audio[None]}, steps=5)
+    np.testing.assert_array_equal(out, want[0].float().numpy())
