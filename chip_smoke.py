@@ -17,14 +17,20 @@ CPU):
    (timed in ``time_kernels`` as a yardstick only);
 3. the slice: the flagship FACT (configs/fact_v5_deeper_t10_cm12.config,
    full width and depth, weights from a torch.Generator seeded 0) behind
-   the port's GenerationService and HTTP server answers concurrent
-   requests in two length buckets, in f32 and in bf16; the kernels'
-   launch counts must equal 16 blocks x decode steps (the bf16 LayerNorm
+   the port's GenerationService and HTTP server, warmed up on both length
+   buckets (which captures their decode graphs), answers concurrent
+   requests in the two buckets, in f32 and in bf16, capturing nothing
+   more; the kernels' launch counts, through each graph's capture and
+   replays, must equal 16 blocks x decode steps (the bf16 LayerNorm
    kernel: 32 LayerNorms x decode steps in bf16, none in f32);
-4. the same f32 weights on the card (kernels) and on the CPU (plain
-   versions): one forward and a 60-step decode, compared (the first 3
-   frames held to a tolerance, the drift over 60 recorded);
-5. batch-20 decode frames/s in bf16 and f32, for the record;
+4. the same f32 weights on the card (kernels, graphed) and on the CPU
+   (plain versions): one forward and a 60-step decode, compared (the
+   first 3 frames held to a tolerance, the drift over 60 recorded);
+5. batch-20 decode frames/s in bf16 and f32, for the record; (b) the
+   decode's CUDA graph against the same step body uncaptured, at batch 4
+   and 20 over 60 steps in f32 and bf16: the frames equal bit for bit,
+   the launches through capture and replays the body's, and frames/s of
+   both;
 6. the training path: (a) the flagship f32 at batch 2, one forward and
    backward on the card (kernels, through their autograd Functions) and on
    the CPU (plain versions) with the same weights and batch: the losses and
@@ -38,7 +44,10 @@ CPU):
    corpus resident on the card, windows drawn there): it trains,
    checkpoints and writes finite, falling losses, and a second invocation
    resumes from its checkpoint; (c) train steps/s at batch 32 in bf16 and
-   f32.
+   f32, each step a replay of the train step's graph; (d) training
+   through the graph against the same step body uncaptured, at batch 32
+   in f32 and bf16 compute, two fused windows with a checkpoint restore
+   between: every parameter and moment equal bit for bit.
 7. the scoring path, from phase 6's f32 checkpoint: (a) a synthetic eval
    corpus (``*_tfrecord-testval*``: the protocol's 40 clips of 1200 steps,
    three in a 384-step bucket that a partial batch pads, one too short to
@@ -66,6 +75,7 @@ from __future__ import annotations
 
 import io
 import json
+import logging
 import math
 import os
 import re
@@ -470,8 +480,17 @@ def serve_requests(model, dtype_name):
     in this run and the server's decode steps."""
     from mint_tpu_torch.serving import GenerationService, serve
 
+    from mint_tpu_torch.utils import graphs
+
     service = GenerationService(model, batch_window_ms=500.0, max_batch=8,
                                 default_steps=128, steps_bucket=128)
+    # The server's warm-up of both buckets (3 co-batched requests, padded
+    # to 4, of 128 steps; one of 256) captures their decode graphs, so the
+    # requests below capture nothing.
+    warm = service.warmup(steps=128, batch=3) + service.warmup(steps=256)
+    cache = graphs.of(model)
+    warm_captures = cache.captures
+    before = service.stats_snapshot()
     server = serve(service, "127.0.0.1", 0)
     url = f"http://127.0.0.1:{server.server_address[1]}"
     rng = np.random.default_rng(1)
@@ -506,7 +525,8 @@ def serve_requests(model, dtype_name):
         if errors or any(t.is_alive() for t in threads):
             raise RuntimeError(f"requests failed: {errors}")
         with urllib.request.urlopen(f"{url}/stats", timeout=60) as r:
-            stats = json.loads(r.read())
+            stats = {k: v - before[k] for k, v in json.loads(r.read())
+                     .items()}
         with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
             health = json.loads(r.read())
     finally:
@@ -524,13 +544,21 @@ def serve_requests(model, dtype_name):
     if n_blocks != 16:
         raise AssertionError(f"the flagship has {n_blocks} blocks, not 16")
     expect = expected_launches(stats["decode_steps"], dtype_name == "bf16")
-    log(f"server {dtype_name}: {len(asks)} requests answered in "
-        f"{seconds:.3f} s; shapes {[r.shape for r in results]} all finite; "
-        f"stats {stats}; healthz {health['status']}")
+    log(f"server {dtype_name}: warm-up of both buckets {warm:.1f} s, "
+        f"{warm_captures} graph(s) captured; {len(asks)} requests answered "
+        f"in {seconds:.3f} s with {cache.captures - warm_captures} more "
+        f"captures; shapes {[r.shape for r in results]} all finite; stats "
+        f"of the requests {stats}; healthz {health['status']} "
+        f"({cache.summary()})")
     if (stats["requests"] != len(asks) or stats["batches"] != 2
             or stats["decode_steps"] != 128 + 256):
         raise AssertionError(f"requests did not co-batch as expected: "
                              f"{stats}")
+    if warm_captures != 2 or cache.captures != warm_captures:
+        raise AssertionError(f"server {dtype_name}: {warm_captures} graphs "
+                             f"captured by the warm-up (want 2), "
+                             f"{cache.captures - warm_captures} by the "
+                             f"requests (want 0)")
     log(f"server {dtype_name}: launches {launches} == {expect} (16 blocks, "
         f"32 LayerNorms in bf16, x {stats['decode_steps']} decode steps)")
     if launches != expect:
@@ -600,7 +628,8 @@ def throughput(model, dtype_name, card):
         "audio_input": torch.from_numpy(rng.standard_normal(
             (DISPATCH, audio_len, 35)).astype(np.float32)).cuda(),
     }
-    decoder.infer_auto_regressive(model, inputs, steps=2)  # warm-up
+    # Warm-up, and the capture of this key's decode graph.
+    decoder.infer_auto_regressive(model, inputs, steps=THROUGHPUT_STEPS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = decoder.infer_auto_regressive(model, inputs,
@@ -614,6 +643,79 @@ def throughput(model, dtype_name, card):
         f"{seconds:.4f} s, {rate:.2f} frames/s, "
         f"{1000 * seconds / THROUGHPUT_STEPS:.3f} ms/step ({card})")
     return rate
+
+
+# -- phase 5b: the decode's graph against its uncaptured body ---------------
+
+GRAPH_STEPS = 60          # decode steps compared, graph against body
+GRAPH_BATCHES = (4, 20)   # the server's small batch and bench.py's
+
+
+def decode_graphs(models, card):
+    """The flagship's decode at each batch of GRAPH_BATCHES over
+    GRAPH_STEPS steps, in each model's dtype: the step body uncaptured on
+    fresh static tensors, then through infer_auto_regressive (the model's
+    cached graph for the key: eager at its first step, captured at its
+    second, replayed after), then again (every step a replay).  The frames
+    must be equal bit for bit, and the launches counted through capture
+    and replays must be the body's.  Returns {(dtype, batch): {"graphed":
+    frames/s, "uncaptured": frames/s}} of the timed calls, and {(kernel,
+    dtype): launches a step} of the batch-20 call whose every step is a
+    replay."""
+    from mint_tpu_torch.infer import decoder
+    from mint_tpu_torch.utils import graphs
+
+    rates, per_step = {}, {}
+    for model, name in models:
+        bf16 = name == "bf16"
+        for b in GRAPH_BATCHES:
+            rng = np.random.default_rng(b)
+            inputs = {"motion_input": torch.from_numpy(rng.standard_normal(
+                          (b, 120, 225)).astype(np.float32) * 0.5).cuda(),
+                      "audio_input": torch.from_numpy(rng.standard_normal(
+                          (b, GRAPH_STEPS + 239, 35)).astype(np.float32)
+                          * 0.5).cuda()}
+            runs, counts = [], []
+            for graphed in (False, True, True):
+                cache = graphs.of(model)
+                captures, seconds0 = cache.captures, cache.seconds
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = decoder._decode(model, inputs, GRAPH_STEPS, None,
+                                      decoder.DECODE_LAST_BLOCK_ROWS,
+                                      graphed=graphed)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                runs.append((out, seconds, cache.captures - captures,
+                             cache.seconds - seconds0))
+                counts.append(launch_counts())
+            (body, t_body, _, _), (first, t_first, n_cap, t_cap), \
+                (again, t_again, n_again, _) = runs
+            same = torch.equal(body, first) and torch.equal(body, again)
+            expect = expected_launches(GRAPH_STEPS, bf16)
+            rates[name, b] = {"uncaptured": b * GRAPH_STEPS / t_body,
+                              "graphed": b * GRAPH_STEPS / t_again}
+            if b == DISPATCH:
+                for kernel, n in counts[2].items():
+                    per_step[kernel, name] = n / GRAPH_STEPS
+            log(f"decode graph {name} batch {b} x {GRAPH_STEPS} steps: "
+                f"graphed frames equal to the uncaptured body's bit for bit:"
+                f" {same}; launches uncaptured {counts[0]}, graphed (first "
+                f"call: 1 eager step, capture, {GRAPH_STEPS - 1} replays) "
+                f"{counts[1]}, again ({GRAPH_STEPS} replays) {counts[2]}, "
+                f"want {expect}; captures {n_cap} in {t_cap:.3f} s, then "
+                f"{n_again}; uncaptured {t_body:.4f} s "
+                f"{rates[name, b]['uncaptured']:.2f} frames/s, graphed first"
+                f" call {t_first:.4f} s, again {t_again:.4f} s "
+                f"{rates[name, b]['graphed']:.2f} frames/s "
+                f"({graphs.of(model).summary()}) ({card})")
+            if (not same or any(c != expect for c in counts) or n_cap != 1
+                    or n_again != 0):
+                raise AssertionError(f"decode graph {name} batch {b}: equal "
+                                     f"{same}, launches {counts}, captures "
+                                     f"{n_cap}, {n_again}")
+    return rates, per_step
 
 
 # -- phase 6: training ------------------------------------------------------
@@ -709,6 +811,92 @@ def train_gradients():
                              f"{per_leaf[worst16]}, launches {counts16}")
     del mixed, g16
     torch.cuda.empty_cache()
+
+
+STEPS_PER_LOOP = 10  # the train CLI's default --steps_per_loop
+
+
+def train_graphs(card):
+    """Training through the step's graph against the uncaptured body, on
+    the full flagship at batch 32: f32, and bf16 compute with two
+    micro-batches a update (both bodies), each with a clip that bites and a
+    warm-up schedule, 2 x STEPS_PER_LOOP steps from one state as two
+    fused windows (Trainer.train_steps).  Between the windows the graphed
+    side's state is saved and restored (new tensors: its graphs are
+    dropped and captured anew); the uncaptured side runs on.  Every
+    parameter and moment must be equal bit for bit, and the launches
+    counted through captures and replays 16 a step (32 LayerNorms in
+    bf16)."""
+    from mint_tpu_torch.train import CheckpointManager, Trainer, schedules
+    from mint_tpu_torch.utils import graphs
+
+    for name in ("f32", "bf16"):
+        bf16 = name == "bf16"
+        model = flagship(torch.float32, "cuda", is_training=True,
+                         compute_dtype=torch.bfloat16 if bf16 else None)
+        k = 2 if bf16 else 1
+        sides = []
+        for graphed in (True, False):
+            trainer = Trainer(model, schedules.manual_stepping(
+                [4], [1e-4, 1e-3], warmup=True), grad_clip_norm=0.5,
+                accumulate_steps=k)
+            trainer._graphed = graphed
+            sides.append([trainer, trainer.init_state(model)])
+        windows = [sides[0][0].stack_batches(
+            [{k2: v.numpy() for k2, v in train_batch(
+                TRAIN_BATCH, "cpu", seed=100 * w + i).items()}
+             for i in range(STEPS_PER_LOOP)]) for w in range(2)]
+        cache = graphs.of(model)
+        captures, t_cap = cache.captures, cache.seconds
+        counts = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for w, stacked in enumerate(windows):
+                for graphed, side in zip((True, False), sides):
+                    reset_launches()
+                    t0 = time.perf_counter()
+                    side[1], metrics = side[0].train_steps(side[1], stacked)
+                    loss = float(metrics["loss"])
+                    torch.cuda.synchronize()
+                    counts[w, graphed] = (launch_counts(), loss,
+                                          time.perf_counter() - t0)
+                if w == 0:  # save and restore the graphed side
+                    manager = CheckpointManager(tmp)
+                    manager.save(STEPS_PER_LOOP, sides[0][1], force=True)
+                    restored = manager.restore(sides[0][1])
+                    moved = all(t.data_ptr() != sides[0][1].params[key]
+                                .data_ptr()
+                                for key, t in restored.params.items())
+                    sides[0][1] = restored
+        n_cap = cache.captures - captures
+        (_, a), (_, b) = sides
+        trees = [("params", a.params, b.params),
+                 ("mu", a.opt_state["mu"], b.opt_state["mu"]),
+                 ("nu", a.opt_state["nu"], b.opt_state["nu"])]
+        unequal = [f"{t}/{key}" for t, x, y in trees for key in x
+                   if not torch.equal(x[key], y[key])]
+        expect = expected_launches(STEPS_PER_LOOP, bf16)
+        bodies = 2 if k > 1 else 1
+        micro = " (2 micro-batches an update)" if k > 1 else ""
+        log(f"train graph {name}{micro} batch {TRAIN_BATCH}, 2 x "
+            f"{STEPS_PER_LOOP} steps, restored between (new tensors: "
+            f"{moved}): parameters and moments equal "
+            f"to the uncaptured body's bit for bit: {not unequal} "
+            f"({len(trees[0][1]) * 3} tensors; unequal {unequal[:4]}); step "
+            f"counts {a.step} and {b.step}, Adam counts "
+            f"{a.opt_state['count']} and {b.opt_state['count']}; losses "
+            + ", ".join(f"window {w} {'graphed' if g else 'uncaptured'} "
+                        f"{c[1]:.6f} in {c[2]:.2f} s, launches {c[0]}"
+                        for (w, g), c in counts.items())
+            + f"; want {expect} a window; {n_cap} captures in "
+            f"{cache.seconds - t_cap:.3f} s ({cache.summary()}) ({card})")
+        if (unequal or not moved or a.step != b.step
+                or a.opt_state["count"] != b.opt_state["count"]
+                or any(c[0] != expect for c in counts.values())
+                or n_cap != 2 * bodies):
+            raise AssertionError(f"train graph {name}: unequal {unequal[:8]}"
+                                 f", launches {counts}, captures {n_cap}")
+        del model, sides, a, b, restored, manager
+        torch.cuda.empty_cache()
 
 
 def write_corpus(data_dir, n_seq=32, length=300, shards=2):
@@ -832,8 +1020,9 @@ def train_cli(work, name, backend):
 
 def train_rate(name, card, steps):
     """Train steps/s of Trainer.train_step at batch 32 on a batch resident
-    on the card, after two warm-up steps; with the launches of the timed
-    steps and the peak device memory."""
+    on the card, after two warm-up steps (the first eager, the second the
+    capture of the step's graph): each timed step a replay; with the
+    launches of the timed steps and the peak device memory."""
     from mint_tpu_torch.train import Trainer, schedules
 
     model = flagship(torch.float32, "cuda", is_training=True,
@@ -1063,8 +1252,8 @@ def check_eval_launches(counts, dispatches, want_steps, name):
 
 def decode_sweep(model, card):
     """f32 decode frames/s of the flagship at each batch of SWEEP_BATCHES,
-    THROUGHPUT_STEPS steps after a 2-step warm-up, inputs from
-    np.random.default_rng(0)."""
+    THROUGHPUT_STEPS steps replaying the decode's graph after a warm-up
+    decode that captures it, inputs from np.random.default_rng(0)."""
     from mint_tpu_torch.infer import decoder
 
     rng = np.random.default_rng(0)
@@ -1075,7 +1264,8 @@ def decode_sweep(model, card):
                       (b, 120, 225)).astype(np.float32)).cuda(),
                   "audio_input": torch.from_numpy(rng.standard_normal(
                       (b, audio_len, 35)).astype(np.float32)).cuda()}
-        decoder.infer_auto_regressive(model, inputs, steps=2)
+        # Warm-up, and the capture of this key's decode graph.
+        decoder.infer_auto_regressive(model, inputs, steps=THROUGHPUT_STEPS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = decoder.infer_auto_regressive(model, inputs,
@@ -1289,6 +1479,10 @@ def main():
         raise SystemExit("chip_smoke.py needs a CUDA card; "
                          "torch.cuda.is_available() is False")
     sys.path.insert(0, REPO)
+    # One line per captured graph: its key, seconds, launches a replay and
+    # the pool bytes it added.
+    logging.basicConfig(stream=sys.stdout, format="%(name)s: %(message)s")
+    logging.getLogger("mint_tpu_torch.utils.graphs").setLevel(logging.INFO)
     from mint_tpu_torch.ops import _build
     from mint_tpu_torch.ops import attention as att
     from mint_tpu_torch.ops import layer_norm as ln
@@ -1343,10 +1537,13 @@ def main():
     card_vs_cpu(model32)
     throughput(model16, "bf16", card)
     throughput(model32, "f32", card)
+    graph_launches = decode_graphs(
+        ((model32, "f32"), (model16, "bf16")), card)[1]
     del model16, model32
     torch.cuda.empty_cache()
 
     train_gradients()
+    train_graphs(card)
     train_launches = {}
     with tempfile.TemporaryDirectory() as work:
         write_corpus(os.path.join(work, "data"))
@@ -1376,8 +1573,10 @@ def main():
                               "mint_tpu/models/layers.py:143", ("bf16",))}
     # Each row's times are at the batch-20 full shape (Nq or M/20 = 360);
     # "small" holds the same at the final block's 48 rows.  `launches` is
-    # the serving path's count; `train_launches` the train CLI's first
-    # invocation's (4 steps), and "train" the times at the training
+    # the serving path's count (through its graphs' captures and replays);
+    # `graphed_launches_per_step` phase 5b's batch-20 decode of 60 steps,
+    # every one a replay, over its steps; `train_launches` the train CLI's
+    # first invocation's (4 steps), and "train" the times at the training
     # shapes (batch 32; Nq or M/32 = 360, 240, 120); `eval_launches` the
     # evaluate CLI's (f32: every clip; bf16: the 384-step bucket), and
     # "eval" the times at the eval's default decode batch (Nq or M/batch
@@ -1385,6 +1584,7 @@ def main():
     kernels = [{"name": f"{name}_{dt}", "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name, dt],
                 "launches_per_step": per_step[name, dt],
+                "graphed_launches_per_step": graph_launches[name, dt],
                 "train_launches": train_launches[name, dt],
                 "max_abs_err": errs[name][dt],
                 **times[name, dt][360], "small": times[name, dt][48],

@@ -17,6 +17,8 @@ from typing import Any, Callable, Dict, Iterator, Mapping, Optional
 import numpy as np
 import torch
 
+from mint_tpu_torch.utils import graphs
+
 
 def to_device(batch: Mapping[str, Any], device: torch.device | str
               ) -> Dict[str, torch.Tensor]:
@@ -25,6 +27,14 @@ def to_device(batch: Mapping[str, Any], device: torch.device | str
     numpy array goes to a card from pinned memory without blocking the
     caller."""
     device = torch.device(device)
+    if device.type == "cuda":
+        # From a prefetch thread this must not overlap a graph's capture.
+        with graphs.capture_lock:
+            return _place(batch, device)
+    return _place(batch, device)
+
+
+def _place(batch, device):
     out = {}
     for key, value in batch.items():
         if not isinstance(value, torch.Tensor):

@@ -12,7 +12,10 @@ reference stops when the sliding audio window reaches the end,
 fact_model.py:124-126) and each bucket is generated by the port's batched
 decoder (``infer/decoder.py``), whose forwards launch the hand-written
 attention and fused-MLP kernels on the card: the same protocol, a whole
-bucket at a time.
+bucket at a time.  On the card each dispatch's steps replay the decoder's
+CUDA graph for its (padded batch, steps) key, captured at the first
+dispatch of that key (``infer/decoder.py``); each dispatch's log line
+carries the model's graph count.
 
 Not carried over from the JAX evaluator: ``mesh`` (one card here),
 ``decode_unroll`` (an XLA scan knob), ``fold_ln`` (``models/fold.py`` is
@@ -35,6 +38,7 @@ import torch
 
 from mint_tpu_torch.infer import decoder
 from mint_tpu_torch.models.fact import FACT
+from mint_tpu_torch.utils import graphs
 
 _log = logging.getLogger(__name__)
 
@@ -211,9 +215,10 @@ class Evaluator:
         seconds = time.monotonic() - t0
         # Prepend the seed (single_task_evaluator.py:71); drop pad clips.
         full = np.concatenate([motion, out], axis=1)[:n_real]
-        _log.info("decode batch=%d(+%d pad) steps=%d: %.2f s, %.1f frames/s",
-                  n_real, pad, n_steps, seconds,
-                  (n_real + pad) * n_steps / seconds)
+        _log.info("decode batch=%d(+%d pad) steps=%d: %.2f s, %.1f frames/s;"
+                  " the model's decode graphs so far: %s", n_real, pad,
+                  n_steps, seconds, (n_real + pad) * n_steps / seconds,
+                  graphs.of(self.model).summary())
         motion = motion[:n_real]
         audio = audio[:n_real]
 

@@ -7,15 +7,36 @@ audio window by one, run the forward, keep output frame 0, and shift it
 into the motion window.  As in JAX:
 
 - the audio and motion linear embeddings are hoisted out of the loop
-  (position-independent, so embedding the full audio track once is exact);
+  (position-independent, so embedding the audio track once is exact);
 - the embedded motion window rolls by embedding only the new frame;
 - the final cross-modal block computes only ``last_block_rows`` query rows
   (exact: the protocol keeps row 0 and the rows are independent past the
   attention's keys and values).
 
-The step loop is a Python loop: the generated frames go into a
-preallocated device tensor and nothing inside the loop waits for the
-device.
+The loop is the counterpart of ``_decode_scan``'s ``lax.scan``: one step
+body over static tensors (:class:`_Loop`): the embedded motion window
+[B, motion_seq, hidden], rolled in place; the embedded audio track
+[B, steps + audio_seq - 1, hidden]; the step index, a tensor on the
+device; and the frames [B, steps, motion_dim].  The body reads its audio
+window with a gather at the device index and writes its frame with a copy
+at it, both exact copies, so a step's arithmetic is the eager loop's.  On
+the CPU the body runs as it is.  On the card it runs as a CUDA graph of
+one step (``utils/graphs.py``): eager at its first step, captured at its
+second, replayed for every later step, with no Python between the
+kernels' launches and nothing waiting for the device.  ``dispatch_chunk``
+splits the steps into runs of replays: the same frames either way.
+
+Graphs are cached on the model, one per key (batch, dtype,
+``last_block_rows``, the audio track's length, which is steps +
+audio_seq - 1): so a model holds at most one graph per padded batch size
+and step count it decodes.  The server pads batches to powers of two up
+to ``max_batch`` and steps to its ``steps_bucket`` multiples, the
+evaluator batches to powers of two up to its cap and steps to its
+buckets, so the captures are bounded as the JAX package's compiles are.
+The graphs read the model's parameters in place: weights loaded into
+them (``load_state_dict``, as the evaluator and the server do) keep the
+graphs, while parameters replaced by other tensors drop them, to be
+captured anew.
 """
 
 from __future__ import annotations
@@ -24,7 +45,9 @@ from typing import Dict
 
 import torch
 
+from mint_tpu_torch.models import builder
 from mint_tpu_torch.models.fact import FACT
+from mint_tpu_torch.utils import graphs
 
 # Query rows computed in the FINAL cross-modal block per decode step (the
 # JAX decoder's default; exact for any value >= 1).
@@ -41,29 +64,48 @@ def _forward_from_embedded(model: FACT, motion_emb: torch.Tensor,
     return model.cross(m, a, first_n_out=last_block_rows)
 
 
-def _decode_steps(model: FACT, motion_emb: torch.Tensor,
-                  audio_emb_full: torch.Tensor, start: int, steps: int,
-                  last_block_rows: int, frames: torch.Tensor
-                  ) -> torch.Tensor:
-    """`steps` decode iterations from audio offset `start`, writing
-    frames[:, start + i]; returns the rolled embedded motion window."""
-    audio_seq = model.audio_seq_length
-    for i in range(start, start + steps):
-        out = _forward_from_embedded(model, motion_emb,
-                                     audio_emb_full[:, i:i + audio_seq],
-                                     last_block_rows)
+class _Loop:
+    """The decode's static tensors for one key and its step body."""
+
+    def __init__(self, model: FACT, motion_emb: torch.Tensor,
+                 audio_emb: torch.Tensor, steps: int, last_block_rows: int):
+        device = motion_emb.device
+        self.model = model
+        self.last_block_rows = last_block_rows
+        self.motion_emb = torch.empty_like(motion_emb)
+        self.audio_emb = torch.empty_like(audio_emb)
+        self.index = torch.zeros((), dtype=torch.long, device=device)
+        self.window = torch.arange(model.audio_seq_length, device=device)
+        out_dim = model.cross_modal_layer.cross_output_layer.out_features
+        self.frames = torch.empty((motion_emb.shape[0], steps, out_dim),
+                                  dtype=model.dtype, device=device)
+
+    def load(self, motion_emb: torch.Tensor, audio_emb: torch.Tensor):
+        """A new clip batch: its embedded windows in, step 0."""
+        self.motion_emb.copy_(motion_emb)
+        self.audio_emb.copy_(audio_emb)
+        self.index.zero_()
+
+    def body(self) -> None:
+        """One step: frame `index` into the frames, the motion window
+        rolled by it, the index advanced."""
+        model = self.model
+        audio = self.audio_emb.index_select(1, self.window + self.index)
+        out = _forward_from_embedded(model, self.motion_emb, audio,
+                                     self.last_block_rows)
         frame = out[:, 0:1]  # keep only the first output frame
-        frames[:, i] = frame[:, 0]
+        self.frames.index_copy_(1, self.index.view(1),
+                                frame.to(self.frames.dtype))
         new_emb = model.motion_linear_embedding(frame)
-        motion_emb = torch.cat([motion_emb[:, 1:], new_emb], dim=1)
-    return motion_emb
+        self.motion_emb.copy_(torch.cat([self.motion_emb[:, 1:], new_emb],
+                                        dim=1))
+        self.index += 1
 
 
 def _as_input(model: FACT, x) -> torch.Tensor:
     return torch.as_tensor(x, device=model.device)
 
 
-@torch.inference_mode()
 def infer_auto_regressive(model: FACT, inputs: Dict[str, torch.Tensor],
                           steps: int = 1200,
                           dispatch_chunk: int | None = None,
@@ -84,8 +126,19 @@ def infer_auto_regressive(model: FACT, inputs: Dict[str, torch.Tensor],
 
     Returns:
       [B, steps, motion_dim] generated frames on the model's device, in
-      the model's dtype.
+      the model's dtype.  On the card the steps replay a CUDA graph.
     """
+    return _decode(model, inputs, steps, dispatch_chunk, last_block_rows,
+                   graphed=graphs.enabled(model.device))
+
+
+@torch.inference_mode()
+def _decode(model: FACT, inputs: Dict[str, torch.Tensor], steps: int,
+            dispatch_chunk: int | None, last_block_rows: int,
+            graphed: bool) -> torch.Tensor:
+    """:func:`infer_auto_regressive`'s loop, its steps replaying the
+    model's cached graph for the key when `graphed`, else running the
+    same body uncaptured on fresh static tensors."""
     audio_seq = model.audio_seq_length
     motion_input = _as_input(model, inputs["motion_input"])
     audio_input = _as_input(model, inputs["audio_input"])
@@ -98,21 +151,41 @@ def infer_auto_regressive(model: FACT, inputs: Dict[str, torch.Tensor],
     if dispatch_chunk is not None and dispatch_chunk < 0:
         raise ValueError(f"dispatch_chunk must be positive or None/0 (= one "
                          f"dispatch); got {dispatch_chunk}")
+    if model.device.type == "cuda":
+        builder.check_batch(model, b)
     chunk = dispatch_chunk or steps
 
     # Hoist the position-independent embeddings out of the loop.
-    audio_emb_full = model.audio_linear_embedding(audio_input)
+    audio_emb = model.audio_linear_embedding(
+        audio_input[:, :steps + audio_seq - 1])
     motion_emb = model.motion_linear_embedding(motion_input)
-    out_dim = model.cross_modal_layer.cross_output_layer.out_features
-    frames = torch.empty((b, steps, out_dim), dtype=model.dtype,
-                         device=model.device)
+    if graphed:
+        cache = graphs.of(model)
+        # A graph reads the parameters where they were at its capture:
+        # parameters replaced since (not copied into) drop the graphs.
+        weights = tuple(p.data_ptr() for p in model.parameters())
+        if weights != cache.bound:
+            cache.steps.clear()
+            cache.bound = weights
+        key = ("decode", b, model.dtype, last_block_rows, audio_emb.shape[1])
+        if key not in cache.steps:
+            loop = _Loop(model, motion_emb, audio_emb, steps,
+                         last_block_rows)
+            cache.steps[key] = (loop, graphs.Step(loop.body, cache, key,
+                                                  model.device))
+        loop, step = cache.steps[key]
+    else:
+        loop = _Loop(model, motion_emb, audio_emb, steps, last_block_rows)
+        step = loop.body
+    loop.load(motion_emb, audio_emb)
     done = 0
     while done < steps:
         n = min(chunk, steps - done)
-        motion_emb = _decode_steps(model, motion_emb, audio_emb_full, done,
-                                   n, last_block_rows, frames)
+        for _ in range(n):
+            step()
         done += n
-    return frames
+    # The next decode of this key overwrites the static frames.
+    return loop.frames.clone() if graphed else loop.frames
 
 
 def max_steps(model: FACT, audio_len: int, requested: int = 1200) -> int:

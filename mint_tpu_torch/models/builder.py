@@ -5,8 +5,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from mint_tpu_torch.config.schema import MultiModalModelConfig
+from mint_tpu_torch.config.schema import (FACTModelConfig,
+                                          MultiModalModelConfig)
+from mint_tpu_torch.models import layers
 from mint_tpu_torch.models.fact import FACT
+from mint_tpu_torch.models.modalities import build_modalities_model
+from mint_tpu_torch.ops import attention as attention_op
+from mint_tpu_torch.ops import layer_norm as layer_norm_op
+from mint_tpu_torch.ops import mlp as mlp_op
 
 
 def _build_fact_model(model_config: MultiModalModelConfig,
@@ -18,6 +24,68 @@ def _build_fact_model(model_config: MultiModalModelConfig,
 MODEL_BUILDER_MAP = {
     "fact_model": _build_fact_model,
 }
+
+
+def check_kernel_limits(config: FACTModelConfig,
+                        dtype: torch.dtype) -> None:
+    """Raise ValueError, naming the limit and the config field, where the
+    model `config` builds would hand a hand-written kernel of `dtype` a
+    shape it does not take: each transformer's head dim over its keys
+    (the motion window, the audio window, and both for the cross-modal
+    stack) to attention, its hidden and MLP widths to the fused MLP and,
+    in bf16, its hidden width to LayerNorm.  The kernels' own limits are
+    the ops modules' ``limit_broken``.  A pure function of the config: the
+    limits that depend on the batch are :func:`check_batch`'s."""
+    models, params, _ = build_modalities_model(config.modality)
+    seq = {name: p["sequence_length"] for name, p in params.items()}
+    keys_cross = seq.get("motion", 0) + seq.get("audio", 0)
+    stacks = [(f"modality {name!r} transformer",
+               models[name].get("transformer_layer"), seq[name],
+               f"sequence_length {seq[name]}")
+              for name in ("motion", "audio") if name in models]
+    stacks.append(("cross_modal_model.transformer",
+                   config.cross_modal_model.transformer, keys_cross,
+                   f"motion + audio sequence_length {seq.get('motion', 0)}"
+                   f" + {seq.get('audio', 0)} = {keys_cross}"))
+    for field, tf, keys, why in stacks:
+        if tf is None:
+            continue  # FACT itself refuses a config without it
+        hidden, heads = tf.hidden_size, tf.num_attention_heads
+        if heads <= 0 or hidden % heads:
+            raise ValueError(f"{field}: hidden_size {hidden} is not a "
+                             f"multiple of num_attention_heads {heads}")
+        broken = attention_op.limit_broken(dtype, hidden // heads, keys)
+        if broken:
+            raise ValueError(
+                f"{field}: head dim {hidden // heads} (hidden_size {hidden}"
+                f" / num_attention_heads {heads}) over {why} keys: "
+                f"attention kernel limit: {broken}")
+        broken = mlp_op.limit_broken(dtype, hidden, tf.intermediate_size,
+                                     hidden)
+        if broken:
+            raise ValueError(
+                f"{field}: hidden_size {hidden} -> intermediate_size "
+                f"{tf.intermediate_size} -> hidden_size {hidden}: fused MLP "
+                f"kernel limit: {broken}")
+        broken = (layer_norm_op.limit_broken(hidden)
+                  if dtype == torch.bfloat16 else None)
+        if broken:
+            raise ValueError(f"{field}: hidden_size {hidden}: bf16 "
+                             f"LayerNorm kernel limit: {broken}")
+
+
+def check_batch(model: FACT, batch: int) -> None:
+    """Raise ValueError where `batch` samples would give the attention
+    kernels more (batch, head) pairs than they take: the decoder and the
+    trainer call it on the card before any step, so a capture never
+    starts on a batch the kernels refuse."""
+    heads = max(m.heads for m in model.modules()
+                if isinstance(m, layers.Attention))
+    if batch * heads > attention_op.MAX_BATCH_HEADS:
+        raise ValueError(
+            f"batch {batch} x {heads} attention heads = {batch * heads} "
+            f"(batch, head) pairs: the attention kernels take at most "
+            f"{attention_op.MAX_BATCH_HEADS}")
 
 
 def build(model_config: MultiModalModelConfig, is_training: bool,
@@ -37,8 +105,12 @@ def build(model_config: MultiModalModelConfig, is_training: bool,
 
     The model runs on the card unless the caller asks for the CPU
     (``device="cpu"``, as the tests do); without a card the default
-    raises rather than building on the CPU."""
+    raises rather than building on the CPU.  On the card the config is
+    first held to the kernels' limits (:func:`check_kernel_limits`): a
+    shape a kernel refuses fails here, not mid-decode or mid-step."""
     device = torch.device(device)
+    if device.type == "cuda" and model_config.which() == "fact_model":
+        check_kernel_limits(model_config.fact_model, compute_dtype or dtype)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("builder.build: device 'cuda' asked for (the "
                            "default) but no CUDA card is available; pass "

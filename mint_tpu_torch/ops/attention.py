@@ -69,6 +69,32 @@ def bf16_max_keys(d: int) -> int:
     return 64 * min(64, (232448 - 2048) // (64 * 2 * d) - 3)
 
 
+#: Both kernels put the (batch, head) pairs on the grid's y axis.
+MAX_BATCH_HEADS = 65535
+
+
+def limit_broken(dtype: torch.dtype, d: int, nk: int,
+                 batch_heads: int | None = None) -> str | None:
+    """The limit of the `dtype` kernel that heads of dim `d` attending
+    over `nk` keys (`batch_heads` = B*H of them, where known) break, or
+    None if it takes them.  f32 runs on the FMA kernel, bf16 on the
+    tensor-core one, whose head dim steps by 16 and which holds a head's
+    whole K in shared memory (csrc/attention.cu)."""
+    if dtype not in _ENTRY:
+        return f"no attention kernel takes {dtype} (float32, bfloat16)"
+    d_step = 1 if dtype == torch.float32 else 16
+    if not 0 < d <= 128 or d % d_step:
+        return (f"the {dtype} kernel takes a head dim 0 < D <= 128 that is "
+                f"a multiple of {d_step}; D={d}")
+    if dtype == torch.bfloat16 and nk > bf16_max_keys(d):
+        return (f"the bf16 kernel holds a head's K in shared memory, at "
+                f"most {bf16_max_keys(d)} keys at D={d}; Nk={nk}")
+    if batch_heads is not None and batch_heads > MAX_BATCH_HEADS:
+        return (f"the kernels take B*H <= {MAX_BATCH_HEADS} (the grid's y "
+                f"axis); B*H={batch_heads}")
+    return None
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float) -> torch.Tensor:
     """Attention on [B, H, N, D] tensors; Nq may differ from Nk.
@@ -160,19 +186,11 @@ def _operands(q, k, v):
     if k.shape[:2] != (b, h) or k.shape[3] != d:
         raise ValueError(f"attention: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} disagree")
-    # f32 runs on the FMA kernel, bf16 on the tensor-core one, whose head
-    # dim steps by 16 (attention.cu).
-    d_step = 1 if q.dtype == torch.float32 else 16
-    if (not 0 < d <= 128 or d % d_step or nq == 0 or nk == 0
-            or not 0 < b * h <= 65535):
-        raise ValueError(f"attention: the {q.dtype} kernel takes 0 < D <= "
-                         f"128 (a multiple of {d_step}), N > 0 and "
-                         f"B*H <= 65535; got {tuple(q.shape)}, Nk={nk}")
+    broken = limit_broken(q.dtype, d, nk, b * h)
+    if broken or nq == 0 or nk == 0 or b * h == 0:
+        raise ValueError(f"attention: {broken or 'empty input'}; got "
+                         f"{tuple(q.shape)}, Nk={nk}")
     if q.dtype == torch.bfloat16:
-        if nk > bf16_max_keys(d):
-            raise ValueError(f"attention: the bf16 kernel holds a head's K "
-                             f"in shared memory, at most {bf16_max_keys(d)} "
-                             f"keys at D={d}; got Nk={nk}")
         # Layouts TMA cannot address are copied once (never the model's).
         q, k, v = (t if _tma_ready(t) else t.contiguous() for t in (q, k, v))
     else:

@@ -28,6 +28,14 @@ launches = 0
 MAX_COLS = 1024  # csrc/layer_norm.cu holds a row in registers
 
 
+def limit_broken(cols: int) -> str | None:
+    """The kernel's limit that rows of `cols` columns break, or None if it
+    takes them: it holds a row in a warp's registers as bf16 pairs."""
+    if cols % 2 or not 0 < cols <= MAX_COLS:
+        return f"the kernel takes an even C <= {MAX_COLS}; C={cols}"
+    return None
+
+
 def layer_norm_reference(x: torch.Tensor, weight: torch.Tensor,
                          bias: torch.Tensor, eps: float) -> torch.Tensor:
     """LayerNorm over x's last dim: statistics and affine in f32 with the
@@ -90,8 +98,8 @@ def _launch(x, weight, bias, eps):
         raise ValueError(f"layer_norm: the kernel takes a bfloat16 input "
                          f"with float32 weight and bias; got {x.dtype}, "
                          f"{weight.dtype}, {bias.dtype}")
-    if (weight.shape != (cols,) or bias.shape != (cols,) or cols % 2
-            or not 0 < cols <= MAX_COLS):
+    if (weight.shape != (cols,) or bias.shape != (cols,)
+            or limit_broken(cols)):
         raise ValueError(f"layer_norm: x {tuple(x.shape)}, weight "
                          f"{tuple(weight.shape)}, bias {tuple(bias.shape)} "
                          f"(the kernel takes an even C <= {MAX_COLS})")

@@ -53,6 +53,20 @@ def mlp_formula(x, w1, b1, w2, b2) -> torch.Tensor:
 _ENTRY = {torch.float32: "mint_mlp_f32", torch.bfloat16: "mint_mlp_bf16"}
 
 
+def limit_broken(dtype: torch.dtype, h: int, f: int, o: int) -> str | None:
+    """The limit of the `dtype` kernel that an MLP of widths H -> F -> O
+    breaks, or None if it takes it.  f32 runs two FMA GEMM passes, bf16
+    two tensor-core ones, whose TMA boxes and `wgmma` depth step by 16
+    (mlp.cu)."""
+    if dtype not in _ENTRY:
+        return f"no fused MLP kernel takes {dtype} (float32, bfloat16)"
+    step, o_step = (8, 1) if dtype == torch.float32 else (16, 8)
+    if h % step or f % step or o % o_step:
+        return (f"the {dtype} kernel takes H and F multiples of {step} and "
+                f"O a multiple of {o_step}; H={h}, F={f}, O={o}")
+    return None
+
+
 def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
     """Fused MLP on [..., H] inputs; weights [H, F], [F], [F, O], [O].
 
@@ -115,14 +129,9 @@ def _launch(x, w1, b1, w2, b2):
             f"fused_mlp: shapes x {tuple(x.shape)}, w1 {tuple(w1.shape)}, "
             f"b1 {tuple(b1.shape)}, w2 {tuple(w2.shape)}, "
             f"b2 {tuple(b2.shape)}")
-    # f32 runs on two FMA GEMM passes, bf16 on two tensor-core ones
-    # (mlp.cu); both write the activation to a scratch buffer.
-    f32 = x.dtype == torch.float32
-    step, o_step = (8, 1) if f32 else (16, 8)
-    if h % step or f % step or o % o_step:
-        raise ValueError(
-            f"fused_mlp: the {x.dtype} kernel takes H and F multiples of "
-            f"{step} and O a multiple of {o_step}; got H={h}, F={f}, O={o}")
+    broken = limit_broken(x.dtype, h, f, o)
+    if broken:
+        raise ValueError(f"fused_mlp: {broken}")
     if m == 0:
         return x.new_empty((0, o))
     x = x.contiguous()

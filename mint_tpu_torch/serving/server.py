@@ -41,6 +41,7 @@ import torch
 
 from mint_tpu_torch.infer import decoder
 from mint_tpu_torch.models.fact import FACT
+from mint_tpu_torch.utils import graphs
 
 log = logging.getLogger(__name__)
 
@@ -153,7 +154,9 @@ class GenerationService:
                all_buckets: bool = False) -> float:
         """Run throwaway generations through the worker so one-time first
         dispatch costs (the kernels' build, CUDA context and allocator
-        warm-up) are paid at boot.  `batch` > 1 enqueues that many
+        warm-up, and on the card the capture of each warmed bucket's decode
+        graph) are paid at boot: a later request of a warmed bucket
+        captures nothing.  `batch` > 1 enqueues that many
         requests at once so they co-batch (clamped to `max_batch`);
         `all_buckets` warms every pow2 batch bucket from 2 up through
         `batch`'s.  Returns the wall seconds spent."""
@@ -169,7 +172,7 @@ class GenerationService:
                     "the batch-1 bucket; pass batch=%d to warm every "
                     "bucket", self.max_batch)
             self.generate(audio, steps=n, timeout=float("inf"))
-            return time.time() - t0
+            return self._warmed(t0)
         if all_buckets:
             # One warm per distinct padded bucket <= batch's; the smallest
             # request count that pads to each.
@@ -181,7 +184,13 @@ class GenerationService:
             sizes = [batch]
         for n_req in sizes:
             self._warm_cobatch(audio, n, n_req)
-        return time.time() - t0
+        return self._warmed(t0)
+
+    def _warmed(self, t0: float) -> float:
+        seconds = time.time() - t0
+        log.info("warmup done in %.1f s; the model's decode graphs: %s",
+                 seconds, graphs.of(self.model).summary())
+        return seconds
 
     def _warm_cobatch(self, audio: np.ndarray, n_steps: int,
                       n_req: int, attempts: int = 3) -> None:

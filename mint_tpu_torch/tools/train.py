@@ -13,6 +13,13 @@ in `model_dir`), train one step, train to ``--steps`` (absolute: a resumed
 run stops at the same budget), save and close.  Checkpoints go to
 `model_dir`, metrics to ``model_dir/train/metrics.jsonl``.
 
+As in the JAX CLI the Controller runs with ``fuse_loop``: each
+``--steps_per_loop`` window's host batches (read two ahead by a
+background thread) are stacked, copied to the device in one copy, and
+trained by ``Trainer.train_steps``, whose steps replay a CUDA graph of the
+train step on the card.  With ``--input_backend=device`` the windows are
+drawn on the card instead.
+
 It runs on one CUDA card unless ``--device=cpu`` is given (as the tests
 do); without a card the default raises.  Not in the port yet: the mesh and
 ``--distributed`` / ``--shard_corpus``, the C++ input loader, and
@@ -35,7 +42,7 @@ from mint_tpu_torch.config.serialize import save_pipeline_config
 from mint_tpu_torch.data import pipeline as data_pipeline
 from mint_tpu_torch.data import tfrecord
 from mint_tpu_torch.data.device_dataset import DeviceDataset
-from mint_tpu_torch.data.prefetch import DevicePrefetcher, to_device
+from mint_tpu_torch.data.prefetch import DevicePrefetcher
 from mint_tpu_torch.models import builder
 from mint_tpu_torch.models.fact import init_params
 from mint_tpu_torch.ops import attention as attention_op
@@ -119,12 +126,13 @@ def train(args: argparse.Namespace) -> None:
         log.info("device-resident dataset: %d sequences, %.1f MB",
                  train_sampler.n_sequences, train_sampler.nbytes / 2**20)
     else:
-        # The loader and the copy to the device run in a background
-        # thread, two batches ahead.
+        # The loader runs in a background thread, two batches ahead; the
+        # batches stay on the host until the controller's copy of each
+        # fused window.
         batches = DevicePrefetcher(
             data_pipeline.create_input(train_config, pipeline.train_dataset,
                                        is_training=True),
-            lambda b: to_device(b, trainer.device))
+            lambda b: b)
 
     manager = CheckpointManager(
         args.model_dir, save_interval_steps=args.checkpoint_interval,
@@ -134,6 +142,7 @@ def train(args: argparse.Namespace) -> None:
         steps_per_loop=args.steps_per_loop, checkpoint_manager=manager,
         summary_dir=os.path.join(args.model_dir, "train"),
         summary_interval=args.summary_interval,
+        fuse_loop=True,
         train_sampler=train_sampler)
     try:
         # One step first to bring everything up, then the rest; train() is

@@ -30,6 +30,7 @@ from typing import Any, Dict, Mapping, Optional
 import torch
 
 from mint_tpu_torch.train.trainer import TrainState
+from mint_tpu_torch.utils import graphs
 
 PARAMS_FILE = "params.pt"
 OPT_STATE_FILE = "opt_state.pt"
@@ -211,8 +212,11 @@ class CheckpointManager:
 
         def run():
             try:
-                # pop: the device copies are freed once fetched
-                host = self._to_host(held.pop())
+                # pop: the device copies are freed once fetched.  The
+                # fetch must not overlap a graph's capture on the
+                # training thread.
+                with graphs.capture_lock:
+                    host = self._to_host(held.pop())
                 self._write(step, *host)
             except BaseException as exc:  # re-raised at the next join
                 self._save_exc = exc

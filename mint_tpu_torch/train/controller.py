@@ -4,7 +4,10 @@
 - ``train(until_step)`` runs train steps in loops of ``steps_per_loop``
   until the ABSOLUTE step `until_step`, writing summaries every
   ``summary_interval`` steps and offering a checkpoint at every loop
-  boundary (the manager saves when its interval has elapsed);
+  boundary (the manager saves when its interval has elapsed); with
+  ``fuse_loop`` each loop's batches are stacked and run by
+  ``Trainer.train_steps``, as the JAX controller runs each loop as one
+  compiled ``lax.scan``;
 - the latest checkpoint is restored at construction;
 - ``evaluate()`` runs the evaluator once; ``evaluate_continuously`` restores
   and evaluates each new checkpoint until none appears for `timeout`
@@ -34,9 +37,18 @@ class Controller:
                  checkpoint_manager: Optional[CheckpointManager] = None,
                  summary_dir: Optional[str] = None,
                  summary_interval: int = 10,
+                 fuse_loop: bool = False,
                  train_sampler=None,
                  sample_seed: int = 0):
-        """``train_sampler``: a DeviceDataset; when given, batches are drawn
+        """``fuse_loop``: run each ``steps_per_loop`` window through
+        ``Trainer.train_steps`` on the window's batches, stacked (the JAX
+        controller's option: one ``lax.scan`` dispatch a window there, one
+        copy of the window to the device and a replay of the step's graph a
+        step here).  ``train_iter`` then yields host (numpy) batches, as
+        in JAX, so no other thread copies to the device while a step is
+        captured; per-step mode also takes device batches.
+
+        ``train_sampler``: a DeviceDataset; when given, batches are drawn
         on the device (``Trainer.train_steps_sampled``) and ``train_iter``
         is not read.  Draws are seeded from ``sample_seed`` and the
         ABSOLUTE step, so a resumed run draws the windows it would have
@@ -50,6 +62,7 @@ class Controller:
         self.state = state
         self.evaluator = evaluator
         self.steps_per_loop = steps_per_loop
+        self.fuse_loop = fuse_loop
         self.checkpoint_manager = checkpoint_manager
         self.summary_interval = summary_interval
         self.metrics_writer = MetricsWriter(summary_dir)
@@ -132,6 +145,13 @@ class Controller:
                 self.state, step_metrics = self.trainer.train_steps_sampled(
                     self.state, self.train_sampler, loop,
                     seed=self.sample_seed)
+                for _ in range(loop):
+                    timer.step()
+            elif self.fuse_loop:
+                stacked = self.trainer.stack_batches(
+                    [next(self.train_iter) for _ in range(loop)])
+                self.state, step_metrics = self.trainer.train_steps(
+                    self.state, stacked)
                 for _ in range(loop):
                     timer.step()
             else:

@@ -24,6 +24,25 @@ template.  The update is in place, to keep one copy of the state on the
 card: ``train_step`` consumes the state it is given, as the JAX step
 donates it.  The optimizer's element-wise work runs as ``torch._foreach``
 ops, a few launches for all parameters at once.
+
+The step is one body over static tensors, the counterpart of the fused
+``lax.scan`` that the JAX trainer compiles per ``steps_per_loop`` window:
+forward, backward, clip and Adam read a static batch (each step's batch
+is copied into it), the state's own tensors, and the step's scalars
+(the learning rate negated, Adam's two bias corrections, the
+accumulation divisor) as tensors on the device, which the host computes
+in f32 (``schedule(count)``, as the JAX step does) and writes before
+each step.  With
+accumulation there are two bodies: the micro-step, and the micro-step
+plus clip and Adam; the Python ``count`` and ``mini_step`` stay in the
+optimizer state, as the checkpoint holds them.  On the CPU the body runs
+as it is.  On the card it runs as a CUDA graph (``utils/graphs.py``):
+eager at its first step, captured at its second, replayed after.  A
+graph reads the tensors it was captured on, so a state whose tensors are
+others (a fresh ``init_state``, a checkpoint restore, a caller's own
+state) drops the graphs, which the next steps capture anew on its
+tensors: a replay never reads another state's addresses, and no state is
+overwritten but the one passed in.
 """
 
 from __future__ import annotations
@@ -36,8 +55,10 @@ from torch import nn
 from torch.func import functional_call
 
 from mint_tpu_torch.data.prefetch import to_device
+from mint_tpu_torch.models import builder
 from mint_tpu_torch.models.fact import l2_loss
 from mint_tpu_torch.train.schedules import Schedule
+from mint_tpu_torch.utils import graphs
 
 LABEL_KEY = "target"
 # Adam's decay rates, and eps 1e-7: tf.keras Adam's default, the
@@ -77,9 +98,20 @@ class Trainer:
         self.accumulate_steps = int(accumulate_steps)
         self.device = next(model.parameters()).device
         if self.device.type == "cuda":
-            # f32 trains in true f32, as the reference does: no TF32.
+            # f32 matmuls run in full f32 (no TF32).  The JAX package sets
+            # no matmul precision: its f32 matmuls run at the backend's
+            # default, exact f32 on the CPU (where the tests hold the port
+            # to it) but not exact f32 on a TPU.  TF32 here stays off until
+            # a run on the card measures what it does to the loss.
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+        self._graphed = graphs.enabled(self.device)
+        # The step's scalars: the learning rate negated, Adam's bias
+        # corrections 1 and 2, the accumulation divisor.
+        self._scalars = torch.zeros(4, device=self.device)
+        self._batches: Dict[Any, Dict[str, torch.Tensor]] = {}
+        self._steps: Dict[Any, Any] = {}  # (batch key, body) -> step
+        self._bound: Tuple[int, ...] = ()  # the state the steps read
 
     # -- state ---------------------------------------------------------
 
@@ -120,32 +152,31 @@ class Trainer:
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Mean loss of `batch` under `params` and its gradient for each
         parameter."""
+        loss, grads = self._loss_and_grads(params,
+                                           to_device(batch, self.device))
+        return loss, dict(zip(params, grads))
+
+    def _loss_and_grads(self, params, batch):
         leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
         with torch.enable_grad():
-            loss = self.loss(leaves, to_device(batch, self.device))
+            loss = self.loss(leaves, batch)
             grads = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), dict(zip(leaves, grads))
+        return loss.detach(), list(grads)
 
     @torch.no_grad()
-    def apply_gradients(self, state: TrainState,
-                        grads: Dict[str, torch.Tensor]) -> None:
-        """The optimizer step on `state`, in place: accumulate, and every
-        ``accumulate_steps`` micro-batches clip and apply Adam."""
-        opt = state.opt_state
-        names = list(state.params)
-        gs = [grads[k] for k in names]
-        if self.accumulate_steps > 1:
-            accs = [opt["acc"][k] for k in names]
-            n = opt["mini_step"]
+    def _update(self, gs, params, mus, nus, accs, body: str) -> None:
+        """The optimizer's arithmetic on lists of tensors, in place, with
+        the step's scalars read from the device: accumulate (``accs`` not
+        empty), and unless this is a micro-step clip and apply Adam."""
+        neg_lr, bc1, bc2, divisor = self._scalars.unbind()
+        if accs:
             delta = torch._foreach_sub(gs, accs)
-            torch._foreach_div_(delta, float(n + 1))
+            torch._foreach_div_(delta, divisor)
             torch._foreach_add_(accs, delta)
-            if n + 1 < self.accumulate_steps:
-                opt["mini_step"] = n + 1
+            if body == "micro":
                 return
             gs = [a.clone() for a in accs]
             torch._foreach_zero_(accs)
-            opt["mini_step"] = 0
         if self.grad_clip_norm > 0.0:
             norm = torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(gs)))
@@ -153,12 +184,6 @@ class Trainer:
                                torch.ones_like(norm),
                                self.grad_clip_norm / norm)
             torch._foreach_mul_(gs, coef)
-        lr = self.schedule(opt["count"])
-        count = opt["count"] + 1
-        bc1 = _f32(1 - np.float32(ADAM_B1) ** np.float32(count))
-        bc2 = _f32(1 - np.float32(ADAM_B2) ** np.float32(count))
-        mus = [opt["mu"][k] for k in names]
-        nus = [opt["nu"][k] for k in names]
         torch._foreach_mul_(mus, ADAM_B1)
         torch._foreach_add_(mus, torch._foreach_mul(gs, 1 - ADAM_B1))
         torch._foreach_mul_(nus, ADAM_B2)
@@ -169,9 +194,109 @@ class Trainer:
         torch._foreach_add_(den, ADAM_EPS)
         update = torch._foreach_div(mus, bc1)
         torch._foreach_div_(update, den)
-        torch._foreach_mul_(update, -lr)
-        torch._foreach_add_([state.params[k] for k in names], update)
-        opt["count"] = count
+        torch._foreach_mul_(update, neg_lr)
+        torch._foreach_add_(params, update)
+
+    def _lists(self, state: TrainState):
+        """The state's parameters, moments and accumulator as lists in the
+        parameters' order."""
+        opt = state.opt_state
+        names = list(state.params)
+        accs = [opt["acc"][k] for k in names] if "acc" in opt else []
+        return ([state.params[k] for k in names],
+                [opt["mu"][k] for k in names],
+                [opt["nu"][k] for k in names], accs)
+
+    def _body_name(self, opt: Mapping[str, Any]) -> str:
+        """"step", or with accumulation "micro" (gradients into the
+        accumulator only) or "update" (then clip and Adam)."""
+        if self.accumulate_steps == 1:
+            return "step"
+        last = opt["mini_step"] + 1 == self.accumulate_steps
+        return "update" if last else "micro"
+
+    def _write_scalars(self, opt: Mapping[str, Any]) -> None:
+        """The step's scalars, computed on the host in f32 as the JAX step
+        computes them, onto the device, behind the work already queued."""
+        count = opt["count"] + 1
+        values = torch.tensor([
+            -self.schedule(opt["count"]),
+            _f32(1 - np.float32(ADAM_B1) ** np.float32(count)),
+            _f32(1 - np.float32(ADAM_B2) ** np.float32(count)),
+            float(opt.get("mini_step", 0) + 1)], dtype=torch.float32)
+        if self._scalars.is_cuda:
+            values = values.pin_memory()
+        self._scalars.copy_(values, non_blocking=True)
+
+    def _advance(self, opt: Dict[str, Any]) -> None:
+        """The optimizer state's Python counters past one micro-batch."""
+        if self.accumulate_steps > 1:
+            n = opt["mini_step"] + 1
+            opt["mini_step"] = 0 if n == self.accumulate_steps else n
+            if n < self.accumulate_steps:
+                return
+        opt["count"] += 1
+
+    def apply_gradients(self, state: TrainState,
+                        grads: Dict[str, torch.Tensor]) -> None:
+        """The optimizer step on `state`, in place and uncaptured:
+        accumulate, and every ``accumulate_steps`` micro-batches clip and
+        apply Adam.  The same arithmetic as a train step's."""
+        opt = state.opt_state
+        self._write_scalars(opt)
+        self._update([grads[k] for k in state.params], *self._lists(state),
+                     self._body_name(opt))
+        self._advance(opt)
+
+    def _bind(self, state: TrainState) -> None:
+        """Make `state`'s tensors the ones the steps read: if they are not
+        those of the steps so far, drop those steps and their graphs (the
+        next steps capture on `state`'s tensors)."""
+        bound = tuple(t.data_ptr() for group in self._lists(state)
+                      for t in group)
+        if bound != self._bound:
+            self._bound = bound
+            self._steps.clear()
+
+    def _static_batch(self, batch: Mapping[str, Any]
+                      ) -> Tuple[Any, Dict[str, torch.Tensor]]:
+        """The static batch for `batch`'s numeric features (made at the
+        first batch of their shapes; on the card checked against the
+        kernels' batch limit), with `batch` copied into it behind the work
+        already queued."""
+        values = to_device(batch, self.device)
+        key = tuple((k, tuple(v.shape), v.dtype) for k, v in values.items())
+        static = self._batches.get(key)
+        if static is None:
+            if self.device.type == "cuda":
+                builder.check_batch(self.model, len(next(iter(
+                    values.values()))))
+            static = self._batches[key] = {
+                k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
+                for k, v in values.items()}
+        for k, value in values.items():
+            static[k].copy_(value)
+        return key, static
+
+    def _step(self, state: TrainState, batch_key, batch, body: str):
+        """The step that runs `body` on the bound state and `batch`: a
+        graph on the card, the body itself on the CPU."""
+        step = self._steps.get((batch_key, body))
+        if step is None:
+            lists = self._lists(state)
+
+            def run():
+                loss, gs = self._loss_and_grads(state.params, batch)
+                self._update(gs, *lists, body)
+                return loss
+
+            step = run
+            if self._graphed:
+                cache = graphs.of(self.model)
+                step = graphs.Step(run, cache, ("train", body) + batch_key,
+                                   self.device)
+            self._steps[batch_key, body] = step
+        return step
 
     def train_step(self, state: TrainState, batch: Mapping[str, Any]
                    ) -> Tuple[TrainState, Dict[str, Any]]:
@@ -179,8 +304,15 @@ class Trainer:
         (its tensors are updated in place) and returns the next one and
         the step's metrics; the loss stays a tensor on the device until
         the caller reads it."""
-        loss, grads = self.loss_and_grads(state.params, batch)
-        self.apply_gradients(state, grads)
+        opt = state.opt_state
+        self._bind(state)
+        batch_key, static = self._static_batch(batch)
+        self._write_scalars(opt)
+        # A copy: after a capture the step returns its static loss, which
+        # the next step overwrites.
+        loss = self._step(state, batch_key, static,
+                          self._body_name(opt))().clone()
+        self._advance(opt)
         metrics = {
             "total_loss": loss,
             "loss": loss,
@@ -207,12 +339,13 @@ class Trainer:
 
     def train_steps(self, state: TrainState, stacked: Mapping[str, Any]
                     ) -> Tuple[TrainState, Dict[str, Any]]:
-        """``stacked[...].shape[0]`` train steps, one per slice, in a
-        plain loop: numerically the same as looping ``train_step``, whose
-        last metrics it returns.  (The JAX trainer compiles the loop into
-        one ``lax.scan``; a CUDA graph of the step is the port's
-        counterpart, not built yet.)"""
+        """``stacked[...].shape[0]`` train steps, one per slice: the same
+        steps as looping ``train_step``, whose last metrics it returns.
+        The stack goes to the device in one copy; on the card each step
+        replays the step's graph, as the JAX trainer runs its window as
+        one compiled ``lax.scan``."""
         loop = next(iter(stacked.values())).shape[0]
+        stacked = to_device(stacked, self.device)
         metrics: Dict[str, Any] = {}
         for i in range(loop):
             state, metrics = self.train_step(
@@ -225,7 +358,9 @@ class Trainer:
         """`loop` train steps on batches drawn on the device from a
         :class:`~mint_tpu_torch.data.device_dataset.DeviceDataset`.  Each
         step's draw is seeded from (`seed`, absolute step), so a resumed
-        run draws the windows the uninterrupted run would have drawn."""
+        run draws the windows the uninterrupted run would have drawn.  The
+        draw runs outside the step's graph (it reseeds a generator on the
+        host) and is copied into the static batch."""
         metrics: Dict[str, Any] = {}
         for _ in range(loop):
             state, metrics = self.train_step(

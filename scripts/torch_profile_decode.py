@@ -1,13 +1,15 @@
 """Where a decode step's time goes on the card, for the PyTorch port.
 
 Runs the flagship FACT (seeded random weights) through
-``mint_tpu_torch.infer.decoder.infer_auto_regressive`` at batch 20 (the
-bench dispatch) for a few steps under ``torch.profiler`` and prints, per
-dtype: wall ms/step, device busy ms/step (sum of kernel times), the
-device's idle share, the kernels by total device time, and the layout
-copies among them.
+``mint_tpu_torch.infer.decoder.infer_auto_regressive`` at batch 4 (the
+server's small batch) and 20 (the bench dispatch) for a few steps under
+``torch.profiler``, each step a replay of the decode's CUDA graph (captured
+by two decodes of the same key first), and the same steps through the
+step body uncaptured.  Prints, per dtype, batch and mode: wall ms/step,
+device busy ms/step (sum of kernel times), the device's idle share, the
+kernels by total device time, and the layout copies among them.
 
-    python scripts/torch_profile_decode.py [--steps 4] [--batch 20]
+    python scripts/torch_profile_decode.py [--steps 8] [--batch 4 20]
 
 Needs a CUDA card.
 """
@@ -39,7 +41,7 @@ def _kernel_rows(prof):
     return sorted(rows, reverse=True)
 
 
-def run(dtype, batch, steps):
+def run(dtype, batch, steps, graphed):
     from mint_tpu_torch.config.schema import load_pipeline_config
     from mint_tpu_torch.infer import decoder
     from mint_tpu_torch.models import builder
@@ -56,17 +58,22 @@ def run(dtype, batch, steps):
         "audio_input": torch.from_numpy(rng.standard_normal(
             (batch, steps + 239, 35)).astype(np.float32)).cuda(),
     }
-    decoder.infer_auto_regressive(model, inputs, steps=2)  # build + warm
+    def decode():
+        return decoder._decode(model, inputs, steps, None,
+                               decoder.DECODE_LAST_BLOCK_ROWS, graphed)
+
+    for _ in range(2):  # build, warm up and (graphed) capture the key
+        decode()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        decoder.infer_auto_regressive(model, inputs, steps=steps)
+        decode()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = _kernel_rows(prof)
     busy = sum(r[0] for r in rows) / 1e3  # us -> ms
-    name = str(dtype)[6:]
+    name = f"{str(dtype)[6:]} {'graphed' if graphed else 'uncaptured'}"
     print(f"{name} batch {batch}, {steps} steps (profiled): wall "
           f"{1e3 * wall / steps:.3f} ms/step, device busy "
           f"{busy / steps:.3f} ms/step, idle share "
@@ -83,8 +90,8 @@ def run(dtype, batch, steps):
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--steps", type=int, default=4)
-    p.add_argument("--batch", type=int, default=20)
+    p.add_argument("--steps", type=int, default=8)
+    p.add_argument("--batch", type=int, nargs="+", default=[4, 20])
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -96,7 +103,9 @@ def main():
                           text=True, check=True).stdout.strip()
     print(f"card: {card}")
     for dtype in (torch.bfloat16, torch.float32):
-        run(dtype, args.batch, args.steps)
+        for batch in args.batch:
+            for graphed in (True, False):
+                run(dtype, batch, args.steps, graphed)
 
 
 if __name__ == "__main__":

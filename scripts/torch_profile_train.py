@@ -4,13 +4,16 @@ Runs ``Trainer`` steps of the flagship FACT (seeded random weights, a
 random batch resident on the card) at the config's batch of 32, in bf16
 compute (f32 parameters) and in f32, and prints per dtype:
 
-- steps/s over a few untraced steps;
-- per step, from CUDA events around each phase: the forward (the two
-  hand-written kernels and the model's other ops), the backward (the
-  plain VJPs of both kernels and autograd's through the rest) and the
-  optimizer (clip and Adam, ``torch._foreach`` ops);
-- under ``torch.profiler``: wall and device-busy ms/step, the idle share,
-  the hand-written kernels' time, and the kernels by total device time;
+- steps/s over a few untraced steps, each a replay of the train step's
+  CUDA graph (the first two steps, eager and captured, are the warm-up),
+  and of the same step body uncaptured;
+- per step, from CUDA events around each phase of the uncaptured body:
+  the forward (the hand-written kernels and the model's other ops), the
+  backward (the plain VJPs of the kernels and autograd's through the
+  rest) and the optimizer (clip and Adam, ``torch._foreach`` ops);
+- under ``torch.profiler``, for the graphed steps and the uncaptured
+  ones: wall and device-busy ms/step, the idle share, the hand-written
+  kernels' time, and the kernels by total device time;
 - the peak device memory.
 
     python scripts/torch_profile_train.py [--steps 3] [--batch 32]
@@ -34,9 +37,10 @@ from torch.profiler import ProfilerActivity, profile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "fact_v5_deeper_t10_cm12.config")
-# Kernel names of csrc/attention.cu and csrc/mlp.cu.
+# Kernel names of csrc/attention.cu, csrc/mlp.cu and csrc/layer_norm.cu.
 OWN_KERNELS = ("attention_kernel", "attention_tc_kernel", "gemm_nt_kernel",
-               "gemm_tc_kernel", "reduce_kernel", "reduce_tc_kernel")
+               "gemm_tc_kernel", "reduce_kernel", "reduce_tc_kernel",
+               "layer_norm_bf16_kernel")
 
 
 def _kernel_rows(prof):
@@ -69,6 +73,9 @@ def run(name, batch, steps):
         torch.Generator().manual_seed(0))
     trainer = Trainer(model, schedules.constant(1e-4))
     state = trainer.init_state(model)
+    body = Trainer(model, schedules.constant(1e-4))
+    body._graphed = False  # the same step, uncaptured
+    body_state = body.init_state(model)
     rng = np.random.default_rng(0)
     shapes = {"motion_input": (batch, 120, 225), "audio_input": (batch, 240, 35),
               "target": (batch, 20, 225)}
@@ -79,12 +86,18 @@ def run(name, batch, steps):
         state, _ = trainer.train_step(state, data)
     torch.cuda.synchronize()
 
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        state, metrics = trainer.train_step(state, data)
-    float(metrics["loss"])
-    torch.cuda.synchronize()
-    rate = steps / (time.perf_counter() - t0)
+    rate = {}
+    for mode, tr in (("graphed", trainer), ("uncaptured", body)):
+        st = state if tr is trainer else body_state
+        for _ in range(2 if tr is body else 0):
+            st, _ = tr.train_step(st, data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            st, metrics = tr.train_step(st, data)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        rate[mode] = steps / (time.perf_counter() - t0)
 
     # Phases by CUDA events: the step of Trainer.train_step, cut at the end
     # of the forward and of the backward.
@@ -92,39 +105,44 @@ def run(name, batch, steps):
     for _ in range(steps):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         leaves = {k: p.detach().requires_grad_()
-                  for k, p in state.params.items()}
+                  for k, p in body_state.params.items()}
         ev[0].record()
         with torch.enable_grad():
-            loss = trainer.loss(leaves, data)
+            loss = body.loss(leaves, data)
             ev[1].record()
             grads = torch.autograd.grad(loss, list(leaves.values()))
         ev[2].record()
-        trainer.apply_gradients(state, dict(zip(leaves, grads)))
+        body.apply_gradients(body_state, dict(zip(leaves, grads)))
         ev[3].record()
         torch.cuda.synchronize()
         phases += [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
     phases /= steps
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            state, metrics = trainer.train_step(state, data)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / steps
-    rows = _kernel_rows(prof)
-    busy = sum(r[0] for r in rows) / 1e3 / steps
-    own = sum(r[0] for r in rows if _own(r[2])) / 1e3 / steps
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"{name} batch {batch}: {rate:.3f} steps/s ({1e3 / rate:.2f} "
-          f"ms/step untraced); events per step: forward {phases[0]:.2f} ms, "
-          f"backward {phases[1]:.2f} ms, optimizer {phases[2]:.2f} ms; "
-          f"profiled: wall {wall:.2f} ms/step, busy {busy:.2f} ms/step, "
-          f"idle share {1 - busy / wall:.3f}, hand-written kernels "
-          f"{own:.2f} ms/step; peak memory {peak:.2f} GiB")
-    for dev, count, key in rows[:15]:
-        print(f"  {dev / 1e3 / steps:9.3f} ms/step  {count // steps:5d}/step"
-              f"  {key[:90]}")
+    print(f"{name} batch {batch}: graphed {rate['graphed']:.3f} steps/s "
+          f"({1e3 / rate['graphed']:.2f} ms/step untraced), uncaptured "
+          f"{rate['uncaptured']:.3f} steps/s ({1e3 / rate['uncaptured']:.2f}"
+          f" ms/step); uncaptured events per step: forward "
+          f"{phases[0]:.2f} ms, backward {phases[1]:.2f} ms, optimizer "
+          f"{phases[2]:.2f} ms; peak memory {peak:.2f} GiB")
+
+    for mode, tr in (("graphed", trainer), ("uncaptured", body)):
+        st = state if tr is trainer else body_state
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                st, metrics = tr.train_step(st, data)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+        rows = _kernel_rows(prof)
+        busy = sum(r[0] for r in rows) / 1e3 / steps
+        own = sum(r[0] for r in rows if _own(r[2])) / 1e3 / steps
+        print(f"{name} {mode} (profiled): wall {wall:.2f} ms/step, busy "
+              f"{busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, "
+              f"hand-written kernels {own:.2f} ms/step")
+        for dev, count, key in rows[:15 if mode == "graphed" else 0]:
+            print(f"  {dev / 1e3 / steps:9.3f} ms/step  "
+                  f"{count // steps:5d}/step  {key[:90]}")
 
 
 def main():

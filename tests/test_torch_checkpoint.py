@@ -212,6 +212,37 @@ def test_controller_loops_match_per_step():
     ctl.close()
 
 
+def test_controller_fuse_loop_matches_per_step(tmp_path):
+    """With fuse_loop (the train CLI's setting, as in the JAX CLI) each
+    window of 3, 3 and 1 host batches is stacked and run by
+    Trainer.train_steps: the state, the metrics and the checkpoints of the
+    per-step loop over the same batches."""
+    batches = [make_batch(20 + i) for i in range(7)]
+    _, trainer_a, state_a = _setup()
+    for b in batches:
+        state_a, metrics_a = trainer_a.train_step(state_a, b)
+    _, trainer_b, state_b = _setup()
+    calls = []
+    train_steps = trainer_b.train_steps
+
+    def counted(state, stacked):
+        calls.append(next(iter(stacked.values())).shape[0])
+        return train_steps(state, stacked)
+
+    trainer_b.train_steps = counted
+    ctl = Controller(trainer=trainer_b, train_iter=iter(batches),
+                     state=state_b, steps_per_loop=3, fuse_loop=True,
+                     checkpoint_manager=CheckpointManager(
+                         str(tmp_path), save_interval_steps=3),
+                     summary_dir=str(tmp_path))
+    metrics_b = ctl.train(7)
+    ctl.close()
+    assert calls == [3, 3, 1] and ctl.global_step == 7
+    assert metrics_b["loss"] == float(metrics_a["loss"])
+    _equal_states(state_a, ctl.state)
+    assert _steps_on_disk(str(tmp_path)) == [3, 6]
+
+
 def test_interval_checkpoints_fire_off_multiple_boundaries(tmp_path):
     """After the bring-up train(1), loop boundaries are 1, 11, 21, ...:
     never a multiple of the interval.  The manager saves whenever the

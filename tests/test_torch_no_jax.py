@@ -7,7 +7,9 @@ package ``mint_tpu`` either: the port keeps its own copy of the config
 schema (``mint_tpu_torch.config``) and of the host NumPy modules of the
 scoring path (``eval/fid.py``, ``eval/features.py``, ``eval/beat_align.py``,
 ``data/aist.py``).  The child process below imports every module of the
-port and runs its forward, decode, training and scoring paths on the CPU.
+port (``utils/graphs.py``, the CUDA graphs of the decode and the train
+step, among them) and runs its forward, decode, fused training loop and
+scoring paths on the CPU, where no graph is captured.
 """
 
 import ast
@@ -74,7 +76,7 @@ with tempfile.TemporaryDirectory() as tmp:
     ctl = Controller(trainer=trainer, train_iter=batches(),
                      state=trainer.init_state(model), steps_per_loop=2,
                      checkpoint_manager=CheckpointManager(tmp),
-                     summary_dir=tmp)
+                     summary_dir=tmp, fuse_loop=True)
     metrics = ctl.train(3)
     ctl.close()
 assert ctl.global_step == 3 and np.isfinite(metrics["loss"])
@@ -105,6 +107,8 @@ beats = np.zeros((60, 35), np.float32)
 beats[::10, 34] = 1
 assert clip_beat_alignment(joints, beats) is not None
 assert _build._lib is None, "the CPU path must not build the kernels"
+from mint_tpu_torch.utils import graphs
+assert graphs.of(model).captures == 0, "the CPU path captures no graph"
 print("MODULES", len(names))
 print("LOADED", " ".join(sorted(sys.modules)))
 """
@@ -118,7 +122,7 @@ def test_port_imports_no_jax_stack_and_builds_nothing_on_cpu():
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines()
                  if line.startswith(("MODULES", "LOADED")))
-    assert int(lines["MODULES"]) >= 49
+    assert int(lines["MODULES"]) >= 50
     loaded = lines["LOADED"].split()
     roots = {name.split(".")[0] for name in loaded}
     assert not roots & set(FORBIDDEN), roots & set(FORBIDDEN)

@@ -130,6 +130,90 @@ def test_bf16_kernel_key_limit(d, max_keys):
     assert att._operands(q32, k32, k32)[-1].shape == q.shape
 
 
+def _fact_config(hidden=800, heads=10, mlp_width=3072, audio_seq=240):
+    """The flagship's FACT config with one geometry field changed."""
+    from mint_tpu_torch.config.schema import load_pipeline_config
+
+    cfg = load_pipeline_config("configs/fact_v5_deeper_t10_cm12.config")
+    fact = cfg.multi_modal_model.fact_model
+    for tf in [m.model[0].transformer for m in fact.modality] + [
+            fact.cross_modal_model.transformer]:
+        tf.hidden_size, tf.num_attention_heads = hidden, heads
+        tf.intermediate_size = mlp_width
+    fact.modality_by_name("audio").sequence_length = audio_seq
+    return cfg.multi_modal_model
+
+
+# (config change, dtype it breaks, the limit's words, the field named)
+LIMIT_CASES = {
+    "head_dim_over_128": (dict(hidden=1040, heads=8), torch.float32,
+                          "head dim 0 < D <= 128", "num_attention_heads 8"),
+    "bf16_head_dim_step": (dict(hidden=800, heads=16), torch.bfloat16,
+                           "multiple of 16", "num_attention_heads 16"),
+    "bf16_keys": (dict(audio_seq=1200), torch.bfloat16, "at most 1216 keys",
+                  "motion + audio sequence_length 120 + 1200 = 1320"),
+    "f32_mlp_width": (dict(mlp_width=3070), torch.float32,
+                      "multiples of 8", "intermediate_size 3070"),
+    "bf16_mlp_width": (dict(mlp_width=3080), torch.bfloat16,
+                       "multiples of 16", "intermediate_size 3080"),
+    "bf16_layer_norm": (dict(hidden=1040, heads=13), torch.bfloat16,
+                        "even C <= 1024", "hidden_size 1040"),
+}
+
+
+@pytest.mark.parametrize("case", list(LIMIT_CASES))
+def test_build_checks_kernel_limits_on_cuda(case):
+    """builder.build on the card holds the config to every kernel its
+    dtype launches and raises at build time, naming the limit and the
+    config field (before it looks for a card, so the CPU sees it too).
+    On the CPU the check is a pure function of the config; the other
+    dtype's kernels take the same config where their limits allow."""
+    from mint_tpu_torch.models import builder
+
+    change, dtype, limit, field = LIMIT_CASES[case]
+    cfg = _fact_config(**change)
+    with pytest.raises(ValueError) as err:
+        builder.check_kernel_limits(cfg.fact_model, dtype)
+    assert limit in str(err.value) and field in str(err.value)
+    with pytest.raises(ValueError, match=limit):
+        builder.build(cfg, is_training=False, device="cuda",
+                      dtype=dtype)
+    with pytest.raises(ValueError, match=limit):
+        builder.build(cfg, is_training=True, device="cuda",
+                      compute_dtype=dtype)
+    assert builder.build(cfg, is_training=False, device="cpu", dtype=dtype)
+    if dtype == torch.bfloat16:
+        builder.check_kernel_limits(cfg.fact_model, torch.float32)
+
+
+def test_flagship_passes_every_kernel_limit():
+    from mint_tpu_torch.config.schema import load_pipeline_config
+    from mint_tpu_torch.models import builder
+
+    cfg = load_pipeline_config("configs/fact_v5_deeper_t10_cm12.config")
+    for dtype in (torch.float32, torch.bfloat16):
+        builder.check_kernel_limits(cfg.multi_modal_model.fact_model, dtype)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            builder.build(cfg.multi_modal_model, is_training=False,
+                          device="cuda")
+
+
+def test_batch_limit_is_checked_before_any_step():
+    """B*H <= 65535 depends on the batch: the decoder and the trainer
+    check it at their entry on the card, before any capture."""
+    from mint_tpu_torch.models import builder
+    from mint_tpu_torch.models.fact import FACT
+    import __graft_entry__
+
+    model = FACT(__graft_entry__._tiny_fact_config())
+    heads = model.cross_modal_layer.transformer.block_0.attn.heads
+    builder.check_batch(model, 65535 // heads)
+    with pytest.raises(ValueError, match="at most 65535"):
+        builder.check_batch(model, 65535 // heads + 1)
+    assert att.limit_broken(torch.float32, 80, 360, 65536) is not None
+
+
 def test_model_layout_needs_no_copy_for_tma():
     """The bf16 kernel's TMA loads read the model's fused QKV views as they
     are (16-byte steps); a layout they cannot address would be copied."""

@@ -606,3 +606,158 @@ def test_cpu_build_with_compute_dtype_runs_the_plain_versions():
     # and affine in f32 with its f32 parameters (Flax's cast point): the
     # same values.
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# -- the static-tensor step body and its CUDA graph ---------------------------
+
+def _python_float_steps(model, batches, **kw):
+    """The reference the step body is held to: optax's and MultiSteps'
+    arithmetic with the step's scalars (the learning rate, the bias
+    corrections, the accumulation divisor) as Python floats, per batch."""
+    from mint_tpu_torch.train.trainer import ADAM_B1, ADAM_B2, ADAM_EPS, _f32
+
+    tr = Trainer(model, _schedule(schedules), **kw)
+    state = tr.init_state(model)
+    opt, k = state.opt_state, tr.accumulate_steps
+    names = list(state.params)
+    for batch in batches:
+        _, grads = tr.loss_and_grads(state.params, batch)
+        gs = [grads[n] for n in names]
+        with torch.no_grad():
+            if k > 1:
+                accs = [opt["acc"][n] for n in names]
+                delta = torch._foreach_sub(gs, accs)
+                torch._foreach_div_(delta, float(opt["mini_step"] + 1))
+                torch._foreach_add_(accs, delta)
+                if opt["mini_step"] + 1 < k:
+                    opt["mini_step"] += 1
+                    continue
+                gs = [a.clone() for a in accs]
+                torch._foreach_zero_(accs)
+                opt["mini_step"] = 0
+            if tr.grad_clip_norm > 0.0:
+                norm = torch.linalg.vector_norm(
+                    torch.stack(torch._foreach_norm(gs)))
+                coef = torch.where(norm < tr.grad_clip_norm,
+                                   torch.ones_like(norm),
+                                   tr.grad_clip_norm / norm)
+                torch._foreach_mul_(gs, coef)
+            lr = tr.schedule(opt["count"])
+            count = opt["count"] + 1
+            bc1 = _f32(1 - np.float32(ADAM_B1) ** np.float32(count))
+            bc2 = _f32(1 - np.float32(ADAM_B2) ** np.float32(count))
+            mus = [opt["mu"][n] for n in names]
+            nus = [opt["nu"][n] for n in names]
+            torch._foreach_mul_(mus, ADAM_B1)
+            torch._foreach_add_(mus, torch._foreach_mul(gs, 1 - ADAM_B1))
+            torch._foreach_mul_(nus, ADAM_B2)
+            torch._foreach_add_(nus, torch._foreach_mul(
+                torch._foreach_mul(gs, gs), 1 - ADAM_B2))
+            den = torch._foreach_div(nus, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, ADAM_EPS)
+            update = torch._foreach_div(mus, bc1)
+            torch._foreach_div_(update, den)
+            torch._foreach_mul_(update, -lr)
+            torch._foreach_add_([state.params[n] for n in names], update)
+            opt["count"] = count
+    return state
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_static_scalar_body_equals_python_float_steps_and_jax(case):
+    """The step body with its scalars as tensors (the graph's, run
+    uncaptured on the CPU), through fused windows of 2, 2 and 1 steps
+    (Trainer.train_steps), equals the Python-float steps bit for bit, and
+    the JAX trainer within test_trainer_matches_jax_f32's tolerances."""
+    kw = CASES[case]
+    batches = _batches(5, seed=6)
+    jax_metrics, jax_params, _, _, _ = _run_both(batches, **kw)
+    _, _, model = _pair()
+    want = _python_float_steps(model, batches, **kw)
+    tr = Trainer(model, _schedule(schedules), **kw)
+    state = tr.init_state(model)
+    for lo, hi in ((0, 2), (2, 4), (4, 5)):
+        state, metrics = tr.train_steps(state, tr.stack_batches(
+            batches[lo:hi]))
+    assert state.step == 5
+    assert state.opt_state["count"] == want.opt_state["count"]
+    for group in ("mu", "nu"):
+        for k, v in state.opt_state[group].items():
+            assert torch.equal(v, want.opt_state[group][k]), (group, k)
+    for k, v in state.params.items():
+        assert torch.equal(v, want.params[k]), k
+    assert float(metrics["loss"]) == pytest.approx(jax_metrics[-1]["loss"],
+                                                   rel=1e-5)
+    got = jax.tree_util.tree_leaves(_port_tree(model, state))
+    for a, b in zip(got, jax.tree_util.tree_leaves(jax_params)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("accumulate_steps", [1, 2])
+def test_restored_state_rebinds_the_step(tmp_path, accumulate_steps):
+    """After a checkpoint restore (new tensors) the step reads and updates
+    the restored tensors, not the ones it ran on before: they continue
+    exactly as the saved run did, and the earlier state is left alone."""
+    from mint_tpu_torch.train.checkpoint import CheckpointManager
+
+    batches = _batches(6, seed=7)
+    _, _, model = _pair()
+    tr = Trainer(model, _schedule(schedules), grad_clip_norm=0.05,
+                 accumulate_steps=accumulate_steps)
+    state = tr.init_state(model)
+    for b in batches[:4]:
+        state, _ = tr.train_step(state, b)
+    manager = CheckpointManager(str(tmp_path))
+    manager.save(4, state, force=True)
+    for b in batches[4:]:
+        state, _ = tr.train_step(state, b)
+    ran_on = {k: v.clone() for k, v in state.params.items()}
+    restored = manager.restore(state)
+    assert all(restored.params[k].data_ptr() != v.data_ptr()
+               for k, v in state.params.items())
+    ptrs = {k: v.data_ptr() for k, v in restored.params.items()}
+    for b in batches[4:]:
+        restored, _ = tr.train_step(restored, b)
+    assert {k: v.data_ptr() for k, v in restored.params.items()} == ptrs
+    for k, v in restored.params.items():
+        assert torch.equal(v, ran_on[k]), k
+        assert torch.equal(state.params[k], ran_on[k]), k
+    assert restored.opt_state["count"] == state.opt_state["count"]
+
+
+def test_cpu_training_never_touches_cuda_graphs(monkeypatch):
+    from test_torch_decoder import NoCuda
+
+    from mint_tpu_torch.utils import graphs
+    monkeypatch.setattr(graphs, "_cuda", NoCuda())
+    _, _, model = _pair()
+    tr = Trainer(model, _schedule(schedules), accumulate_steps=2)
+    state = tr.init_state(model)
+    batches = _batches(3, seed=8)
+    state, _ = tr.train_step(state, batches[0])
+    state, metrics = tr.train_steps(state, tr.stack_batches(batches[1:]))
+    assert state.step == 3 and np.isfinite(float(metrics["loss"]))
+    assert not getattr(model, "_graphs", None)
+
+
+def test_train_capture_failure_raises_and_never_runs_eagerly(monkeypatch):
+    """On a (faked) card the first step runs eagerly (the warm-up), the
+    second captures: a capture that fails raises, with no eager step in
+    its place and the optimizer's counters not advanced."""
+    from test_torch_decoder import FakeCuda
+
+    from mint_tpu_torch.utils import graphs
+    monkeypatch.setattr(graphs, "_cuda", FakeCuda("graph"))
+    _, _, model = _pair()
+    tr = Trainer(model, _schedule(schedules))
+    tr._graphed = True
+    calls = []
+    loss = tr.loss
+    monkeypatch.setattr(tr, "loss", lambda *a: calls.append(1) or loss(*a))
+    state = tr.init_state(model)
+    batches = _batches(2, seed=9)
+    state, _ = tr.train_step(state, batches[0])
+    with pytest.raises(RuntimeError, match="capture refused"):
+        tr.train_step(state, batches[1])
+    assert len(calls) == 1 and state.opt_state["count"] == 1
