@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving, training and scoring paths once on one
-CUDA card.
+"""Drive the PyTorch port's serving, training, scoring and music-in paths
+once on one CUDA card.
 
 Run from the repo root with no arguments: ``python3 chip_smoke.py``.
 
@@ -63,6 +63,19 @@ CPU):
    then the f32 decode batch sweep and the protocol's generated frames/s
    it gives at each cap, which set the evaluator's default, and the
    kernels timed at the eval's shapes.
+8. the music-in path, in phase 7's directory: (a) four synthetic 48 kHz
+   stereo WAVs named as AIST++ music (a click track at the name's tempo
+   over a chord, 24.5-30 s) and an AIST++ layout of eight sequences over
+   them; (b) the port's preprocessing CLI on the card and on the CPU, each
+   one's seconds of music extracted per second; (c) the card's features
+   against the CPU's (continuous columns within 1e-4 of their peak, the
+   tuning and the onset and beat one-hot columns equal, the beat interval
+   3600 / BPM within 1.5 frames); (d) the card's tfrecords through the
+   train pipeline into one batch; (e) one 1200-step clip a track from the
+   card's features, co-batched by GenerationService from phase 6's f32
+   checkpoint, 16 launches of each f32 kernel a decode step; (f) a clip's
+   BVH (bvh_export) and GIF (visualize, where matplotlib is installed);
+   (g) calculate_scores on the clips with Beat Alignment from (b)'s cache.
 
 Phase 2 also checks and times both kernels at the training shapes
 (batch 32), and checks them at the eval's (the batches phase 7 dispatches
@@ -1474,6 +1487,370 @@ def scoring_path(att, mlp, ln, gen, work, run_dir, card):
     return launches, times
 
 
+# -- phase 8: the music-in path ---------------------------------------------
+
+# AIST++ music names (tempo_from_name: 100, 125, 130 and 80 BPM) and their
+# lengths in seconds: each at least 24 s, whose 1441 feature frames cover
+# the 1439 audio frames of one 1200-step clip.
+MUSIC = (("mBR2", 26.0), ("mHO3", 24.5), ("mPO5", 28.0), ("mJB0", 30.0))
+WAV_RATE = 48000     # AIST's music: 48 kHz stereo 16-bit
+MUSIC_STEPS = 1200
+# The card's features against the CPU's, both the port's: the envelope and
+# the MFCCs within 1e-5 of their block's peak (cuFFT and the CPU's FFT
+# differ in the last bits, which the dB scale magnifies in the quietest
+# bins; the CPU tests hold the port to the JAX package at the same 1e-5),
+# CENS within 1e-5 (unit-norm rows); the tuning and the onset and beat
+# one-hot columns exactly.
+MUSIC_TOL = {"envelope": 1e-5, "mfcc": 1e-5, "cens": 1e-5}
+
+
+def write_music(music_dir, anno_dir, frames_of):
+    """The MUSIC tracks as 48 kHz stereo 16-bit WAVs, from
+    np.random.default_rng(3): a noise-burst click on every beat of the
+    name's tempo over a sustained chord of its own (root, fifth, octave),
+    the channels differing by a little noise; and an AIST++ annotation
+    layout of two train sequences a track (``splits/crossmodal_train.txt``,
+    ``motions/*.pkl`` of random-walk poses, one frame a feature frame)."""
+    import pickle
+    import wave
+
+    from mint_tpu_torch.audio.frontend import tempo_from_name
+
+    rng = np.random.default_rng(3)
+    os.makedirs(music_dir)
+    os.makedirs(os.path.join(anno_dir, "splits"))
+    os.makedirs(os.path.join(anno_dir, "motions"))
+    names = []
+    for i, (name, seconds) in enumerate(MUSIC):
+        bpm = tempo_from_name(name)
+        n = int(seconds * WAV_RATE)
+        t = np.arange(n) / WAV_RATE
+        root = 110.0 * 2 ** (3 * i / 12)
+        y = sum(0.08 * np.sin(2 * np.pi * root * k * t) for k in (1, 1.5, 2))
+        for beat in range(int(seconds * bpm / 60) + 1):
+            s = int(round(beat * 60 * WAV_RATE / bpm))
+            m = min(480, n - s)
+            if m > 0:
+                y[s:s + m] += np.exp(-np.arange(m) / 90.0) * rng.choice(
+                    [-1.0, 1.0], m)
+        y = 0.5 * y / np.abs(y).max()
+        noise = rng.uniform(-1e-3, 1e-3, n)
+        pcm = (np.stack([y + noise, y - noise], -1) * 32767).astype("<i2")
+        with wave.open(os.path.join(music_dir, f"{name}.wav"), "wb") as w:
+            w.setnchannels(2)
+            w.setsampwidth(2)
+            w.setframerate(WAV_RATE)
+            w.writeframes(pcm.tobytes())
+        frames = frames_of(seconds)
+        for ch in (1, 2):
+            seq = f"g{name[1:3]}_sBM_cAll_d{10 + i:02d}_{name}_ch{ch:02d}"
+            names.append(seq)
+            scaling = rng.uniform(80.0, 100.0, 1)
+            with open(os.path.join(anno_dir, "motions", f"{seq}.pkl"),
+                      "wb") as f:
+                pickle.dump({
+                    "smpl_poses": (0.02 * rng.standard_normal(
+                        (frames, 72))).cumsum(0),
+                    "smpl_scaling": scaling,
+                    "smpl_trans": (0.5 * rng.standard_normal(
+                        (frames, 3))).cumsum(0) + [0.0, scaling[0], 0.0]},
+                    f)
+    with open(os.path.join(anno_dir, "splits", "crossmodal_train.txt"),
+              "w") as f:
+        f.write("\n".join(names))
+    return names
+
+
+def run_preprocessing(work, music_dir, anno_dir, out, device, card):
+    """The port's preprocessing CLI as a subprocess on `device` (train
+    split, fresh cache, extraction inline); returns its per-track lines
+    and its total (tracks, s of music, s of extraction, s of music per
+    s)."""
+    args = [f"--anno_dir={anno_dir}", f"--audio_dir={music_dir}",
+            f"--audio_cache_dir={out}/cache", "--split=train",
+            f"--tfrecord_path={out}/data/aist_tfrecord", "--n_shards=2",
+            "--audio_workers=0", f"--device={device}"]
+    _, err, wall = run_module("mint_tpu_torch.tools.preprocessing", args,
+                              work)
+    tracks = re.findall(r"audio features of (\w+): (\d+) frames, ([\d.]+) s "
+                        r"of music in ([\d.]+) s", err)
+    total = re.findall(r"audio features: (\d+) tracks, ([\d.]+) s of music "
+                       r"in ([\d.]+) s of extraction on (\w+): ([\d.]+) s "
+                       r"of music per s", err)
+    if len(tracks) != len(MUSIC) or len(total) != 1 or \
+            total[0][3] != device:
+        raise AssertionError(f"preprocessing CLI on {device} logged:\n"
+                             f"{err[-3000:]}")
+    log(f"preprocessing CLI on {device}: {total[0][0]} tracks, "
+        f"{total[0][1]} s of music extracted in {total[0][2]} s: "
+        f"{total[0][4]} s of music per s (each track: "
+        + ", ".join(f"{n} {m} s in {s} s" for n, _, m, s in tracks)
+        + f"); the CLI's whole run {wall:.1f} s ({card})")
+    return tracks, total[0]
+
+
+def audio_stages(path, bpm, card):
+    """Where a track's extraction time goes, on the card and on the CPU:
+    host seconds of each stage of ``extract_audio_features`` (each ends
+    with its result on the host) in two calls, the first of which builds
+    the CQT basis for the track's tuning on the host (in a fresh process
+    the card's first call, and the CPU's first call finds it built); and
+    the WAV read and the resampling, which run on the host either way."""
+    from mint_tpu_torch.audio import beat, cqt, onset, spectral
+    from mint_tpu_torch.audio.frontend import HOP_LENGTH, SR
+    from mint_tpu_torch.audio.resample import resample
+    from mint_tpu_torch.audio.wav import read_wav
+
+    def clock(times, name, t0):
+        times[name] = round(time.perf_counter() - t0, 4)
+        return time.perf_counter()
+
+    host = {}
+    t = time.perf_counter()
+    y48, rate = read_wav(path)
+    t = clock(host, "read_wav", t)
+    y = resample(y48, rate, SR)
+    clock(host, "resample", t)
+    stages = {}
+    for device in ("cuda", "cpu"):
+        calls = []
+        for _ in range(2):
+            times = {}
+            t = time.perf_counter()
+            yd = torch.from_numpy(y).to(device)
+            env = spectral.onset_strength(yd, SR).cpu().numpy()
+            spectral.mfcc(yd, SR, n_mfcc=20).cpu().numpy()
+            t = clock(times, "onset_strength+mfcc", t)
+            tuning = cqt.estimate_tuning(y, SR, device=device)
+            t = clock(times, "tuning", t)
+            chroma = cqt.fold_cq_to_chroma(cqt.cqt_magnitude(
+                y, SR, tuning=tuning, device=device), 7, 12, 36)
+            t = clock(times, "cqt", t)
+            cqt.cens_from_chroma(chroma)
+            onset.onset_detect(env, SR, HOP_LENGTH)
+            beat.beat_track(env, SR, HOP_LENGTH, start_bpm=bpm,
+                            tightness=100.0)
+            clock(times, "cens+peaks+beats", t)
+            calls.append(times)
+        stages[device] = calls
+    log(f"audio stages of {os.path.basename(path)} ({len(y) / SR:.1f} s), "
+        f"seconds, first call / second: card {stages['cuda'][0]} / "
+        f"{stages['cuda'][1]} (sums {sum(stages['cuda'][0].values()):.4f}"
+        f" / {sum(stages['cuda'][1].values()):.4f}), CPU "
+        f"{stages['cpu'][0]} / {stages['cpu'][1]} (sums "
+        f"{sum(stages['cpu'][0].values()):.4f} / "
+        f"{sum(stages['cpu'][1].values()):.4f}); on the host either way "
+        f"{host} ({card})")
+
+
+def music_path(work, run_dir, card):
+    """Phase 8: music in, dance out, on the card.  (a) MUSIC as WAVs and an
+    AIST++ layout over them; (b) the preprocessing CLI on the card and on
+    the CPU; (c) the card's features against the CPU's; (d) the card's
+    tfrecords through the port's train pipeline into one batch; (e) one
+    1200-step clip a track, co-batched by GenerationService from the f32
+    train CLI's checkpoint in `run_dir`, 16 launches of each f32 kernel a
+    decode step; (f) a clip's BVH by bvh_export and its GIF by visualize;
+    (g) calculate_scores on the clips, Beat Alignment from (b)'s cache."""
+    import glob as globlib
+    import pickle
+
+    from mint_tpu_torch.audio import cqt
+    from mint_tpu_torch.audio.frontend import FPS, SR, tempo_from_name
+    from mint_tpu_torch.audio.resample import load
+    from mint_tpu_torch.config.schema import load_pipeline_config
+    from mint_tpu_torch.data.pipeline import create_input
+    from mint_tpu_torch.serving import GenerationService
+    from mint_tpu_torch.tools import bvh_export, visualize
+    from mint_tpu_torch.train.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    music_dir = os.path.join(work, "music")
+    anno = os.path.join(work, "music_anno")
+    seqs = write_music(music_dir, anno, lambda s: int(s * FPS) + 1)
+
+    # (b) extraction on the card, then on the CPU.
+    outs = {d: os.path.join(work, f"music_{d}") for d in ("cuda", "cpu")}
+    rates = {d: run_preprocessing(work, music_dir, anno, outs[d], d, card)[1]
+             for d in ("cuda", "cpu")}
+
+    # (c) the card's features against the CPU's.
+    feats = {}
+    worst = {k: 0.0 for k in MUSIC_TOL}
+    for name, seconds in MUSIC:
+        card_f, cpu_f = (np.load(os.path.join(outs[d], "cache", f"{name}.npy"))
+                         for d in ("cuda", "cpu"))
+        feats[name] = card_f
+        want_frames = int(seconds * SR) // 512 + 1
+        if card_f.shape != (want_frames, 35) or cpu_f.shape != card_f.shape \
+                or not np.isfinite(card_f).all():
+            raise AssertionError(f"{name}: features {card_f.shape} / "
+                                 f"{cpu_f.shape}, want ({want_frames}, 35)")
+        cols = np.abs(card_f - cpu_f).max(axis=0)
+        errs = {"envelope": cols[0] / np.abs(cpu_f[:, 0]).max(),
+                "mfcc": cols[1:21].max() / np.abs(cpu_f[:, 1:21]).max(),
+                "cens": cols[21:33].max()}
+        for k, v in errs.items():
+            worst[k] = max(worst[k], float(v))
+        y, _ = load(os.path.join(music_dir, f"{name}.wav"), sr=SR)
+        tuning = {d: cqt.estimate_tuning(y, SR, device=d)
+                  for d in ("cuda", "cpu")}
+        bpm = tempo_from_name(name)
+        beats = np.flatnonzero(card_f[:, 34])
+        interval = float(np.median(np.diff(beats))) if len(beats) > 1 \
+            else float("nan")
+        log(f"music {name} ({bpm} BPM, {seconds} s): card vs CPU max error "
+            f"by column {np.array2string(cols, precision=2)}; envelope "
+            f"{errs['envelope']:.3e}, MFCC {errs['mfcc']:.3e} of their peaks,"
+            f" CENS {errs['cens']:.3e}; tuning {tuning['cuda']} / "
+            f"{tuning['cpu']}; {int(card_f[:, 33].sum())} onset peaks, "
+            f"{len(beats)} beats, median interval {interval} frames (3600 / "
+            f"BPM = {3600 / bpm:.2f})")
+        for col, what in ((33, "onset peak"), (34, "beat")):
+            differ = np.flatnonzero(card_f[:, col] != cpu_f[:, col])
+            if len(differ):
+                raise AssertionError(f"{name}: {what} one-hot differs card "
+                                     f"vs CPU at frames {differ.tolist()}")
+        if tuning["cuda"] != tuning["cpu"] or any(
+                errs[k] > MUSIC_TOL[k] for k in MUSIC_TOL):
+            raise AssertionError(f"{name}: card vs CPU {errs}, tuning "
+                                 f"{tuning} (tolerances {MUSIC_TOL})")
+        if not abs(interval - 3600 / bpm) <= 1.5:
+            raise AssertionError(f"{name}: beat interval {interval}, want "
+                                 f"{3600 / bpm:.2f} +- 1.5")
+    audio_stages(os.path.join(music_dir, f"{MUSIC[0][0]}.wav"),
+                 tempo_from_name(MUSIC[0][0]), card)
+    log(f"music card vs CPU, worst over {len(MUSIC)} tracks: envelope "
+        f"{worst['envelope']:.3e}, MFCC {worst['mfcc']:.3e} of their peaks, "
+        f"CENS {worst['cens']:.3e} (tolerances {MUSIC_TOL}); tuning and "
+        f"one-hot columns equal; extraction {rates['cuda'][4]} s of music "
+        f"per s on the card, {rates['cpu'][4]} on the CPU ({card})")
+
+    # (d) the card's records through the train pipeline.
+    pipeline = load_pipeline_config(CONFIG)
+    files = sorted(globlib.glob(os.path.join(outs["cuda"], "data",
+                                             "aist_tfrecord-train-*")))
+    batch = next(create_input(pipeline.train_config, pipeline.train_dataset,
+                              is_training=True, seed=0, data_files=files,
+                              prefetch=False))
+    shapes = {k: v.shape for k, v in batch.items()
+              if k in ("motion_input", "audio_input", "target")}
+    if shapes != {"motion_input": (TRAIN_BATCH, 120, 225),
+                  "audio_input": (TRAIN_BATCH, 240, 35),
+                  "target": (TRAIN_BATCH, 20, 225)} or not all(
+                      np.isfinite(batch[k]).all() for k in shapes):
+        raise AssertionError(f"train batch from the card's tfrecords: "
+                             f"{shapes}")
+    log(f"train pipeline over the card's {len(files)} tfrecord shards "
+        f"({len(seqs)} sequences): one batch {shapes}")
+
+    # (e) one clip a track from the card's features, co-batched.
+    model = flagship(torch.float32, "cuda")
+    model.load_state_dict(CheckpointManager(run_dir).restore_params(
+        model.state_dict()))
+    service = GenerationService(model, batch_window_ms=2000.0,
+                                max_batch=len(MUSIC))
+    clips, errors = {}, []
+
+    def call(i, name):
+        try:
+            clips[name] = service.generate(
+                feats[name], seed=batch["motion_input"][i],
+                steps=MUSIC_STEPS)
+        except Exception as e:  # re-raised below
+            errors.append(e)
+
+    try:
+        before = service.stats_snapshot()
+        reset_launches()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=call, args=(i, name))
+                   for i, (name, _) in enumerate(MUSIC)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        stats = {k: v - before[k] for k, v in
+                 service.stats_snapshot().items()}
+    finally:
+        service.close()
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"music decode failed: {errors}")
+    expect = expected_launches(stats["decode_steps"], bf16=False)
+    log(f"music decode f32: {len(clips)} clips of {MUSIC_STEPS} steps from "
+        f"the card's features in {stats['batches']} batch(es), "
+        f"{stats['decode_steps']} decode steps (the server's bucket) in "
+        f"{seconds:.2f} s; launches {launches} == {expect} ({card})")
+    if stats["batches"] != 1 or launches != expect or any(
+            c.shape != (MUSIC_STEPS, 225) or not np.isfinite(c).all()
+            for c in clips.values()):
+        raise AssertionError(f"music decode: stats {stats}, launches "
+                             f"{launches}, clips "
+                             f"{[c.shape for c in clips.values()]}")
+    out_dir = os.path.join(work, "music_out")
+    os.makedirs(out_dir)
+    for i, (name, _) in enumerate(MUSIC):
+        motion = np.concatenate([batch["motion_input"][i], clips[name]])
+        np.save(os.path.join(out_dir, f"{seqs[2 * i]}_{name}.npy"), motion)
+    del model
+    torch.cuda.empty_cache()
+
+    # (f) the first clip's BVH and GIF.
+    first = os.path.join(out_dir, f"{seqs[0]}_{MUSIC[0][0]}.npy")
+    motion = np.load(first)
+    pkl = os.path.join(work, "music_clip.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump({"pred_motion": motion[:, 9:].reshape(-1, 24, 9),
+                     "pred_trans": motion[:, 6:9]}, f)
+    bvh = os.path.join(work, "music_clip.bvh")
+    t0 = time.perf_counter()
+    bvh_export.main([f"--motion_pkl={pkl}", f"--output={bvh}"])
+    with open(bvh) as f:
+        text = f.read()
+    rows = text.split("Frame Time:")[1].strip().splitlines()[1:]
+    values = np.array([[float(v) for v in r.split()] for r in rows])
+    if f"Frames: {len(motion)}" not in text or values.shape != (
+            len(motion), 75) or not np.isfinite(values).all():
+        raise AssertionError(f"bvh_export: {values.shape}")
+    log(f"bvh_export on the card: {len(rows)} frames x 75 channels in "
+        f"{time.perf_counter() - t0:.2f} s")
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        log("visualize: matplotlib is not installed on this machine; the "
+            "GIF (a host tool, no device path) is not rendered")
+    else:
+        gif = os.path.join(work, "music_clip.gif")
+        t0 = time.perf_counter()
+        visualize.main([f"--motion_npy={first}", f"--output={gif}",
+                        "--stride=30"])
+        log(f"visualize on the card: {os.path.getsize(gif)} bytes of GIF, "
+            f"{len(motion[::30])} frames, in {time.perf_counter() - t0:.2f} s")
+
+    # (g) the scores, Beat Alignment from the card's audio cache.
+    out, _, wall = run_module(
+        "mint_tpu_torch.tools.calculate_scores",
+        [f"--result_files={os.path.join(out_dir, '*.npy')}",
+         f"--feature_dir={os.path.join(work, 'features')}",
+         f"--audio_cache_dir={os.path.join(outs['cuda'], 'cache')}"], work)
+    fids = re.findall(r"Evaluation: FID_k: (\S+), FID_g: (\S+)", out)
+    beats = re.findall(r"Beat Alignment Score: (\S+) over (\d+) clips", out)
+    if not fids or not beats:
+        raise AssertionError(f"calculate_scores printed:\n{out}")
+    printed = [float(x) for x in (*fids[0], beats[0][0])]
+    if not all(math.isfinite(x) for x in printed) or \
+            int(beats[0][1]) != len(MUSIC):
+        raise AssertionError(f"calculate_scores printed {fids} {beats}")
+    log(f"calculate_scores on the music clips: FID_k {printed[0]}, FID_g "
+        f"{printed[1]}, Beat Alignment {printed[2]} over {beats[0][1]} clips"
+        f" (the CLI's whole run {wall:.1f} s)")
+    log(f"phase 8 (music in, dance out) in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; "
@@ -1562,6 +1939,7 @@ def main():
         train_rate("f32", card, steps=5)
         eval_launches, eval_times = scoring_path(
             att, mlp, ln, gen, work, os.path.join(work, "f32_run"), card)
+        music_path(work, os.path.join(work, "f32_run"), card)
 
     # The bf16 LayerNorm kernel replaces no TPU kernel: it is Flax's
     # LayerNorm(dtype=bf16) with f32 parameters, which XLA fuses there.

@@ -32,6 +32,7 @@ import torch
 
 from mint_tpu_torch.data import pipeline as data_pipeline
 from mint_tpu_torch.data import tfrecord
+from mint_tpu_torch.utils.device import resolve
 
 
 def _draw_seed(seed: int, step: int) -> int:
@@ -67,10 +68,7 @@ class DeviceDataset:
         self.batch_size = int(batch_size)
         self.motion_span = max(self.motion_input_len,
                                self.target_shift + self.target_len)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("DeviceDataset: device 'cuda' asked for but no "
-                               "CUDA card is available; pass device='cpu'")
+        self.device = resolve(device, "DeviceDataset")
         self.n_sequences = int(len(offsets))
         if self.n_sequences == 0:
             raise ValueError(

@@ -13,6 +13,7 @@ from mint_tpu_torch.models.modalities import build_modalities_model
 from mint_tpu_torch.ops import attention as attention_op
 from mint_tpu_torch.ops import layer_norm as layer_norm_op
 from mint_tpu_torch.ops import mlp as mlp_op
+from mint_tpu_torch.utils.device import resolve
 
 
 def _build_fact_model(model_config: MultiModalModelConfig,
@@ -111,10 +112,7 @@ def build(model_config: MultiModalModelConfig, is_training: bool,
     device = torch.device(device)
     if device.type == "cuda" and model_config.which() == "fact_model":
         check_kernel_limits(model_config.fact_model, compute_dtype or dtype)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("builder.build: device 'cuda' asked for (the "
-                           "default) but no CUDA card is available; pass "
-                           "device='cpu' to build on the CPU")
+    device = resolve(device, "builder.build")
     build_func = MODEL_BUILDER_MAP[model_config.which()]
     model = build_func(model_config, is_training,
                        compute_dtype=compute_dtype).to(device=device,

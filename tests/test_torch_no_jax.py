@@ -6,10 +6,12 @@ The machine with the card has no jax, flax, optax, orbax or absl, so
 package ``mint_tpu`` either: the port keeps its own copy of the config
 schema (``mint_tpu_torch.config``) and of the host NumPy modules of the
 scoring path (``eval/fid.py``, ``eval/features.py``, ``eval/beat_align.py``,
-``data/aist.py``).  The child process below imports every module of the
-port (``utils/graphs.py``, the CUDA graphs of the decode and the train
-step, among them) and runs its forward, decode, fused training loop and
-scoring paths on the CPU, where no graph is captured.
+``data/aist.py``) and of the audio frontend's host steps (``audio/wav.py``,
+``resample.py``, ``onset.py``, ``beat.py``).  The child process below
+imports every module of the port (``utils/graphs.py``, the CUDA graphs of
+the decode and the train step, among them) and runs its forward, decode,
+fused training loop, scoring and audio feature paths on the CPU, where no
+graph is captured.
 """
 
 import ast
@@ -106,6 +108,14 @@ assert np.isfinite(frechet_feature_distance(
 beats = np.zeros((60, 35), np.float32)
 beats[::10, 34] = 1
 assert clip_beat_alignment(joints, beats) is not None
+from mint_tpu_torch.audio import extract_audio_features
+sr = 30720
+y = np.zeros(2 * sr, np.float32)
+for k in range(4):  # a click every half second
+    y[k * sr // 2:k * sr // 2 + 200] = rng.uniform(-0.5, 0.5, 200)
+audio = extract_audio_features(y, sr, start_bpm=120, device="cpu")
+assert audio.shape == (121, 35) and np.isfinite(audio).all()
+assert audio[:, 34].sum() > 0
 assert _build._lib is None, "the CPU path must not build the kernels"
 from mint_tpu_torch.utils import graphs
 assert graphs.of(model).captures == 0, "the CPU path captures no graph"
@@ -122,7 +132,7 @@ def test_port_imports_no_jax_stack_and_builds_nothing_on_cpu():
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines()
                  if line.startswith(("MODULES", "LOADED")))
-    assert int(lines["MODULES"]) >= 50
+    assert int(lines["MODULES"]) >= 62
     loaded = lines["LOADED"].split()
     roots = {name.split(".")[0] for name in loaded}
     assert not roots & set(FORBIDDEN), roots & set(FORBIDDEN)
