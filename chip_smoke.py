@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving, training, scoring and music-in paths
-once on one CUDA card.
+"""Drive the PyTorch port's serving, training, scoring and music-in paths,
+and its paths across ranks and replicas, once on one CUDA card.
 
 Run from the repo root with no arguments: ``python3 chip_smoke.py``.
 
@@ -76,6 +76,24 @@ CPU):
    checkpoint, 16 launches of each f32 kernel a decode step; (f) a clip's
    BVH (bvh_export) and GIF (visualize, where matplotlib is installed);
    (g) calculate_scores on the clips with Beat Alignment from (b)'s cache.
+
+9. across ranks and replicas, and checkpoints in, in phase 7's directory:
+   (a) both kernels at a tensor-parallel rank's shapes (model = 2: 5
+   heads of q[B,5,N,80]; the MLP at F = 1536 with no output bias, which
+   the ranks add after their sum) against their plain versions in f32
+   and bf16, and timed at batch 32 beside their bounds and, for
+   attention, PyTorch's fused attention call; (b) the flagship at full
+   width and depth split over 2 gloo ranks on cuda:0 (``chip_smoke.py --tp-rank R ...``, one process
+   each; uncaptured) against the single-rank port: f32 loss and every
+   gradient, one train step, bf16 compute, and each rank's launches a
+   forward; (c) the train CLI with ``--distributed --num_processes=1``
+   (NCCL, its collectives captured in the step's graph) against the CLI
+   without it, bf16 at batch 32 on the card-resident corpus over 21
+   steps: the checkpoints equal bit for bit, and the steps/s of both and
+   of the host pipeline; (d) the evaluator and the server over 2
+   replicas on cuda:0 against one replica; (e) the flagship's weights
+   under the reference TF checkpoint's names through the pure converter,
+   served from the written checkpoint: the same forward bit for bit.
 
 Phase 2 also checks and times both kernels at the training shapes
 (batch 32), and checks them at the eval's (the batches phase 7 dispatches
@@ -356,13 +374,16 @@ def mlp_work(m, h, f, o, elem):
 
 
 def time_kernels(att, mlp, ln, gen, card, batch, attn_shapes, mlp_rows,
-                 host=True):
+                 host=True, heads=10, width=3072):
     """Kernel, plain version and, for attention, one PyTorch call
     (F.scaled_dot_product_attention, the yardstick: the port never calls
     it) at `batch` and the given shapes (attention's (Nq, Nk), the MLP's
     and the bf16 LayerNorm's rows per sample), with each one's bound and,
-    if `host`, the host's cost of a call.  Returns {(kernel, dtype name):
-    {Nq or rows: row}} for the summary line."""
+    if `host`, the host's cost of a call.  `heads` and `width` are the
+    attention's heads and the MLP's hidden width (a tensor-parallel
+    rank's: 5 and 1536 at model = 2); the bf16 LayerNorm, never split, is
+    timed at the full ones only.  Returns {(kernel, dtype name): {Nq or
+    rows: row}} for the summary line."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -378,9 +399,9 @@ def time_kernels(att, mlp, ln, gen, card, batch, attn_shapes, mlp_rows,
         name = DTYPES[dtype]
         elem = torch.empty((), dtype=dtype).element_size()
         for nq, nk in attn_shapes:
-            q = torch.randn(batch, 10, nq, 80, device="cuda",
+            q = torch.randn(batch, heads, nq, 80, device="cuda",
                             generator=gen).to(dtype)
-            k = torch.randn(batch, 10, nk, 80, device="cuda",
+            k = torch.randn(batch, heads, nk, 80, device="cuda",
                             generator=gen).to(dtype)
             v = torch.randn_like(k)
             t_k = cuda_ms(lambda: att.attention(q, k, v, SCALE))
@@ -394,10 +415,10 @@ def time_kernels(att, mlp, ln, gen, card, batch, attn_shapes, mlp_rows,
                     t_b = cuda_ms(lambda: F.scaled_dot_product_attention(
                         q, k, v, scale=SCALE))
                 named = f" (under sdpa_kernel({backend.name}) {t_b:.4f})"
-            flops, nbytes = attention_work(batch, 10, nq, nk, 80, elem)
+            flops, nbytes = attention_work(batch, heads, nq, nk, 80, elem)
             b_ms, b_by = bound(flops, nbytes, name)
-            row = {"shape": f"q[{batch},10,{nq},80] k[{batch},10,{nk},"
-                            f"80]", "ms": t_k, "plain_ms": t_p,
+            row = {"shape": f"q[{batch},{heads},{nq},80] k[{batch},{heads},"
+                            f"{nk},80]", "ms": t_k, "plain_ms": t_p,
                    "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by,
                    "library": f"scaled_dot_product_attention "
                               f"{backend.name if backend else 'unknown'}"}
@@ -416,21 +437,22 @@ def time_kernels(att, mlp, ln, gen, card, batch, attn_shapes, mlp_rows,
                 f" plain {t_p:.4f} ms, SDPA {t_l:.4f} ms{named}, bound "
                 f"{b_ms:.4f} ms ({b_by}){extra}{hosted} ({card})")
             summary.setdefault(("attention", name), {})[nq] = row
-        w1, b1, w2, b2 = mlp_weights(gen, dtype)
+        w1, b1, w2, b2 = mlp_weights(gen, dtype, f=width)
         for rows in mlp_rows:
             m = batch * rows
             x = torch.randn(m, 800, device="cuda", generator=gen).to(dtype)
             t_k = cuda_ms(lambda: mlp.fused_mlp(x, w1, b1, w2, b2))
             t_p = cuda_ms(lambda: mlp.mlp_reference(x, w1, b1, w2, b2))
-            b_ms, b_by = bound(*mlp_work(m, 800, 3072, 800, elem), name)
-            row = {"shape": f"x[{m},800]", "ms": t_k, "plain_ms": t_p,
+            b_ms, b_by = bound(*mlp_work(m, 800, width, 800, elem), name)
+            shape = f"x[{m},800]" + (f" F={width}" if width != 3072 else "")
+            row = {"shape": shape, "ms": t_k, "plain_ms": t_p,
                    "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
             hosted = ""
             if host:
                 row["host_us"] = host_us(
                     lambda: mlp.fused_mlp(x, w1, b1, w2, b2))
                 hosted = f"; host {row['host_us']:.1f} us a call"
-            log(f"time fused_mlp {name} x[{m},800]: kernel {t_k:.4f} ms, "
+            log(f"time fused_mlp {name} {shape}: kernel {t_k:.4f} ms, "
                 f"plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}), no "
                 f"single library call{hosted} ({card})")
             summary.setdefault(("fused_mlp", name), {})[rows] = row
@@ -438,7 +460,7 @@ def time_kernels(att, mlp, ln, gen, card, batch, attn_shapes, mlp_rows,
     # PyTorch call computes that on the card: layer_norm refuses the mixed
     # dtypes, so the plain version casts in and out (three launches).
     w, b = ln_params(gen)
-    for rows in mlp_rows:
+    for rows in (mlp_rows if (heads, width) == (10, 3072) else ()):
         m = batch * rows
         x = torch.randn(m, 800, device="cuda", generator=gen).bfloat16()
         t_k = cuda_ms(lambda: ln.layer_norm(x, w, b, 1e-5))
@@ -1021,7 +1043,9 @@ def train_cli(work, name, backend):
     log(f"train CLI {name} batch {TRAIN_BATCH}: steps 0-4 in {seconds:.1f} "
         f"s, launches {counts}; resumed at step 4: {resumed}, steps 4-6 in "
         f"{seconds2:.1f} s, launches {counts2}; checkpoints {ckpts()}; "
-        f"losses by step {[(r['step'], round(r['loss'], 5)) for r in every]}")
+        f"losses by step {[(r['step'], round(r['loss'], 5)) for r in every]}"
+        f"; steps_per_sec by step (metrics.jsonl) "
+        f"{[(r['step'], r['steps_per_sec']) for r in every]}")
     if (not resumed or ckpts() != [1, 4, 6]
             or [r["step"] for r in every] != [1, 3, 4, 6]
             or counts2 != expected_launches(2, bf16)):
@@ -1031,16 +1055,19 @@ def train_cli(work, name, backend):
     return counts
 
 
-def train_rate(name, card, steps):
+def train_rate(name, card, steps, mesh=None):
     """Train steps/s of Trainer.train_step at batch 32 on a batch resident
     on the card, after two warm-up steps (the first eager, the second the
     capture of the step's graph): each timed step a replay; with the
-    launches of the timed steps and the peak device memory."""
+    launches of the timed steps and the peak device memory.  `mesh`: a
+    world of one rank (phase 9c)."""
     from mint_tpu_torch.train import Trainer, schedules
 
     model = flagship(torch.float32, "cuda", is_training=True,
                      compute_dtype=torch.bfloat16 if name == "bf16" else None)
-    trainer = Trainer(model, schedules.constant(1e-4))
+    trainer = Trainer(model, schedules.constant(1e-4), mesh=mesh)
+    if mesh is not None:
+        name = f"{name} (a world of one NCCL rank)"
     state = trainer.init_state(model)
     batch = train_batch(TRAIN_BATCH, "cuda", seed=4)
     torch.cuda.reset_peak_memory_stats()
@@ -1060,7 +1087,7 @@ def train_rate(name, card, steps):
         f"{steps / seconds:.3f} steps/s, {1000 * seconds / steps:.2f} "
         f"ms/step, peak memory {peak:.2f} GiB, loss {loss:.5f}, launches "
         f"{counts} ({card})")
-    if counts != expected_launches(steps, name == "bf16") \
+    if counts != expected_launches(steps, name.startswith("bf16")) \
             or not math.isfinite(loss):
         raise AssertionError(f"train {name}: launches {counts}, loss {loss}")
     del model, trainer, state
@@ -1851,6 +1878,501 @@ def music_path(work, run_dir, card):
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 9: across ranks and replicas, and checkpoints in --------------
+
+TP = 2           # the model axis of phase 9's ranks: 5 heads, F = 1536
+TP_BATCH = 4     # phase 9b's batch (each rank's; one model group)
+WS1_STEPS = 101  # phase 9c's CLI steps: the first, then ten windows of 10
+WS1_FROM = 21    # 9c's synchronized rates run from this step's record
+
+
+def check_shard_kernels(att, mlp, gen):
+    """Both kernels at a tensor-parallel rank's shapes (model = 2: 5 heads
+    of q[B,5,N,80]; the MLP's F = 1536, its output bias left to the sum
+    over the model group, so the kernel gets none) against their plain
+    versions, f32 and bf16, at phase 9b's batch and at training's.
+    Returns the worst error per (kernel, dtype name)."""
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = DTYPES[dtype]
+        for b in (TP_BATCH, TRAIN_BATCH):
+            for n in (360, 240, 120):
+                q, k, v = _qkv("fused", b, 10 // TP, n, n, 80, dtype, gen)
+                got = att.attention(q, k, v, SCALE)
+                torch.cuda.synchronize()
+                want = att.attention_reference(q, k, v, SCALE)
+                err = (got.float() - want.float()).abs().max().item()
+                tol = (1e-5 if dtype == torch.float32
+                       else 2 * bf16_ulp(want.float().abs().max().item()))
+                log(f"attention {name} shard q[{b},5,{n},80]: max_abs_err "
+                    f"{err:.3e} tol {tol:.3e} "
+                    f"{'ok' if err <= tol else 'FAIL'}")
+                if not err <= tol:
+                    raise AssertionError(f"attention at a rank's shape: {err}")
+                worst["attention", name] = max(
+                    worst.get(("attention", name), 0.0), err)
+        w1, b1, w2, _ = mlp_weights(gen, dtype, f=3072 // TP)
+        for m in (TP_BATCH * 360, TP_BATCH * 120, TRAIN_BATCH * 360,
+                  TRAIN_BATCH * 240, TRAIN_BATCH * 120):
+            x = torch.randn(m, 800, device="cuda", generator=gen).to(dtype)
+            got = mlp.fused_mlp(x, w1, b1, w2, None)
+            torch.cuda.synchronize()
+            want = mlp.mlp_reference(x, w1, b1, w2, torch.zeros(
+                800, dtype=dtype, device="cuda"))
+            err = (got.float() - want.float()).abs().max().item()
+            peak = want.float().abs().max().item()
+            tol = (1e-5 * max(1.0, peak) if dtype == torch.float32
+                   else 2 * bf16_ulp(peak))
+            log(f"fused_mlp {name} shard x[{m},800] W1[800,1536] "
+                f"W2[1536,800], no b2: max_abs_err {err:.3e} tol {tol:.3e} "
+                f"{'ok' if err <= tol else 'FAIL'}")
+            if not err <= tol:
+                raise AssertionError(f"fused MLP at a rank's shape: {err}")
+            worst["fused_mlp", name] = max(
+                worst.get(("fused_mlp", name), 0.0), err)
+    return worst
+
+
+def tp_rank(rank: int, port: int, work: str) -> None:
+    """One of phase 9b's two gloo ranks on cuda:0 (``chip_smoke.py
+    --tp-rank R --tp-port P --tp-work DIR``): a (data 1, model 2) mesh,
+    the flagship's slice of this rank loaded from ``full.pt``, the loss
+    and gradients of ``batch.pt`` in f32 and in bf16 compute, each
+    forward's launches, one f32 train step clipped at ``clip.pt``'s norm
+    and the loss after it; rank 0 saves the gathered gradients, the
+    stepped parameters and Adam moments, and the numbers in
+    ``rank0.pt``."""
+    import torch.distributed as dist
+    from mint_tpu_torch.config.schema import load_pipeline_config
+    from mint_tpu_torch.models import builder
+    from mint_tpu_torch.parallel import mesh as mesh_lib
+    from mint_tpu_torch.train import Trainer, schedules
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=TP, rank=rank)
+    try:
+        mesh = mesh_lib.make_mesh(data=1, model=TP, device="cuda:0")
+        cfg = load_pipeline_config(CONFIG).multi_modal_model
+        full = torch.load(os.path.join(work, "full.pt"), weights_only=True)
+        batch = {k: v.cuda() for k, v in torch.load(
+            os.path.join(work, "batch.pt"), weights_only=True).items()}
+        clip = torch.load(os.path.join(work, "clip.pt"),
+                          weights_only=True)["clip"]
+        out = {}
+        for name, compute in (("f32", None), ("bf16", torch.bfloat16)):
+            model = builder.build(cfg, is_training=True, device="cuda:0",
+                                  compute_dtype=compute, mesh=mesh)
+            model.load_state_dict(mesh_lib.shard_state_dict(full, mesh))
+            trainer = Trainer(model, schedules.constant(1e-4),
+                              grad_clip_norm=clip, mesh=mesh)
+            state = trainer.init_state(model)
+            with torch.no_grad():
+                reset_launches()
+                trainer.loss(state.params, batch)
+                torch.cuda.synchronize()
+                counts = launch_counts()
+            loss, grads = trainer.loss_and_grads(state.params, batch)
+            gathered = mesh_lib.gather_state_dicts([grads], mesh)
+            out[name] = {"loss": float(loss), "launches": counts,
+                         "grads": gathered[0] if gathered else None}
+            if name == "f32":
+                state, _ = trainer.train_step(state, batch)
+                with torch.no_grad():
+                    out["loss_after"] = float(trainer.loss(state.params,
+                                                           batch))
+                opt = state.opt_state
+                out["stepped"] = mesh_lib.gather_state_dicts(
+                    [state.params, opt["mu"], opt["nu"]], mesh)
+            del model, trainer, state
+            torch.cuda.empty_cache()
+        if rank == 0:
+            torch.save(out, os.path.join(work, "rank0.pt"))
+    except BaseException:
+        dist.destroy_process_group()
+        raise
+    mesh_lib.leave()
+
+
+def tensor_parallel_step(work, card):
+    """9b: the flagship at full width and depth split over 2 gloo ranks on
+    cuda:0 (model = 2: 5 heads and F = 1536 a rank; uncaptured: gloo's
+    collectives are not captured) against the single-rank port on the
+    card, same weights and batch: f32 loss 1e-5 relative, gradients 1e-4
+    of each leaf's peak; one train step clipped at half the one-rank
+    gradient norm (so that the clip, whose norm sums over the model group,
+    bites): the loss after it 1e-5 relative, the parameters within 2e-5
+    and their update within 1e-3 relative L2 (Adam's first step moves a
+    parameter by at most the rate, 1e-4: a step that updated nothing or
+    the wrong way misses both), both Adam moments 1e-4 of each leaf's
+    peak (the first carries the clip's factor); bf16 compute loss 1e-2 relative, gradients 0.1 relative L2 a leaf
+    (each rank's kernel rounds its partial fc2 / to_out sum to bf16 before
+    the sum over the ranks, where one device rounds once); 16 launches of
+    each kernel per forward per rank (32 LayerNorms in bf16)."""
+    from mint_tpu_torch.parallel.dryrun import free_port, run_ranks
+    from mint_tpu_torch.train import Trainer, schedules
+
+    t_phase = time.perf_counter()
+    tp_dir = os.path.join(work, "tp")
+    os.makedirs(tp_dir)
+    model = flagship(torch.float32, "cpu", is_training=True)
+    torch.save(model.state_dict(), os.path.join(tp_dir, "full.pt"))
+    batch = train_batch(TP_BATCH, "cpu", seed=9)
+    torch.save(batch, os.path.join(tp_dir, "batch.pt"))
+    cuda_batch = {k: v.cuda() for k, v in batch.items()}
+    one = flagship(torch.float32, "cuda", is_training=True)
+    _, grads = Trainer(one, schedules.constant(1e-4)).loss_and_grads(
+        dict(one.named_parameters()), cuda_batch)
+    clip = 0.5 * torch.linalg.vector_norm(
+        torch.stack([g.norm() for g in grads.values()])).item()
+    torch.save({"clip": clip}, os.path.join(tp_dir, "clip.pt"))
+    del one, grads
+    port = free_port()
+    run_ranks(lambda r: [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                         "--tp-rank", str(r), "--tp-port", str(port),
+                         "--tp-work", tp_dir], TP, timeout=600)
+    got = torch.load(os.path.join(tp_dir, "rank0.pt"), weights_only=True)
+
+    result = {}
+    for name, compute in (("f32", None), ("bf16", torch.bfloat16)):
+        one = flagship(torch.float32, "cuda", is_training=True,
+                       compute_dtype=compute)
+        trainer = Trainer(one, schedules.constant(1e-4), grad_clip_norm=clip)
+        state = trainer.init_state(one)
+        loss, grads = trainer.loss_and_grads(state.params, cuda_batch)
+        loss = float(loss)
+        mine = got[name]
+        rel = abs(mine["loss"] - loss) / abs(loss)
+        per_leaf = {}
+        for k, want in grads.items():
+            have = mine["grads"][k].cuda()
+            if name == "f32":
+                peak = want.abs().max().item()
+                per_leaf[k] = (have - want).abs().max().item() / peak
+            else:
+                per_leaf[k] = ((have - want).norm()
+                               / want.norm().clamp_min(1e-30)).item()
+        worst = max(per_leaf, key=per_leaf.get)
+        expect = expected_launches(1, bf16=name == "bf16")
+        loss_tol, grad_tol = (1e-5, 1e-4) if name == "f32" else (1e-2, 0.1)
+        what = ("of each leaf's peak" if name == "f32"
+                else "relative L2 of each leaf")
+        log(f"tensor parallel {name} flagship batch {TP_BATCH}, 2 gloo "
+            f"ranks (model = 2) on cuda:0 vs one rank: loss {mine['loss']:.6f}"
+            f" vs {loss:.6f} (rel {rel:.2e}, tol {loss_tol:.0e}); worst "
+            f"gradient {per_leaf[worst]:.3e} {what} ({worst}; tol "
+            f"{grad_tol:.0e}); launches per forward of rank 0 "
+            f"{mine['launches']}, want {expect} ({card})")
+        if (not rel <= loss_tol or not per_leaf[worst] <= grad_tol
+                or mine["launches"] != expect):
+            raise AssertionError(f"tensor parallel {name}: loss rel {rel}, "
+                                 f"{worst} {per_leaf[worst]}, launches "
+                                 f"{mine['launches']}")
+        result[name] = {"loss_rel": rel, "worst_grad": per_leaf[worst],
+                        "launches": mine["launches"]}
+        if name == "f32":
+            init = {k: v.clone() for k, v in state.params.items()}
+            state, _ = trainer.train_step(state, cuda_batch)
+            with torch.no_grad():
+                after = float(trainer.loss(state.params, cuda_batch))
+            step_rel = abs(got["loss_after"] - after) / abs(after)
+            params, mu, nu = got["stepped"]
+            moved = max((params[k].cuda() - v).abs().max().item()
+                        for k, v in state.params.items())
+            upd = torch.cat([(v - init[k]).reshape(-1)
+                             for k, v in state.params.items()])
+            upd_err = torch.cat([(params[k].cuda() - v).reshape(-1)
+                                 for k, v in state.params.items()])
+            upd_rel = (upd_err.norm() / upd.norm()).item()
+            opt = state.opt_state
+            moments = max(
+                ((have[k].cuda() - v).abs().max()
+                 / v.abs().max().clamp_min(1e-30)).item()
+                for have, m in ((mu, "mu"), (nu, "nu"))
+                for k, v in opt[m].items())
+            log(f"tensor parallel f32 train step clipped at {clip:.4g} (half"
+                f" the one-rank gradient norm): loss after it rel "
+                f"{step_rel:.2e} (tol 1e-5); parameters max_abs_err "
+                f"{moved:.3e} (tol 2e-5), update relative L2 error "
+                f"{upd_rel:.3e} (tol 1e-3); Adam moments {moments:.3e} of "
+                f"their leaf's peak (tol 1e-4)")
+            if (not step_rel <= 1e-5 or not moved <= 2e-5
+                    or not upd_rel <= 1e-3 or not moments <= 1e-4):
+                raise AssertionError(f"tensor parallel train step: "
+                                     f"{step_rel}, {moved}, {upd_rel}, "
+                                     f"{moments}")
+            result["step"] = {"loss_rel": step_rel, "max_abs_err": moved,
+                              "update_rel_l2": upd_rel, "moments": moments}
+        del one, trainer, state, grads
+        torch.cuda.empty_cache()
+    log(f"phase 9b (tensor parallel) in {time.perf_counter() - t_phase:.1f} "
+        f"s")
+    return result
+
+
+def distributed_world_of_one(work, card):
+    """9c: the train CLI with ``--distributed --num_processes=1`` (NCCL,
+    a world of one: every gradient and the loss all-reduced, and the
+    collectives captured in the step's graph) against the CLI without it,
+    bf16 at batch 32 with the card-resident corpus (the same windows
+    both ways) and a clip, 101 steps (the first, then ten fused windows
+    of 10): the final checkpoints equal bit for bit.  Both runs' steps/s,
+    and the host pipeline's over the same steps (the native loader's
+    question), two ways: the CLI's own timer by step (it times the host's
+    enqueueing, which may run a window ahead of the card), and
+    synchronized (``_synced_rate``); then Trainer.train_step's steps/s
+    in a world of one, timed as phase 6c times one device."""
+    from mint_tpu_torch.parallel.dryrun import free_port
+
+    t_phase = time.perf_counter()
+    rates = {}
+    runs = {"plain": [], "distributed": [
+        "--distributed", f"--coordinator_address=127.0.0.1:{free_port()}",
+        "--num_processes=1", "--process_id=0"]}
+    for name, extra in runs.items():
+        model_dir = os.path.join(work, f"ws1_{name}")
+        _, err, seconds = run_module("mint_tpu_torch.tools.train", [
+            f"--config_path={CONFIG}", f"--model_dir={model_dir}",
+            f"--steps={WS1_STEPS}", "--use_bfloat16", "--grad_clip_norm=1.0",
+            "--input_backend=device", "--summary_interval=10", *extra],
+            work)
+        if (name == "distributed") != ("mesh: {'data': 1, 'model': 1}"
+                                       in err):
+            raise AssertionError(f"train CLI {name}: mesh log missing")
+        rates[name] = _cli_rates(model_dir)
+        rates[name + "_synced"] = _synced_rate(model_dir)
+        counts = logged_launches(err, f"train CLI {name}")
+        expect = expected_launches(WS1_STEPS, bf16=True)
+        log(f"train CLI bf16 {name} (device input) batch {TRAIN_BATCH} x "
+            f"{WS1_STEPS} steps in {seconds:.1f} s; steps_per_sec by step "
+            f"{rates[name]}; synchronized {rates[name + '_synced']!r} "
+            f"steps/s over steps {WS1_FROM}-{WS1_STEPS - 10}; launches "
+            f"{counts}, want {expect} ({card})")
+        if counts != expect:
+            raise AssertionError(f"train CLI {name}: launches {counts}")
+    files = {}
+    for name in runs:
+        path = os.path.join(work, f"ws1_{name}", str(WS1_STEPS))
+        files[name] = [torch.load(os.path.join(path, f), weights_only=True)
+                       for f in ("params.pt", "opt_state.pt")]
+    (p0, o0), (p1, o1) = files["plain"], files["distributed"]
+    same = (all(torch.equal(p0[k], p1[k]) for k in p0)
+            and all(torch.equal(o0["opt_state"][t][k], o1["opt_state"][t][k])
+                    for t in ("mu", "nu") for k in p0)
+            and o0["step"] == o1["step"] == WS1_STEPS)
+    log(f"train CLI bf16 --distributed --num_processes=1 (NCCL, graphed) "
+        f"vs without, step {WS1_STEPS}: parameters and both moments equal "
+        f"bit for bit: {same}")
+    if not same:
+        raise AssertionError("a world of one does not train as one device")
+    # The native loader's question: the host pipeline at the same steps.
+    model_dir = os.path.join(work, "ws1_python")
+    _, err, seconds = run_module("mint_tpu_torch.tools.train", [
+        f"--config_path={CONFIG}", f"--model_dir={model_dir}",
+        f"--steps={WS1_STEPS}", "--use_bfloat16", "--grad_clip_norm=1.0",
+        "--input_backend=python", "--summary_interval=10"], work)
+    rates["python"] = _cli_rates(model_dir)
+    rates["python_synced"] = _synced_rate(model_dir)
+    log(f"train CLI bf16 plain (python input) batch {TRAIN_BATCH} x "
+        f"{WS1_STEPS} steps in {seconds:.1f} s; steps_per_sec by step "
+        f"{rates['python']}; synchronized {rates['python_synced']!r} "
+        f"steps/s over steps {WS1_FROM}-{WS1_STEPS - 10} ({card})")
+    log(f"native loader's question, bf16 batch {TRAIN_BATCH}, synchronized"
+        f" steps/s: host pipeline {rates['python_synced']!r}, card-resident"
+        f" corpus {rates['plain_synced']!r}: the host pipeline at "
+        f"{rates['python_synced'] / rates['plain_synced']!r} of the card's"
+        f" rate ({card})")
+    rates["step_world_of_one"] = world_of_one_rate(card)
+    log(f"phase 9c (world of one) in {time.perf_counter() - t_phase:.1f} s")
+    return rates
+
+
+def world_of_one_rate(card):
+    """Trainer.train_step's bf16 steps/s at batch 32 on a mesh of one NCCL
+    rank (this process), each timed step a replay of a graph that holds
+    the all-reduce: the distributed path's cost on one card, beside
+    phase 6c's one-device rate."""
+    import torch.distributed as dist
+    from mint_tpu_torch.parallel import mesh as mesh_lib
+    from mint_tpu_torch.parallel.dryrun import free_port
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = mesh_lib.make_mesh(1, 1, device="cuda:0")
+        rate = train_rate("bf16", card, steps=10, mesh=mesh)
+    except BaseException:
+        dist.destroy_process_group()
+        raise
+    mesh_lib.leave()
+    return rate
+
+
+def _cli_rates(model_dir):
+    """{step: steps_per_sec} of a train CLI run's metrics.jsonl."""
+    with open(os.path.join(model_dir, "train", "metrics.jsonl")) as f:
+        return {r["step"]: r["steps_per_sec"]
+                for r in map(json.loads, f)}
+
+
+def _synced_rate(model_dir):
+    """Steps/s between the records of steps WS1_FROM and WS1_STEPS - 10
+    of metrics.jsonl, by their wall-clock ``time``.  The controller
+    writes a record after reading its loop's loss, which blocks until
+    the card has run that loop (and the one queued after it), so the
+    time between two records is the time the steps between them took,
+    whether the card or the host bounds them.  The last record is left
+    out: nothing is queued after its loop."""
+    with open(os.path.join(model_dir, "train", "metrics.jsonl")) as f:
+        times = {r["step"]: r["time"] for r in map(json.loads, f)}
+    last = WS1_STEPS - 10
+    return (last - WS1_FROM) / (times[last] - times[WS1_FROM])
+
+
+def replica_decode(card):
+    """9d: the flagship f32 decode over 2 replicas on cuda:0, by the
+    evaluator (4 clips, 3 steps, two passes: the first captures each
+    replica's graph one after the other, the second replays both
+    concurrently) and by the server (3 co-batched requests padded to 4,
+    2 rows a replica), against one replica: frames within 1e-3, 16
+    launches of each kernel a step per replica."""
+    from mint_tpu_torch.eval.evaluator import Evaluator
+    from mint_tpu_torch.serving.server import GenerationService
+
+    t_phase = time.perf_counter()
+    steps = 3
+    model = flagship(torch.float32, "cuda")
+    rng = np.random.default_rng(11)
+    clips = [{"motion_input": rng.standard_normal((1, 120, 225)).astype(
+                  np.float32) * 0.5,
+              "audio_input": rng.standard_normal((1, steps + 239, 35)).astype(
+                  np.float32) * 0.5,
+              "motion_name": [f"clip{i}".encode()], "audio_name": [b"a"]}
+             for i in range(4)]
+    with tempfile.TemporaryDirectory() as out:
+        frames = {}
+        for n in (1, 2):
+            evaluator = Evaluator(model, clips, steps=steps, decode_batch=4,
+                                  output_dir=os.path.join(out, str(n)),
+                                  devices=["cuda:0"] * n)
+            for rounds in range(2):
+                reset_launches()
+                evaluator.evaluate()
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                expect = expected_launches(steps * n, bf16=False)
+                log(f"evaluator over {n} replica(s) on cuda:0, pass "
+                    f"{rounds + 1}: launches {counts}, want {expect} (16 a "
+                    f"step a replica); {evaluator.replicas.summary()}")
+                if counts != expect:
+                    raise AssertionError(f"evaluator launches {counts}")
+            frames[n] = [np.load(os.path.join(out, str(n), f"clip{i}_a.npy"))
+                         for i in range(4)]
+        err = max(float(np.abs(a - b).max())
+                  for a, b in zip(frames[1], frames[2]))
+    log(f"evaluator 2 replicas vs 1: max_abs_err {err:.3e} over {steps} "
+        f"steps (tol 1e-3)")
+    if not err <= 1e-3:
+        raise AssertionError(f"evaluator replicas disagree: {err}")
+
+    audios = [rng.standard_normal((steps + 239, 35)).astype(np.float32)
+              * 0.5 for _ in range(3)]
+    results = {}
+    for n in (1, 2):
+        service = GenerationService(model, batch_window_ms=2000,
+                                    max_batch=4, steps_bucket=steps,
+                                    devices=["cuda:0"] * n)
+        try:
+            outs = [None] * 3
+            reset_launches()
+
+            def ask(i):
+                outs[i] = service.generate(audios[i], steps=steps)
+
+            threads = [threading.Thread(target=ask, args=(i,))
+                       for i in range(3)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            stats = service.stats_snapshot()
+        finally:
+            service.close()
+        expect = expected_launches(steps * n, bf16=False)
+        log(f"server over {n} replica(s) on cuda:0: stats {stats}, "
+            f"launches {counts}, want {expect}")
+        if (counts != expect or stats["replicas"] != n
+                or stats["batches"] != 1 or any(o is None for o in outs)):
+            raise AssertionError(f"server replicas {n}: {stats} {counts}")
+        results[n] = outs
+    err = max(float(np.abs(a - b).max())
+              for a, b in zip(results[1], results[2]))
+    log(f"server 2 replicas vs 1: max_abs_err {err:.3e} (tol 1e-3); phase "
+        f"9d in {time.perf_counter() - t_phase:.1f} s ({card})")
+    if not err <= 1e-3:
+        raise AssertionError(f"server replicas disagree: {err}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def reference_names(work):
+    """9e: the flagship's f32 weights renamed to the reference TF
+    checkpoint's names, through the pure converter (no tensorflow), written
+    as a port checkpoint and served by the server's load_model: its
+    forward on the card equals the source weights' bit for bit."""
+    from mint_tpu_torch.serving import server
+    from mint_tpu_torch.tools import convert_checkpoint as cc
+
+    source = flagship(torch.float32, "cuda")
+    tf_vars = cc.tf_variables_of(source)
+    state, report = cc.convert_tf_variables(tf_vars, source)
+    out = os.path.join(work, "from_tf")
+    cc.write_checkpoint(state, out)
+    served = server.load_model(server._parser().parse_args(
+        [f"--config_path={CONFIG}", f"--checkpoint_dir={out}"]))
+    rng = np.random.default_rng(12)
+    inputs = {"motion_input": torch.from_numpy(rng.standard_normal(
+                  (2, 120, 225)).astype(np.float32)).cuda(),
+              "audio_input": torch.from_numpy(rng.standard_normal(
+                  (2, 240, 35)).astype(np.float32)).cuda()}
+    with torch.inference_mode():
+        same = torch.equal(source(inputs), served(inputs))
+    log(f"reference TF names: {len(tf_vars)} variables converted without "
+        f"tensorflow (skipped {len(report)}), served from {out}: forward "
+        f"equal to the source weights' bit for bit: {same}")
+    if not same or report:
+        raise AssertionError("the converted checkpoint serves another model")
+    del source, served
+    torch.cuda.empty_cache()
+
+
+def across_ranks(att, mlp, ln, gen, work, card):
+    """Phase 9: the kernels at a tensor-parallel rank's shapes (a), the
+    tensor-parallel train step (b), a world of one over NCCL (c), decode
+    over replicas (d), the reference-name converter (e).  Returns the
+    shard-shape errors and times, and (b)'s launches a forward a rank."""
+    t_phase = time.perf_counter()
+    errs = check_shard_kernels(att, mlp, gen)
+    times = time_kernels(att, mlp, ln, gen, card, TRAIN_BATCH,
+                         ((360, 360), (240, 240), (120, 120)),
+                         (360, 240, 120), host=False, heads=10 // TP,
+                         width=3072 // TP)
+    tp = tensor_parallel_step(work, card)
+    rates = distributed_world_of_one(work, card)
+    replica_decode(card)
+    reference_names(work)
+    log(f"phase 9 (across ranks and replicas, checkpoints in) in "
+        f"{time.perf_counter() - t_phase:.1f} s; the train CLI's "
+        f"steps_per_sec by step: a world of one {rates['distributed']}, one "
+        f"device {rates['plain']}, one device with the host pipeline "
+        f"{rates['python']}; synchronized: a world of one "
+        f"{rates['distributed_synced']!r}, one device "
+        f"{rates['plain_synced']!r}, the host pipeline "
+        f"{rates['python_synced']!r} ({card})")
+    return errs, times, dict(tp, rates=rates)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; "
@@ -1935,11 +2457,16 @@ def main():
                 os.rename(run, os.path.join(work, "f32_run"))
             else:
                 shutil.rmtree(run)
-        train_rate("bf16", card, steps=10)
+        rate_bf16 = train_rate("bf16", card, steps=10)
         train_rate("f32", card, steps=5)
         eval_launches, eval_times = scoring_path(
             att, mlp, ln, gen, work, os.path.join(work, "f32_run"), card)
         music_path(work, os.path.join(work, "f32_run"), card)
+        shard_errs, shard_times, tp = across_ranks(att, mlp, ln, gen, work,
+                                                   card)
+        log(f"train bf16 batch {TRAIN_BATCH} Trainer.train_step: one device "
+            f"(6c) {rate_bf16:.3f} steps/s, a world of one NCCL rank (9c) "
+            f"{tp['rates']['step_world_of_one']:.3f} steps/s ({card})")
 
     # The bf16 LayerNorm kernel replaces no TPU kernel: it is Flax's
     # LayerNorm(dtype=bf16) with f32 parameters, which XLA fuses there.
@@ -1958,7 +2485,10 @@ def main():
     # shapes (batch 32; Nq or M/32 = 360, 240, 120); `eval_launches` the
     # evaluate CLI's (f32: every clip; bf16: the 384-step bucket), and
     # "eval" the times at the eval's default decode batch (Nq or M/batch
-    # = 360, 240, 120, 48).
+    # = 360, 240, 120, 48); "tensor_parallel" phase 9's: the worst error
+    # at a model = 2 rank's shapes, the times there at batch 32 (Nq or
+    # M/32 = 360, 240, 120; 5 heads, F = 1536) and each rank's launches a
+    # forward of phase 9b's run.
     kernels = [{"name": f"{name}_{dt}", "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name, dt],
                 "launches_per_step": per_step[name, dt],
@@ -1970,7 +2500,13 @@ def main():
                           train_times[name, dt].items()},
                 "eval_launches": eval_launches[name, dt],
                 "eval": {str(n): row for n, row in
-                         eval_times[name, dt].items()}}
+                         eval_times[name, dt].items()},
+                "tensor_parallel": {
+                    "max_abs_err": shard_errs.get((name, dt)),
+                    "train": {str(n): row for n, row in
+                              shard_times.get((name, dt), {}).items()},
+                    "launches_per_forward_per_rank":
+                        tp[dt]["launches"][name]}}
                for name, (src, rep, dts) in sources.items() for dt in dts]
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -1980,4 +2516,12 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if "--tp-rank" in sys.argv:  # one of phase 9b's ranks
+        if not torch.cuda.is_available():
+            raise SystemExit("a phase 9b rank needs a CUDA card")
+        sys.path.insert(0, REPO)
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        tp_rank(int(args["--tp-rank"]), int(args["--tp-port"]),
+                args["--tp-work"])
+    else:
+        main()

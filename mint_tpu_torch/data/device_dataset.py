@@ -19,8 +19,15 @@ JAX's threefry draws, so the port's windows are not the JAX package's:
 the tests hold them to the source data (every window is rows of one
 sequence, at a valid start) and to resume, not to JAX's windows.
 
-Not ported yet: the JAX package's mode that shards the stores over a
-mesh's data axis (it waits for the port's parallelism).
+Over a mesh of ranks (``parallel/mesh.py``) each rank draws its own
+``global batch / data`` rows: a rank's generator seed adds
+``SEED_STRIDE * data_index`` to the run's, so the data ranks draw
+different windows and the ranks of one model group the same ones (data
+index 0 draws what one device draws).  ``shard_over_data`` (the JAX
+package's, ``mint_tpu/data/device_dataset.py:116-170``): each data rank
+keeps only its share of the corpus, sequences dealt round-robin, its
+draw table padded to the largest share by cycling its own sequences (up
+to data - 1 sequences get one extra slot, as there), and draws from it.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch
 
 from mint_tpu_torch.data import pipeline as data_pipeline
 from mint_tpu_torch.data import tfrecord
+from mint_tpu_torch.parallel.mesh import SEED_STRIDE
 from mint_tpu_torch.utils.device import resolve
 
 
@@ -60,7 +68,12 @@ class DeviceDataset:
                  offsets: np.ndarray, counts: np.ndarray,
                  motion_input_len: int, target_len: int, target_shift: int,
                  audio_input_len: int, batch_size: int,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", data_index: int = 0,
+                 slots: np.ndarray | None = None):
+        """`batch_size` is this rank's; `data_index` its index on a mesh's
+        data axis (its draws' seed offset); `slots`, where given, the
+        sequence of each draw slot (a draw picks a slot uniformly)."""
+        self.seed_offset = SEED_STRIDE * int(data_index)
         self.motion_input_len = int(motion_input_len)
         self.target_len = int(target_len)
         self.target_shift = int(target_shift)
@@ -110,6 +123,7 @@ class DeviceDataset:
                        "audio": put(audio, np.float32),
                        "offsets": put(offsets, np.int64),
                        "counts": put(counts, np.int64)}
+        self._slots = None if slots is None else put(slots, np.int64)
         self._generator = torch.Generator(device=self.device)
         self._motion_rows = torch.arange(self.motion_span, device=self.device)
         self._audio_rows = torch.arange(self.audio_input_len,
@@ -118,13 +132,19 @@ class DeviceDataset:
     @classmethod
     def from_files(cls, files: Sequence[str], dataset_config, batch_size: int,
                    device: torch.device | str = "cuda",
-                   verify_crc: bool = False) -> "DeviceDataset":
+                   verify_crc: bool = False, mesh=None,
+                   shard_over_data: bool = False) -> "DeviceDataset":
         """Decode tfrecord shards into the resident stores.
 
         Window geometry comes from the dataset config as in the host
         pipeline (``get_modality_to_param_dict``); motion is padded
         219 -> 225 with 6 leading zeros here, once, instead of per window.
         Sequences too short for one window are dropped.
+
+        With `mesh`, `batch_size` is the GLOBAL batch: this rank draws
+        ``batch_size / data`` rows, seeded by its data index; with
+        `shard_over_data` it keeps only its data index's share of the
+        corpus.
         """
         params = data_pipeline.get_modality_to_param_dict(dataset_config)
         motion_in = params["motion"]["input_length"]
@@ -133,7 +153,7 @@ class DeviceDataset:
         audio_in = params["audio"]["input_length"]
         window = max(motion_in, target_shift + target_len, audio_in)
 
-        motions, audios, lengths = [], [], []
+        motions, audios = [], []
         for record in tfrecord.read_many(list(files), verify_crc=verify_crc):
             ex = data_pipeline.parse_example(record)
             motion = np.asarray(ex["motion_sequence"], np.float32)
@@ -143,28 +163,67 @@ class DeviceDataset:
                 continue
             motions.append(np.pad(motion[:usable], [[0, 0], [6, 0]]))
             audios.append(audio[:usable])
-            lengths.append(usable)
         if not motions:
             raise ValueError(
                 f"no sequence in {len(list(files))} shard(s) is long enough "
                 f"for one {window}-frame training window")
-        lengths = np.asarray(lengths, np.int64)
+        return cls.from_sequences(
+            motions, audios, motion_in, target_len, target_shift, audio_in,
+            batch_size, device=device, mesh=mesh,
+            shard_over_data=shard_over_data)
+
+    @classmethod
+    def from_sequences(cls, motions: Sequence[np.ndarray],
+                       audios: Sequence[np.ndarray], motion_input_len: int,
+                       target_len: int, target_shift: int,
+                       audio_input_len: int, batch_size: int,
+                       device: torch.device | str = "cuda", mesh=None,
+                       shard_over_data: bool = False) -> "DeviceDataset":
+        """The stores of per-sequence arrays (row-aligned motion and audio,
+        each at least one window long), `batch_size` the global batch:
+        with `mesh` this rank draws ``batch_size / data`` rows, and with
+        `shard_over_data` keeps only its data index's share."""
+        window = max(motion_input_len, target_shift + target_len,
+                     audio_input_len)
+        data, index = (mesh.data, mesh.data_index) if mesh else (1, 0)
+        if batch_size % data:
+            raise ValueError(f"batch_size {batch_size} is not divisible by "
+                             f"the data axis size {data}")
+        motions, audios = list(motions), list(audios)
+        slots = None
+        if shard_over_data and data > 1:
+            if len(motions) < data:
+                raise ValueError(
+                    f"shard_over_data needs >= {data} sequences (one per "
+                    f"data rank); the corpus has {len(motions)}")
+            slots = -(-len(motions) // data)
+            motions = motions[index::data]
+            audios = audios[index::data]
+        lengths = np.asarray([len(m) for m in motions], np.int64)
         offsets = np.concatenate([[0], np.cumsum(lengths)[:-1]])
         counts = lengths - window + 1
         return cls(np.concatenate(motions), np.concatenate(audios),
-                   offsets, counts, motion_in, target_len, target_shift,
-                   audio_in, batch_size, device=device)
+                   offsets, counts, motion_input_len, target_len,
+                   target_shift, audio_input_len, batch_size // data,
+                   device=device, data_index=index,
+                   # this rank's sequences cycled to the largest share
+                   slots=(None if slots is None
+                          else np.arange(slots) % len(lengths)))
 
     def sample(self, seed: int, step: int) -> Dict[str, torch.Tensor]:
         """One [batch] of training windows, drawn on the device from a
         generator seeded from (`seed`, `step`): the same pair gives the
         same windows."""
         g = self._generator
-        g.manual_seed(_draw_seed(seed, step))
+        g.manual_seed(_draw_seed(seed + self.seed_offset, step))
         a = self.arrays
         b = self.batch_size
-        idx = torch.randint(0, self.n_sequences, (b,), generator=g,
-                            device=self.device)
+        if self._slots is None:
+            idx = torch.randint(0, self.n_sequences, (b,), generator=g,
+                                device=self.device)
+        else:
+            idx = self._slots[torch.randint(0, len(self._slots), (b,),
+                                            generator=g, device=self.device)]
         u = torch.rand((b,), generator=g, device=self.device)
         cnt = a["counts"][idx]
         start = torch.minimum((u * cnt).long(), cnt - 1)

@@ -17,12 +17,18 @@ CUDA graph for its (padded batch, steps) key, captured at the first
 dispatch of that key (``infer/decoder.py``); each dispatch's log line
 carries the model's graph count.
 
-Not carried over from the JAX evaluator: ``mesh`` (one card here),
-``decode_unroll`` (an XLA scan knob), ``fold_ln`` (``models/fold.py`` is
-not ported), and the ``dispatch_chunk`` and ``decode_rows`` options: in
-eager PyTorch a decode split into chunks gives the same frames and saves
-no compile, and no caller asked for other rows, so each decode runs whole
-with the decoder's defaults.
+The JAX evaluator's ``mesh`` is ``devices`` here: one replica of the
+parameters a device (``parallel/replicas.py``), each dispatch's rows split
+over them and its clips gathered in order; the default decode batch and
+the padding scale with the replica count, as they do with the mesh's
+data axis there.
+
+Not carried over from the JAX evaluator: ``decode_unroll`` (an XLA scan
+knob), ``fold_ln`` (``models/fold.py`` is not ported), and the
+``dispatch_chunk`` and ``decode_rows`` options: in eager PyTorch a decode
+split into chunks gives the same frames and saves no compile, and no
+caller asked for other rows, so each decode runs whole with the
+decoder's defaults.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ import torch
 
 from mint_tpu_torch.infer import decoder
 from mint_tpu_torch.models.fact import FACT
-from mint_tpu_torch.utils import graphs
+from mint_tpu_torch.parallel.replicas import Replicas
 
 _log = logging.getLogger(__name__)
 
@@ -55,13 +61,14 @@ DECODE_BATCH = 32
 
 
 class Evaluator:
-    """Batched AR-generation evaluator on one device."""
+    """Batched AR-generation evaluator on one device or over replicas."""
 
     def __init__(self, model: FACT, dataset,
                  metrics: Sequence = (), output_dir: Optional[str] = None,
                  steps: int = 1200, decode_batch: Optional[int] = None,
                  steps_bucket: Optional[int] = None,
-                 cache_examples: bool = True):
+                 cache_examples: bool = True,
+                 devices: Optional[Sequence] = None):
         """`model` is a FACT on its device, in the dtype to decode in.
 
         `dataset` is an iterable of batches, or a zero-argument callable
@@ -74,7 +81,11 @@ class Evaluator:
         always cached: a second drain would give an empty corpus.
 
         `decode_batch` caps the clips of one decode dispatch (default
-        :data:`DECODE_BATCH`).
+        :data:`DECODE_BATCH` a device).
+
+        `devices` (default: the model's alone) are the devices to decode
+        on, the model's first: a replica of its parameters each, every
+        dispatch's clips split over them (the JAX evaluator's `mesh`).
 
         `steps_bucket` (optional) quantises generatable lengths UPWARD so
         nearby audio lengths share one decode.  Exact: decode frame i reads
@@ -85,12 +96,13 @@ class Evaluator:
         which the reference metric does not read).
         """
         self.model = model
+        self.replicas = Replicas(model, devices or [model.device])
         self.dataset = dataset
         self.metrics = list(metrics)
         self.output_dir = output_dir
         self.steps = steps
-        self.decode_batch = int(DECODE_BATCH if decode_batch is None
-                                else decode_batch)
+        self.decode_batch = int(DECODE_BATCH * len(self.replicas)
+                                if decode_batch is None else decode_batch)
         if self.decode_batch < 1:
             # A negative value would make the bucket loop's range() step
             # backwards: no clip decoded, yet the metrics would "return".
@@ -143,7 +155,7 @@ class Evaluator:
         or the model's own weights; returns the metric dict."""
         t_pass = time.monotonic()
         if params is not None:
-            self.model.load_state_dict(params)
+            self.replicas.load_state_dict(params)
         for metric in self.metrics:
             metric.reset_states()
         if self.output_dir is not None:
@@ -197,28 +209,27 @@ class Evaluator:
             for ex in bucket])
         n_real = len(bucket)
         # Pad a partial batch UP to the next power of two (capped at
-        # decode_batch), repeating the last clip (trimmed below): the
-        # serving batcher's rule (decoder.padded_batch_size).
-        pad = decoder.padded_batch_size(n_real, cap=self.decode_batch) \
-            - n_real
+        # decode_batch), then to a multiple of the replicas, repeating the
+        # last clip (trimmed below): the serving batcher's rule
+        # (decoder.padded_batch_size).
+        pad = decoder.padded_batch_size(n_real, data=len(self.replicas),
+                                        cap=self.decode_batch) - n_real
         if pad:
             motion = np.concatenate(
                 [motion, np.repeat(motion[-1:], pad, axis=0)])
             audio = np.concatenate(
                 [audio, np.repeat(audio[-1:], pad, axis=0)])
         t0 = time.monotonic()
-        out = decoder.infer_auto_regressive(
-            self.model, {"motion_input": motion, "audio_input": audio},
-            steps=n_steps)
         # The copy to the host waits for the card.
-        out = out.float().cpu().numpy()
+        out = self.replicas.decode(
+            {"motion_input": motion, "audio_input": audio}, steps=n_steps)
         seconds = time.monotonic() - t0
         # Prepend the seed (single_task_evaluator.py:71); drop pad clips.
         full = np.concatenate([motion, out], axis=1)[:n_real]
         _log.info("decode batch=%d(+%d pad) steps=%d: %.2f s, %.1f frames/s;"
                   " the model's decode graphs so far: %s", n_real, pad,
                   n_steps, seconds, (n_real + pad) * n_steps / seconds,
-                  graphs.of(self.model).summary())
+                  self.replicas.summary())
         motion = motion[:n_real]
         audio = audio[:n_real]
 

@@ -102,6 +102,26 @@ class _Loop:
         self.index += 1
 
 
+def _key(model: FACT, batch: int, steps: int, last_block_rows: int):
+    """The key of a decode's graph in the model's cache."""
+    return ("decode", batch, model.dtype, last_block_rows,
+            steps + model.audio_seq_length - 1)
+
+
+def captured(model: FACT, batch: int, steps: int,
+             last_block_rows: int = DECODE_LAST_BLOCK_ROWS) -> bool:
+    """Whether a decode of `batch` clips and `steps` steps on `model` only
+    replays its captured graph; always True where decodes run uncaptured
+    (the CPU)."""
+    if not graphs.enabled(model.device):
+        return True
+    cache = graphs.of(model)
+    if cache.bound != tuple(p.data_ptr() for p in model.parameters()):
+        return False  # moved parameters: the next decode captures anew
+    entry = cache.steps.get(_key(model, batch, steps, last_block_rows))
+    return entry is not None and entry[1].captured
+
+
 def _as_input(model: FACT, x) -> torch.Tensor:
     return torch.as_tensor(x, device=model.device)
 
@@ -167,7 +187,7 @@ def _decode(model: FACT, inputs: Dict[str, torch.Tensor], steps: int,
         if weights != cache.bound:
             cache.steps.clear()
             cache.bound = weights
-        key = ("decode", b, model.dtype, last_block_rows, audio_emb.shape[1])
+        key = _key(model, b, steps, last_block_rows)
         if key not in cache.steps:
             loop = _Loop(model, motion_emb, audio_emb, steps,
                          last_block_rows)
@@ -201,13 +221,17 @@ def quantize_steps(n: int, bucket: int, cap: int | None = None) -> int:
     return min(q, cap) if cap is not None else q
 
 
-def padded_batch_size(n_real: int, cap: int | None = None) -> int:
+def padded_batch_size(n_real: int, data: int = 1,
+                      cap: int | None = None) -> int:
     """Pad a partial batch UP to the next power of two, optionally capped
-    at `cap` but never below ``n_real`` (the JAX rule without a mesh)."""
+    at `cap` but never below ``n_real``, then UP to a multiple of `data`
+    (the replicas it is split over) so every replica gets as many rows:
+    the JAX rule (``mint_tpu/infer/decoder.py:219-235``), whose `mesh`
+    gives `data` as its data-axis size."""
     target = 1 << (n_real - 1).bit_length()
     if cap is not None:
         target = min(target, max(cap, n_real))
-    return target
+    return target + (-target) % data
 
 
 @torch.inference_mode()

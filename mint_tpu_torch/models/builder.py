@@ -28,7 +28,7 @@ MODEL_BUILDER_MAP = {
 
 
 def check_kernel_limits(config: FACTModelConfig,
-                        dtype: torch.dtype) -> None:
+                        dtype: torch.dtype, model: int = 1) -> None:
     """Raise ValueError, naming the limit and the config field, where the
     model `config` builds would hand a hand-written kernel of `dtype` a
     shape it does not take: each transformer's head dim over its keys
@@ -36,7 +36,13 @@ def check_kernel_limits(config: FACTModelConfig,
     stack) to attention, its hidden and MLP widths to the fused MLP and,
     in bf16, its hidden width to LayerNorm.  The kernels' own limits are
     the ops modules' ``limit_broken``.  A pure function of the config: the
-    limits that depend on the batch are :func:`check_batch`'s."""
+    limits that depend on the batch are :func:`check_batch`'s.
+
+    With `model` tensor-parallel ranks the shapes are a rank's: its heads
+    (the head dim is unchanged) and its slice of the MLP width.  Heads and
+    the MLP width must split evenly over the ranks (:func:`check_split`).
+    """
+    check_split(config, model)
     models, params, _ = build_modalities_model(config.modality)
     seq = {name: p["sequence_length"] for name, p in params.items()}
     keys_cross = seq.get("motion", 0) + seq.get("audio", 0)
@@ -61,18 +67,50 @@ def check_kernel_limits(config: FACTModelConfig,
                 f"{field}: head dim {hidden // heads} (hidden_size {hidden}"
                 f" / num_attention_heads {heads}) over {why} keys: "
                 f"attention kernel limit: {broken}")
-        broken = mlp_op.limit_broken(dtype, hidden, tf.intermediate_size,
-                                     hidden)
+        width = tf.intermediate_size // model
+        broken = mlp_op.limit_broken(dtype, hidden, width, hidden)
         if broken:
             raise ValueError(
                 f"{field}: hidden_size {hidden} -> intermediate_size "
-                f"{tf.intermediate_size} -> hidden_size {hidden}: fused MLP "
-                f"kernel limit: {broken}")
+                f"{tf.intermediate_size}" + (f" / {model} model ranks = "
+                                             f"{width}" if model > 1 else "")
+                + f" -> hidden_size {hidden}: fused MLP kernel limit: "
+                f"{broken}")
         broken = (layer_norm_op.limit_broken(hidden)
                   if dtype == torch.bfloat16 else None)
         if broken:
             raise ValueError(f"{field}: hidden_size {hidden}: bf16 "
                              f"LayerNorm kernel limit: {broken}")
+
+
+def check_split(config: FACTModelConfig, model: int) -> None:
+    """Raise ValueError, naming the field, where a transformer's heads or
+    MLP width do not split evenly over `model` tensor-parallel ranks.
+
+    The JAX package takes any model axis that divides the dims it splits
+    (GSPMD cuts ``to_qkv``'s 3 x hidden columns anywhere and reshards);
+    here each rank computes whole heads, so the flagship's 10 heads take
+    1, 2, 5 or 10 ranks and refuse 4, which JAX would take."""
+    if model <= 1:
+        return
+    models, _, _ = build_modalities_model(config.modality)
+    stacks = [(f"modality {name!r} transformer",
+               models[name].get("transformer_layer"))
+              for name in ("motion", "audio") if name in models]
+    stacks.append(("cross_modal_model.transformer",
+                   config.cross_modal_model.transformer))
+    for field, tf in stacks:
+        if tf is None:
+            continue
+        if tf.num_attention_heads % model:
+            raise ValueError(
+                f"{field}: num_attention_heads {tf.num_attention_heads} "
+                f"does not split over {model} model ranks (each rank "
+                "computes whole heads)")
+        if tf.intermediate_size % model:
+            raise ValueError(
+                f"{field}: intermediate_size {tf.intermediate_size} does "
+                f"not split over {model} model ranks")
 
 
 def check_batch(model: FACT, batch: int) -> None:
@@ -92,7 +130,7 @@ def check_batch(model: FACT, batch: int) -> None:
 def build(model_config: MultiModalModelConfig, is_training: bool,
           dtype: torch.dtype = torch.float32,
           device: torch.device | str = "cuda",
-          compute_dtype: torch.dtype | None = None) -> FACT:
+          compute_dtype: torch.dtype | None = None, mesh=None) -> FACT:
     """Build a model from a MultiModalModel config (dispatch on the oneof),
     cast once to `dtype` and placed on `device`.  Not training builds are
     put in eval mode.
@@ -108,15 +146,26 @@ def build(model_config: MultiModalModelConfig, is_training: bool,
     (``device="cpu"``, as the tests do); without a card the default
     raises rather than building on the CPU.  On the card the config is
     first held to the kernels' limits (:func:`check_kernel_limits`): a
-    shape a kernel refuses fails here, not mid-decode or mid-step."""
+    shape a kernel refuses fails here, not mid-decode or mid-step.
+
+    `mesh` (``parallel/mesh.py``) with a model axis over 1 builds this
+    rank's slice of every attention and MLP; its heads and MLP widths
+    must split evenly (:func:`check_split`), and on the card the kernels'
+    limits are checked at the slice's shapes.  Load a full state_dict
+    into it through ``parallel.shard_state_dict``."""
     device = torch.device(device)
-    if device.type == "cuda" and model_config.which() == "fact_model":
-        check_kernel_limits(model_config.fact_model, compute_dtype or dtype)
+    parts = mesh.model if mesh is not None else 1
+    if model_config.which() == "fact_model":
+        if device.type == "cuda":
+            check_kernel_limits(model_config.fact_model,
+                                compute_dtype or dtype, parts)
+        else:
+            check_split(model_config.fact_model, parts)
     device = resolve(device, "builder.build")
     build_func = MODEL_BUILDER_MAP[model_config.which()]
     model = build_func(model_config, is_training,
-                       compute_dtype=compute_dtype).to(device=device,
-                                                       dtype=dtype)
+                       compute_dtype=compute_dtype, mesh=mesh).to(
+                           device=device, dtype=dtype)
     # LayerNorm keeps f32 parameters under any cast, as Flax's
     # LayerNorm(dtype=...) keeps its scale and bias (models/layers.py).
     # They are 1 and 0 at this point, so the cast above lost nothing.

@@ -28,10 +28,13 @@ class FACT(nn.Module):
     ``init_params`` in ``mint_tpu/models/fact.py`` does).
     `compute_dtype` is the JAX model's: every layer casts to it on each
     call while the parameters keep their dtype (``models/layers.py``).
+    `mesh` (``parallel/mesh.py``), where its model axis is over 1, makes
+    every attention and MLP hold this rank's slice (tensor parallelism);
+    the embeddings, LayerNorms and output head stay whole on every rank.
     """
 
     def __init__(self, config: FACTModelConfig, audio_dim: int = 0,
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None, mesh=None):
         super().__init__()
         self.config = config
         self.compute_dtype = compute_dtype
@@ -55,7 +58,8 @@ class FACT(nn.Module):
         def transformer(tf):
             return layers.Transformer(tf.hidden_size, tf.num_hidden_layers,
                                       tf.num_attention_heads,
-                                      tf.intermediate_size, compute_dtype)
+                                      tf.intermediate_size, compute_dtype,
+                                      mesh)
 
         self.motion_linear_embedding = layers.LinearEmbedding(
             self.motion_dim, motion_tf.hidden_size, compute_dtype)
@@ -72,7 +76,7 @@ class FACT(nn.Module):
             cm.transformer.num_attention_heads,
             cm.transformer.intermediate_size, cm.output_layer.out_dim,
             output_initializer_range=cm.output_layer.initializer_range,
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, mesh=mesh)
 
     @property
     def motion_seq_length(self) -> int:

@@ -15,6 +15,21 @@ so the Flax parameter tree maps onto ``state_dict`` keys one to one
 ``ops.fused_mlp``: on a CUDA tensor those launch the hand-written kernels,
 on a CPU tensor they run the kernels' plain versions.
 
+Tensor parallelism (``mesh`` with a model axis over 1,
+``parallel/mesh.py``): each rank's ``Attention`` holds its slice of the
+heads (``to_qkv``'s rows for them, ``to_out``'s columns) and each rank's
+``MLP`` its slice of the hidden width (fc1's rows and bias, fc2's
+columns).  The input enters through an identity whose backward
+all-reduces over the model group; ``to_out`` and fc2 are row-parallel:
+each rank's partial product is summed over the model group in f32 and
+the bias, replicated, is added once after the sum, then cast to the
+layer's dtype.  The fused MLP kernel adds its b2 inside its reduction, so
+a rank passes it none (``ops.mlp.fused_mlp(..., b2=None)``).  In f32 a
+sharded layer differs from one device by summation order only; in bf16
+each rank's kernel rounds its partial sum to bf16 before the all-reduce,
+where one device rounds the whole sum once: up to one bf16 rounding of
+each partial more.
+
 Dtype, two ways (``models/builder.py`` picks one):
 
 - **Whole-model cast** (``compute_dtype=None``, the default): the model is
@@ -48,6 +63,7 @@ from torch import nn
 from mint_tpu_torch.ops import attention as attention_op
 from mint_tpu_torch.ops import layer_norm as layer_norm_op
 from mint_tpu_torch.ops import mlp as mlp_op
+from mint_tpu_torch.parallel import mesh as mesh_lib
 
 gelu_tanh = mlp_op.gelu_tanh
 
@@ -117,17 +133,37 @@ class LayerNorm(nn.LayerNorm):
                             self.bias, self.eps).to(out_dtype)
 
 
+def _tensor_parallel(mesh) -> bool:
+    return mesh is not None and mesh.model > 1
+
+
+def _row_parallel_out(partial: torch.Tensor, bias: torch.Tensor,
+                      dtype: torch.dtype, mesh) -> torch.Tensor:
+    """A row-parallel layer's output: the ranks' partial products summed
+    over the model group in f32, the bias added once, cast to `dtype`."""
+    total = mesh_lib.reduce_from_model(partial.float(), mesh)
+    return (total + bias.float()).to(dtype)
+
+
 class Attention(nn.Module):
-    """Unmasked multi-head self-attention (``layers.py:61-96``)."""
+    """Unmasked multi-head self-attention (``layers.py:61-96``).  With a
+    model axis in `mesh`, this rank's ``heads / model`` heads only."""
 
     def __init__(self, dim: int, heads: int = 8,
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None, mesh=None):
         super().__init__()
         self.dim = dim
-        self.heads = heads
-        self.to_qkv = Dense(dim, 3 * dim, bias=False,
+        self.mesh = mesh if _tensor_parallel(mesh) else None
+        parts = self.mesh.model if self.mesh else 1
+        if heads % parts:
+            raise ValueError(f"{heads} attention heads do not split over "
+                             f"{parts} model ranks")
+        self.heads = heads // parts  # this rank's
+        self.head_dim = dim // heads
+        local = self.heads * self.head_dim
+        self.to_qkv = Dense(dim, 3 * local, bias=False,
                             compute_dtype=compute_dtype)
-        self.to_out = Dense(dim, dim, compute_dtype=compute_dtype)
+        self.to_out = Dense(local, dim, compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor, n_queries: int | None = None
                 ) -> torch.Tensor:
@@ -135,30 +171,52 @@ class Attention(nn.Module):
         and values still cover every token), returning [b, q, dim]."""
         b, n, _ = x.shape
         scale = self.dim ** -0.5  # full model dim, reference parity
-        qkv = self.to_qkv(x).reshape(b, n, 3, self.heads,
-                                     self.dim // self.heads)
+        if self.mesh:
+            x = mesh_lib.copy_to_model(x, self.mesh)
+        qkv = self.to_qkv(x).reshape(b, n, 3, self.heads, self.head_dim)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
         nq = n if n_queries is None else min(n_queries, n)
         if nq != n:
             q = q[:, :, :nq]
         out = attention_op.attention(q, k, v, scale)
-        out = out.transpose(1, 2).reshape(b, nq, self.dim)
-        return self.to_out(out)
+        out = out.transpose(1, 2).reshape(b, nq, self.heads * self.head_dim)
+        if not self.mesh:
+            return self.to_out(out)
+        dense = self.to_out
+        dt = dense.compute_dtype or dense.weight.dtype
+        return _row_parallel_out(F.linear(out.to(dt), dense.weight.to(dt)),
+                                 dense.bias, dt, self.mesh)
 
 
 class MLP(nn.Module):
-    """GELU feedforward (``layers.py:99-116``) through ``ops.fused_mlp``."""
+    """GELU feedforward (``layers.py:99-116``) through ``ops.fused_mlp``.
+    With a model axis in `mesh`, this rank's ``hidden_dim / model``
+    slice of the hidden width only."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None, mesh=None):
         super().__init__()
-        self.fc1 = Dense(in_dim, hidden_dim, compute_dtype=compute_dtype)
-        self.fc2 = Dense(hidden_dim, out_dim, compute_dtype=compute_dtype)
+        self.mesh = mesh if _tensor_parallel(mesh) else None
+        parts = self.mesh.model if self.mesh else 1
+        if hidden_dim % parts:
+            raise ValueError(f"MLP width {hidden_dim} does not split over "
+                             f"{parts} model ranks")
+        self.fc1 = Dense(in_dim, hidden_dim // parts,
+                         compute_dtype=compute_dtype)
+        self.fc2 = Dense(hidden_dim // parts, out_dim,
+                         compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # Weights enter in the JAX layout [in, out]: .t() of nn.Linear's
         # [out, in] is a view, and the kernel reads that storage as is.
         dt = self.fc1.compute_dtype
+        if self.mesh:
+            dt = dt or self.fc1.weight.dtype
+            x = mesh_lib.copy_to_model(x, self.mesh)
+            partial = mlp_op.fused_mlp(
+                x.to(dt), self.fc1.weight.to(dt).t(), self.fc1.bias.to(dt),
+                self.fc2.weight.to(dt).t(), None)
+            return _row_parallel_out(partial, self.fc2.bias, dt, self.mesh)
         if dt is None:
             return mlp_op.fused_mlp(x.to(self.fc1.weight.dtype),
                                     self.fc1.weight.t(), self.fc1.bias,
@@ -174,13 +232,13 @@ class Block(nn.Module):
 
     def __init__(self, hidden_size: int, num_heads: int,
                  intermediate_size: int,
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None, mesh=None):
         super().__init__()
         self.norm_attn = LayerNorm(hidden_size, compute_dtype)
-        self.attn = Attention(hidden_size, num_heads, compute_dtype)
+        self.attn = Attention(hidden_size, num_heads, compute_dtype, mesh)
         self.norm_mlp = LayerNorm(hidden_size, compute_dtype)
         self.mlp = MLP(hidden_size, intermediate_size, hidden_size,
-                       compute_dtype)
+                       compute_dtype, mesh)
 
     def forward(self, x: torch.Tensor, n_out: int | None = None
                 ) -> torch.Tensor:
@@ -197,13 +255,13 @@ class Transformer(nn.Module):
     def __init__(self, hidden_size: int = 768, num_hidden_layers: int = 12,
                  num_attention_heads: int = 12,
                  intermediate_size: int = 3072,
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None, mesh=None):
         super().__init__()
         self.num_hidden_layers = num_hidden_layers
         for i in range(num_hidden_layers):
             self.add_module(f"block_{i}", Block(
                 hidden_size, num_attention_heads, intermediate_size,
-                compute_dtype))
+                compute_dtype, mesh))
 
     def forward(self, x: torch.Tensor, last_n_out: int | None = None
                 ) -> torch.Tensor:
@@ -251,12 +309,13 @@ class CrossModalLayer(nn.Module):
     def __init__(self, hidden_size: int, num_hidden_layers: int,
                  num_attention_heads: int, intermediate_size: int,
                  out_dim: int, output_initializer_range: float = 0.02,
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None, mesh=None):
         super().__init__()
         self.output_initializer_range = output_initializer_range
         self.transformer = Transformer(hidden_size, num_hidden_layers,
                                        num_attention_heads,
-                                       intermediate_size, compute_dtype)
+                                       intermediate_size, compute_dtype,
+                                       mesh)
         self.cross_output_layer = Dense(hidden_size, out_dim,
                                         compute_dtype=compute_dtype)
         trunc_normal_(self.cross_output_layer.weight,

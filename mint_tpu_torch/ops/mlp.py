@@ -70,10 +70,16 @@ def limit_broken(dtype: torch.dtype, h: int, f: int, o: int) -> str | None:
 def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
     """Fused MLP on [..., H] inputs; weights [H, F], [F], [F, O], [O].
 
+    ``b2=None`` adds no output bias (the kernel gets zeros): a
+    tensor-parallel rank's fc2 is a partial sum, whose bias is added once
+    after the ranks' sum (``models/layers.py``).
+
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (or raises), through :class:`MLPFunction` only where autograd
     needs it (grad mode on and an input that requires grad).
     """
+    if b2 is None:
+        b2 = x.new_zeros(w2.shape[1])
     if x.device.type == "cpu":
         return mlp_reference(x, w1, b1, w2, b2)
     lead = x.shape[:-1]

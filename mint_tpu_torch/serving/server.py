@@ -19,6 +19,12 @@ Batching: requests wait up to ``batch_window_ms`` (or until
 power-of-two batch and the bucket's audio length, and decoded in one
 batched decode per bucket.
 
+Replicas (``--data_parallelism``, the JAX server's mesh): one process
+drives every card, each holding a replica of the parameters; each
+bucket's batch is padded to a multiple of the replica count and split
+over them by rows (``parallel/replicas.py``).  ``/stats`` reports the
+replica count.
+
 Run: ``python -m mint_tpu_torch.serving.server --config_path=<config>
 [--checkpoint_dir=<train model_dir>]``.
 """
@@ -41,7 +47,7 @@ import torch
 
 from mint_tpu_torch.infer import decoder
 from mint_tpu_torch.models.fact import FACT
-from mint_tpu_torch.utils import graphs
+from mint_tpu_torch.parallel.replicas import Replicas, devices_for
 
 log = logging.getLogger(__name__)
 
@@ -68,14 +74,18 @@ class GenerationService:
 
     def __init__(self, model: FACT, batch_window_ms: float = 10.0,
                  max_batch: int = 8, default_steps: int = 1200,
-                 steps_bucket: int = 128, request_timeout: float = 900.0):
+                 steps_bucket: int = 128, request_timeout: float = 900.0,
+                 devices=None):
         """`steps_bucket` quantizes generation lengths upward so requests
         of nearby lengths share one decode; extra frames read zero audio
         padding and are trimmed before returning (exact: frame i only
         reads audio [i, i + window), real for i < requested steps).
-        Batches are built on the model's device."""
+        `devices` (default: the model's alone; the model's first) hold a
+        replica each, every decode's rows split over them; each replica's
+        rows are built on its device."""
         self.model = model
         self.device = model.device
+        self.replicas = Replicas(model, devices or [model.device])
         self.batch_window = batch_window_ms / 1000.0
         self.max_batch = max_batch
         self.default_steps = default_steps
@@ -101,7 +111,7 @@ class GenerationService:
     def stats_snapshot(self) -> dict:
         """Mutually-consistent copy of the counters (taken under the lock)."""
         with self._stats_lock:
-            return dict(self.stats)
+            return dict(self.stats, replicas=len(self.replicas))
 
     # -- client side -----------------------------------------------------
 
@@ -178,7 +188,7 @@ class GenerationService:
             # request count that pads to each.
             targets: Dict[int, int] = {}
             for k in range(2, batch + 1):
-                targets.setdefault(decoder.padded_batch_size(k), k)
+                targets.setdefault(self._padded(k), k)
             sizes = [targets[b] for b in sorted(targets)]
         else:
             sizes = [batch]
@@ -186,10 +196,14 @@ class GenerationService:
             self._warm_cobatch(audio, n, n_req)
         return self._warmed(t0)
 
+    def _padded(self, n_real: int) -> int:
+        """The padded batch a dispatch of `n_real` requests decodes."""
+        return decoder.padded_batch_size(n_real, data=len(self.replicas))
+
     def _warmed(self, t0: float) -> float:
         seconds = time.time() - t0
-        log.info("warmup done in %.1f s; the model's decode graphs: %s",
-                 seconds, graphs.of(self.model).summary())
+        log.info("warmup done in %.1f s; the replicas' decode graphs: %s",
+                 seconds, self.replicas.summary())
         return seconds
 
     def _warm_cobatch(self, audio: np.ndarray, n_steps: int,
@@ -201,7 +215,7 @@ class GenerationService:
         misses, a warning names the bucket that may still be cold."""
         if self._fatal:
             raise RuntimeError(self._fatal)
-        target = decoder.padded_batch_size(n_req)
+        target = self._padded(n_req)
         for attempt in range(attempts):
             reqs = [_Request(audio, None, n_steps) for _ in range(n_req)]
             for req in reqs:
@@ -301,7 +315,7 @@ class GenerationService:
             try:
                 audio_len = n_steps + self.model.audio_seq_length - 1
                 n_real = len(reqs)
-                batch = decoder.padded_batch_size(n_real)
+                batch = self._padded(n_real)
                 seeds = [r.seed if r.seed is not None
                          else np.zeros((motion_seq, self.motion_dim),
                                        np.float32) for r in reqs]
@@ -313,15 +327,9 @@ class GenerationService:
                     row[:min(audio_len, len(r.audio))] = r.audio[:audio_len]
                     audio_rows.append(row)
                 audio_rows += [audio_rows[-1]] * (batch - n_real)
-                inputs = {
-                    "motion_input": torch.from_numpy(np.stack(seeds)).to(
-                        self.device),
-                    "audio_input": torch.from_numpy(np.stack(audio_rows)).to(
-                        self.device),
-                }
-                out = decoder.infer_auto_regressive(
-                    self.model, inputs, steps=n_steps)
-                out = out.float().cpu().numpy()
+                out = self.replicas.decode(
+                    {"motion_input": np.stack(seeds),
+                     "audio_input": np.stack(audio_rows)}, steps=n_steps)
                 self._bump("batches")
                 self._bump("decode_steps", n_steps)
                 for i, req in enumerate(reqs):
@@ -458,6 +466,10 @@ def _parser() -> argparse.ArgumentParser:
                    help="Close a batch early at this many requests.")
     p.add_argument("--device", default="cuda",
                    help="Torch device to serve on.")
+    p.add_argument("--data_parallelism", type=int, default=0,
+                   help="Decode over this many replicas, one a card (0 = "
+                   "every card; 1 = one card); on the CPU, replicas on the "
+                   "CPU (0 = 1).")
     return p
 
 
@@ -494,7 +506,9 @@ def main(argv=None):
     service = GenerationService(model, batch_window_ms=args.batch_window_ms,
                                 max_batch=args.max_batch,
                                 default_steps=args.steps,
-                                request_timeout=args.request_timeout)
+                                request_timeout=args.request_timeout,
+                                devices=devices_for(model.device,
+                                                    args.data_parallelism))
     if args.warmup:
         print("warming up the default steps bucket...", flush=True)
         print(f"warmup done in {service.warmup():.1f} s", flush=True)

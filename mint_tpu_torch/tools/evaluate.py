@@ -15,9 +15,11 @@ checkpoint has appeared for ``--timeout`` seconds.
 The model is f32 by default (the reference evaluates in f32); under
 ``--use_bfloat16`` it is cast to bf16 once, LayerNorm kept in f32, which
 gives the JAX evaluator's ``compute_dtype=bf16`` forward.  f32 matmuls run
-in true f32 (no TF32).  It runs on one CUDA card unless ``--device=cpu`` is
-given (as the tests do); without a card the default raises.  Not in the
-port yet: ``--data_parallelism`` (the mesh).
+in true f32 (no TF32).  It runs on the CUDA cards unless ``--device=cpu``
+is given (as the tests do); without a card the default raises.
+``--data_parallelism`` (default 0: every card, as the JAX CLI's mesh)
+decodes over that many replicas of the parameters, one a card, each
+dispatch's clips split over them (``parallel/replicas.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from mint_tpu_torch.models import builder
 from mint_tpu_torch.ops import attention as attention_op
 from mint_tpu_torch.ops import layer_norm as layer_norm_op
 from mint_tpu_torch.ops import mlp as mlp_op
+from mint_tpu_torch.parallel.replicas import devices_for
 from mint_tpu_torch.train.checkpoint import CheckpointManager
 from mint_tpu_torch.train.controller import Controller
 from mint_tpu_torch.train.trainer import TrainState
@@ -77,6 +80,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--reload_dataset_per_pass", action="store_true",
                    help="Re-read the eval tfrecords for every checkpoint "
                         "pass instead of caching the parsed corpus.")
+    p.add_argument("--data_parallelism", type=int, default=0,
+                   help="Decode over this many replicas, one a card (0 = "
+                   "every card; 1 = one card); each dispatch's clips split "
+                   "over them.  On the CPU, replicas on the CPU (0 = 1).")
     p.add_argument("--device", default="cuda",
                    help="Device to evaluate on: 'cuda' (one card, the "
                         "default) or 'cpu'.")
@@ -123,7 +130,9 @@ def evaluate(args: argparse.Namespace) -> dict:
                           output_dir=args.output_dir, steps=args.steps,
                           steps_bucket=args.steps_bucket or None,
                           decode_batch=args.decode_batch or None,
-                          cache_examples=not args.reload_dataset_per_pass)
+                          cache_examples=not args.reload_dataset_per_pass,
+                          devices=devices_for(model.device,
+                                              args.data_parallelism))
     # The template of a params-only restore (no optimizer state): each
     # pass loads the checkpoint's parameters into the model.
     state = TrainState(step=0, params=model.state_dict(), opt_state=None)

@@ -6,8 +6,21 @@ directory per step under the checkpoint directory, ``<dir>/<step>/``,
 holding ``params.pt`` (the parameters) and ``opt_state.pt`` (the step and
 the optimizer state), each a ``torch.save`` of CPU tensors.  A step is
 written under a temporary name and renamed, so a directory named by a step
-is always whole.  Reading the JAX package's orbax checkpoints is not done
-here.
+is always whole.  The JAX package's orbax checkpoints and the reference's
+TF one are turned into this format by ``scripts/convert_orbax_to_torch.py``
+and ``tools/convert_checkpoint.py``.
+
+Over a mesh of ranks (``parallel/mesh.py``) the files hold the whole,
+unsharded state, as one device's run writes it, so the evaluator, the
+server and the converters never see ranks.  A save gathers the slices of
+the split leaves to rank 0 through the host's gloo groups, on the
+training thread; rank 0 alone writes, the same way as one device does
+(``save_async``: in a background thread); a synchronous save ends at a
+barrier of every rank.  Every rank decides each save the same way from
+the same step history, so they all enter the gather together, and
+``save_async`` never defers over a mesh: rank 0 joins its previous write
+instead.  A restore reads the whole file on every rank and takes its
+slice.
 
 The manager keeps the JAX one's semantics: keep the last `max_to_keep`;
 save when `save_interval_steps` have ELAPSED since the last save, not only
@@ -28,7 +41,9 @@ import time
 from typing import Any, Dict, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 
+from mint_tpu_torch.parallel import mesh as mesh_lib
 from mint_tpu_torch.train.trainer import TrainState
 from mint_tpu_torch.utils import graphs
 
@@ -68,7 +83,11 @@ class CheckpointManager:
     """Saves and restores TrainStates under one directory."""
 
     def __init__(self, directory: str, save_interval_steps: int = 1000,
-                 max_to_keep: int = 5, async_join_grace: float = 1.0):
+                 max_to_keep: int = 5, async_join_grace: float = 1.0,
+                 mesh: Optional[mesh_lib.Mesh] = None):
+        """`mesh`: this rank's place in a mesh of ranks that share
+        `directory`; every rank makes a manager and calls it alike."""
+        self.mesh = mesh
         self.directory = os.path.abspath(directory)
         self.save_interval_steps = save_interval_steps
         self.max_to_keep = max_to_keep
@@ -123,6 +142,30 @@ class CheckpointManager:
                 {"step": int(state.step),
                  "opt_state": _map_tensors(state.opt_state, cpu)})
 
+    def _gather(self, state: TrainState):
+        """Over a mesh: the whole state on the host of rank 0, as
+        :meth:`_to_host` gives it (None on every other rank).  Every rank
+        must call it."""
+        opt = state.opt_state or {}
+        names = [k for k in ("mu", "nu", "acc") if k in opt]
+        trees = mesh_lib.gather_state_dicts(
+            [state.params] + [opt[k] for k in names], self.mesh)
+        if trees is None:
+            return None
+        rest = dict(opt, **dict(zip(names, trees[1:])))
+        return (trees[0], {"step": int(state.step),
+                           "opt_state": rest if state.opt_state is not None
+                           else None})
+
+    @property
+    def _writes(self) -> bool:
+        """Whether this process writes the files: rank 0 of a mesh."""
+        return self.mesh is None or self.mesh.is_chief
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.host_group)
+
     # -- saving -----------------------------------------------------------
 
     def join_async_save(self) -> None:
@@ -158,12 +201,22 @@ class CheckpointManager:
     def save(self, step: int, state: TrainState, force: bool = False
              ) -> bool:
         """Write `state` as `step` now, if the interval allows (or
-        `force`)."""
+        `force`).  Over a mesh: gather, rank 0 writes, every rank waits at
+        a barrier."""
         self.join_async_save()
-        self._known_steps.update(self.all_steps())
+        if self.mesh is None:
+            # Over a mesh every rank decides from the steps it has seen
+            # saved: rank 0 may be writing this very step already.
+            self._known_steps.update(self.all_steps())
         if not self.would_save(step, force):
             return False
-        self._write(step, *self._to_host(state))
+        if self.mesh is None:
+            self._write(step, *self._to_host(state))
+        else:
+            host = self._gather(state)
+            if self._writes:
+                self._write(step, *host)
+            self._barrier()
         self._known_steps.add(step)
         return True
 
@@ -192,6 +245,8 @@ class CheckpointManager:
         """
         if not self.would_save(step, force):
             return False
+        if self.mesh is not None:
+            return self._save_async_over_mesh(step, state)
         t = self._save_thread
         if t is not None and t.is_alive() and not force:
             if t is not self._graced_thread:
@@ -227,6 +282,34 @@ class CheckpointManager:
         self._save_thread.start()
         return True
 
+    def _save_async_over_mesh(self, step: int, state: TrainState) -> bool:
+        """:meth:`save_async` over a mesh: the gather on this thread (every
+        rank), then rank 0's write in a background thread, after its
+        previous write has finished.  Every rank counts `step` as saved at
+        once, so the ranks' later decisions stay equal."""
+        host = self._gather(state)
+        if self._writes:
+            self.join_async_save()
+
+            def run():
+                try:
+                    self._write(step, *host)
+                except BaseException as exc:  # re-raised at the next join
+                    self._save_exc = exc
+
+            self._save_thread = threading.Thread(
+                target=run, name=f"ckpt-save-{step}", daemon=False)
+            self._save_thread.start()
+        self._known_steps.add(step)
+        return True
+
+    def _shard(self, tree):
+        """This rank's slice of a whole state_dict-keyed tree (over a mesh
+        with a model axis)."""
+        if self.mesh is None or self.mesh.model == 1:
+            return tree
+        return mesh_lib.shard_state_dict(tree, self.mesh)
+
     # -- restoring --------------------------------------------------------
 
     def latest_step(self) -> Optional[int]:
@@ -252,10 +335,14 @@ class CheckpointManager:
                             map_location="cpu", weights_only=True)
         rest = torch.load(os.path.join(path, OPT_STATE_FILE),
                           map_location="cpu", weights_only=True)
+        opt = rest["opt_state"]
+        if opt is not None:
+            opt = {k: self._shard(v) if k in ("mu", "nu", "acc") else v
+                   for k, v in opt.items()}
         return TrainState(
             step=rest["step"],
-            params=_like(params, state_template.params),
-            opt_state=_like(rest["opt_state"], state_template.opt_state))
+            params=_like(self._shard(params), state_template.params),
+            opt_state=_like(opt, state_template.opt_state))
 
     def restore_params(self, params_template: Mapping[str, torch.Tensor],
                        step: Optional[int] = None
@@ -266,7 +353,7 @@ class CheckpointManager:
         path = self._path(self._resolve(step))
         params = torch.load(os.path.join(path, PARAMS_FILE),
                             map_location="cpu", weights_only=True)
-        return _like(params, dict(params_template))
+        return _like(self._shard(params), dict(params_template))
 
     def wait_until_finished(self) -> None:
         self.join_async_save()

@@ -43,6 +43,20 @@ others (a fresh ``init_state``, a checkpoint restore, a caller's own
 state) drops the graphs, which the next steps capture anew on its
 tensors: a replay never reads another state's addresses, and no state is
 overwritten but the one passed in.
+
+Over a mesh of ranks (``parallel/mesh.py``; the JAX trainer's ``mesh``):
+each rank's model holds its slice of the attention heads and MLP width
+(``models/layers.py``), and its state the same slices of the parameters
+and of Adam's moments.  Each rank takes the mean loss of its own batch
+(``global batch / data`` rows); the loss and every gradient leaf are then
+averaged over the data group in one all-reduce of one flat buffer, so the
+step's loss is the global batch's and the gradients are the JAX
+package's.  The global-norm clip sums the squares of the split leaves
+over the model group and counts the replicated leaves once, as optax's
+clip over the global arrays does.  Adam runs on each rank's slice.  On
+the card the collectives are captured in the step's graph when the
+device groups are NCCL's; with gloo's (the CPU's, or ranks sharing one
+card) the step runs uncaptured.
 """
 
 from __future__ import annotations
@@ -55,12 +69,18 @@ from torch import nn
 from torch.func import functional_call
 
 from mint_tpu_torch.data.prefetch import to_device
+import torch.distributed as dist
+
 from mint_tpu_torch.models import builder
 from mint_tpu_torch.models.fact import l2_loss
+from mint_tpu_torch.parallel import mesh as mesh_lib
 from mint_tpu_torch.train.schedules import Schedule
 from mint_tpu_torch.utils import graphs
 
 LABEL_KEY = "target"
+# Elements a gradient's segment of the flat all-reduce buffer is rounded
+# up to: 512 bytes of f32, the caching allocator's alignment.
+_SEGMENT = 128
 # Adam's decay rates, and eps 1e-7: tf.keras Adam's default, the
 # reference's optimizer (optax's own default is 1e-8).
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-7
@@ -78,17 +98,23 @@ def _f32(x: float) -> float:
 
 class Trainer:
     """Owns the optimizer's arithmetic and the train step of one model on
-    its device (CPU or one card)."""
+    its device (CPU or one card), on one rank of a mesh where given."""
 
     def __init__(self,
                  model: nn.Module,
                  learning_rate: Schedule,
                  grad_clip_norm: float = 0.0,
-                 accumulate_steps: int = 1):
+                 accumulate_steps: int = 1,
+                 mesh: Optional[mesh_lib.Mesh] = None):
         """`accumulate_steps` > 1 averages gradients over that many
         micro-batches before applying the optimizer; the schedule then
         counts optimizer updates (one per k micro-batches), so "drop at
-        100k" in a config means 100k updates."""
+        100k" in a config means 100k updates.
+
+        `mesh`: this rank's place in a (data, model) mesh; `model` must be
+        built with it (``builder.build(..., mesh=mesh)``) and the batches
+        given to the steps are this rank's.  Every rank of the mesh must
+        run the same steps: each step runs collectives."""
         if accumulate_steps < 1:
             raise ValueError(f"accumulate_steps must be >= 1, got "
                              f"{accumulate_steps}")
@@ -105,7 +131,10 @@ class Trainer:
             # a run on the card measures what it does to the loss.
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        self._graphed = graphs.enabled(self.device)
+        self.mesh = mesh
+        self._graphed = graphs.enabled(self.device) and (
+            mesh is None or mesh.backend == "nccl")
+        self._norm_weights: Dict[Tuple[str, ...], torch.Tensor] = {}
         # The step's scalars: the learning rate negated, Adam's bias
         # corrections 1 and 2, the accumulation divisor.
         self._scalars = torch.zeros(4, device=self.device)
@@ -157,14 +186,59 @@ class Trainer:
         return loss, dict(zip(params, grads))
 
     def _loss_and_grads(self, params, batch):
+        """The loss and gradients, averaged over the mesh's data group."""
         leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
         with torch.enable_grad():
             loss = self.loss(leaves, batch)
             grads = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), list(grads)
+        if self.mesh is None:
+            return loss.detach(), list(grads)
+        return self._data_mean(loss.detach(), grads)
+
+    def _data_mean(self, loss, grads):
+        """The loss and gradients averaged over the data group: one
+        all-reduce of one flat f32 buffer (run at any data size, so a
+        world of one runs the collective path too).  Each gradient's
+        segment starts on a 512-byte boundary, as a tensor of its own
+        does: the foreach kernels after it (the clip's norms) then take
+        the same vectorised path and sum in the same order as over the
+        gradients themselves, so a world of one is bit-equal to one
+        device."""
+        starts, at = [], 0
+        for g in grads:
+            starts.append(at)
+            at += -(-g.numel() // _SEGMENT) * _SEGMENT
+        flat = torch.zeros(at + 1, device=loss.device)
+        views = [flat[s:s + g.numel()].view_as(g)
+                 for s, g in zip(starts, grads)]
+        torch._foreach_copy_(views, list(grads))
+        flat[at:].copy_(loss.float().reshape(1))
+        dist.all_reduce(flat, group=self.mesh.data_group)
+        flat.div_(self.mesh.data)
+        return flat[at], views
+
+    def _global_norm(self, gs, names) -> torch.Tensor:
+        """The global norm of the gradients `gs` (of parameters `names`):
+        over a model axis, the squares of the split leaves summed over the
+        model group and the replicated leaves, the same on every rank,
+        counted once (each weighted 1 / model before the sum)."""
+        norms = torch.stack(torch._foreach_norm(gs))
+        if self.mesh is None or self.mesh.model == 1:
+            return torch.linalg.vector_norm(norms)
+        key = tuple(names)
+        weights = self._norm_weights.get(key)
+        if weights is None:
+            weights = self._norm_weights[key] = torch.tensor(
+                [1.0 if mesh_lib.shard_dim(k) is not None
+                 else 1.0 / self.mesh.model for k in names],
+                device=norms.device)
+        total = (norms * norms * weights).sum()
+        dist.all_reduce(total, group=self.mesh.model_group)
+        return torch.sqrt(total)
 
     @torch.no_grad()
-    def _update(self, gs, params, mus, nus, accs, body: str) -> None:
+    def _update(self, gs, names, params, mus, nus, accs,
+                body: str) -> None:
         """The optimizer's arithmetic on lists of tensors, in place, with
         the step's scalars read from the device: accumulate (``accs`` not
         empty), and unless this is a micro-step clip and apply Adam."""
@@ -178,8 +252,7 @@ class Trainer:
             gs = [a.clone() for a in accs]
             torch._foreach_zero_(accs)
         if self.grad_clip_norm > 0.0:
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(gs)))
+            norm = self._global_norm(gs, names)
             coef = torch.where(norm < self.grad_clip_norm,
                                torch.ones_like(norm),
                                self.grad_clip_norm / norm)
@@ -198,12 +271,12 @@ class Trainer:
         torch._foreach_add_(params, update)
 
     def _lists(self, state: TrainState):
-        """The state's parameters, moments and accumulator as lists in the
-        parameters' order."""
+        """The state's parameter names, parameters, moments and
+        accumulator as lists in the parameters' order."""
         opt = state.opt_state
         names = list(state.params)
         accs = [opt["acc"][k] for k in names] if "acc" in opt else []
-        return ([state.params[k] for k in names],
+        return (names, [state.params[k] for k in names],
                 [opt["mu"][k] for k in names],
                 [opt["nu"][k] for k in names], accs)
 
@@ -252,7 +325,7 @@ class Trainer:
         """Make `state`'s tensors the ones the steps read: if they are not
         those of the steps so far, drop those steps and their graphs (the
         next steps capture on `state`'s tensors)."""
-        bound = tuple(t.data_ptr() for group in self._lists(state)
+        bound = tuple(t.data_ptr() for group in self._lists(state)[1:]
                       for t in group)
         if bound != self._bound:
             self._bound = bound
@@ -294,7 +367,8 @@ class Trainer:
             if self._graphed:
                 cache = graphs.of(self.model)
                 step = graphs.Step(run, cache, ("train", body) + batch_key,
-                                   self.device)
+                                   self.device,
+                                   thread_local=self.mesh is not None)
             self._steps[batch_key, body] = step
         return step
 

@@ -17,6 +17,16 @@ steps):
   replays it; every later call replays it.  A capture or a replay that
   fails raises: nothing falls back to eager steps.
 
+A step whose body runs NCCL collectives (the trainer over a mesh of
+ranks) captures in thread-local mode, so that a thread outside the port,
+ProcessGroupNCCL's watchdog polling its collectives' events, cannot make
+the capture fail; the port's own threads still hold
+:data:`capture_lock`.  NCCL's communicators are set up by the eager
+first step, before any capture.  NCCL keeps resources alive for every
+graph that captured its collectives and, when its communicators are
+destroyed, waits for those graphs to go: :func:`release_collectives`
+destroys them first (``parallel.mesh.leave`` calls it).
+
 All the graphs of one model draw on one memory pool (:class:`Graphs`,
 ``torch.cuda.graph_pool_handle``).  They replay one at a time on one
 stream, so a capture may reuse what an earlier capture freed.
@@ -52,8 +62,12 @@ _cuda = torch.cuda  # what this module calls of CUDA (the CPU tests fake it)
 #: Held by a capture, and by every other thread of the port around its
 #: CUDA calls.
 capture_lock = threading.RLock()
+_count_lock = threading.Lock()
 
 _OPS = {"attention": attention, "fused_mlp": mlp, "layer_norm": layer_norm}
+
+#: Captured steps whose graphs hold collectives (thread-local captures).
+_with_collectives: "weakref.WeakSet[Step]" = weakref.WeakSet()
 
 
 def enabled(device: torch.device | str) -> bool:
@@ -101,25 +115,38 @@ class Step:
     its outputs) as a graphed step on `device`: eager at the first call,
     captured at the second, replayed from then on.  Returns ``fn``'s
     outputs; after a capture those are static tensors that the next call
-    overwrites, so a caller that keeps one clones it."""
+    overwrites, so a caller that keeps one clones it.  `thread_local`
+    captures in CUDA's thread-local mode (a body with NCCL collectives)."""
 
     def __init__(self, fn: Callable[[], Any], graphs: Graphs, key: Hashable,
-                 device: torch.device):
+                 device: torch.device, thread_local: bool = False):
         self.fn = fn
         self.graphs = graphs
         self.key = key
         self.device = device
+        self.thread_local = thread_local
         self.launches: dict = {}  # kernel launches a replay makes
         self.bytes = 0  # device memory its capture added to the pool
         self._stream = None
         self._graph = None
         self._out = None
 
+    @property
+    def captured(self) -> bool:
+        """Whether the step is captured (every later call replays)."""
+        return self._graph is not None
+
+    def release(self) -> None:
+        """Destroy the captured graph: the next call captures anew."""
+        self._graph = self._out = None
+        self.graphs._live.discard(self)
+
     def __call__(self):
         if self._graph is not None:
             self._graph.replay()
-            for name, n in self.launches.items():
-                _OPS[name].launches += n
+            with _count_lock:  # replicas replay from several threads
+                for name, n in self.launches.items():
+                    _OPS[name].launches += n
             return self._out
         if self._stream is None:
             return self._warm_up()
@@ -146,9 +173,11 @@ class Step:
             _cuda.empty_cache()
             reserved = _cuda.memory_reserved(self.device)
             counted = _launches()
+            mode = ({"capture_error_mode": "thread_local"}
+                    if self.thread_local else {})
             try:
                 with _cuda.graph(graph, pool=graphs.pool,
-                                 stream=self._stream):
+                                 stream=self._stream, **mode):
                     out = self.fn()
             finally:
                 captured = {name: n - counted[name]
@@ -159,9 +188,24 @@ class Step:
         seconds = time.perf_counter() - t0
         self._graph, self._out, self.launches = graph, out, captured
         self.bytes = grew
+        if self.thread_local:
+            _with_collectives.add(self)
         graphs.captures += 1
         graphs.seconds += seconds
         graphs._live.add(self)
         log.info("graph %s captured in %.3f s, kernel launches a replay %s;"
                  " pool +%d bytes (%s)", self.key, seconds, captured, grew,
                  graphs.summary())
+
+
+def release_collectives() -> None:
+    """Destroy every captured graph of this process that holds
+    collectives, once the card has run them (their steps capture anew if
+    called again): NCCL destroys a communicator only after the graphs
+    that captured its collectives are gone."""
+    steps = list(_with_collectives)
+    if steps:
+        _cuda.synchronize()
+    for step in steps:
+        step.release()
+    _with_collectives.clear()

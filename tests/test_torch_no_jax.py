@@ -9,9 +9,12 @@ scoring path (``eval/fid.py``, ``eval/features.py``, ``eval/beat_align.py``,
 ``data/aist.py``) and of the audio frontend's host steps (``audio/wav.py``,
 ``resample.py``, ``onset.py``, ``beat.py``).  The child process below
 imports every module of the port (``utils/graphs.py``, the CUDA graphs of
-the decode and the train step, among them) and runs its forward, decode,
-fused training loop, scoring and audio feature paths on the CPU, where no
-graph is captured.
+the decode and the train step, and ``parallel/``, the mesh of ranks and
+the decode replicas, among them) and runs its forward, decode, fused
+training loop, scoring and audio feature paths on the CPU, where no graph
+is captured, then a decode over two CPU replicas, a model's slices
+round-tripped through the mesh's partition rules, and the reference
+checkpoint's name map.
 """
 
 import ast
@@ -116,6 +119,23 @@ for k in range(4):  # a click every half second
 audio = extract_audio_features(y, sr, start_bpm=120, device="cpu")
 assert audio.shape == (121, 35) and np.isfinite(audio).all()
 assert audio[:, 34].sum() > 0
+from mint_tpu_torch.parallel import Mesh, shard_state_dict, unshard_state_dict
+from mint_tpu_torch.parallel.replicas import Replicas
+from mint_tpu_torch.tools import convert_checkpoint
+replicas = Replicas(model, ["cpu", "cpu"])
+two = replicas.decode({"motion_input": rng.standard_normal((2, 4, 9),
+                                                           np.float32),
+                       "audio_input": rng.standard_normal((2, 8, 35),
+                                                          np.float32)},
+                      steps=3)
+assert two.shape == (2, 3, 9) and np.isfinite(two).all()
+full = model.state_dict()
+back = unshard_state_dict([shard_state_dict(full, Mesh(1, 2, r))
+                           for r in range(2)])
+assert all(torch.equal(back[k], full[k]) for k in full)
+state, report = convert_checkpoint.convert_tf_variables(
+    convert_checkpoint.tf_variables_of(model), model)
+assert not report and all(torch.equal(state[k], full[k]) for k in full)
 assert _build._lib is None, "the CPU path must not build the kernels"
 from mint_tpu_torch.utils import graphs
 assert graphs.of(model).captures == 0, "the CPU path captures no graph"
@@ -132,7 +152,7 @@ def test_port_imports_no_jax_stack_and_builds_nothing_on_cpu():
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines()
                  if line.startswith(("MODULES", "LOADED")))
-    assert int(lines["MODULES"]) >= 62
+    assert int(lines["MODULES"]) >= 67
     loaded = lines["LOADED"].split()
     roots = {name.split(".")[0] for name in loaded}
     assert not roots & set(FORBIDDEN), roots & set(FORBIDDEN)
