@@ -11,10 +11,11 @@ CPU):
 2. each kernel against its plain PyTorch version on the card, at FACT's
    shapes in f32 and bf16 (and two more f32 head dims; attention also on
    the model's strided q/k/v views; the bf16 LayerNorm, which takes f32
-   parameters, in bf16 only), with the tolerance stated; each kernel's
-   time at the batch-20 decode's shapes beside the plain version's, its
-   bound and, for attention, that of PyTorch's own fused attention call
-   (timed in ``time_kernels`` as a yardstick only);
+   parameters, in bf16 only, with them and in its affine-free form), with
+   the tolerance stated; each kernel's time at the batch-20 decode's
+   shapes beside the plain version's, its bound and, for attention, that
+   of PyTorch's own fused attention call, for the affine-free LayerNorm
+   that of ``layer_norm`` (timed in ``time_kernels`` as yardsticks only);
 3. the slice: the flagship FACT (configs/fact_v5_deeper_t10_cm12.config,
    full width and depth, weights from a torch.Generator seeded 0) behind
    the port's GenerationService and HTTP server, warmed up on both length
@@ -82,7 +83,9 @@ CPU):
    heads of q[B,5,N,80]; the MLP at F = 1536 with no output bias, which
    the ranks add after their sum) against their plain versions in f32
    and bf16, and timed at batch 32 beside their bounds and, for
-   attention, PyTorch's fused attention call; (b) the flagship at full
+   attention, PyTorch's fused attention call; the same at a model = 4
+   rank's uneven heads (q[32,3,N,80] and q[32,2,N,80]; F = 768); (b) the
+   flagship at full
    width and depth split over 2 gloo ranks on cuda:0 (``chip_smoke.py --tp-rank R ...``, one process
    each; uncaptured) against the single-rank port: f32 loss and every
    gradient, one train step, bf16 compute, and each rank's launches a
@@ -94,6 +97,21 @@ CPU):
    replicas on cuda:0 against one replica; (e) the flagship's weights
    under the reference TF checkpoint's names through the pure converter,
    served from the written checkpoint: the same forward bit for bit.
+10. the last modules, in phase 7's directory: (a) the train CLI with
+   ``--input_backend=native`` (the C++ loader, built with g++ from
+   ``mint_tpu_torch/csrc/mint_loader.cc``) in bf16 at batch 32 on phase
+   6's corpus: trains, checkpoints and resumes, 16 launches a step; with
+   ``--input_backend=auto`` over 9c's steps: it picks the native loader,
+   and its synchronized steps/s stand beside 9c's host pipeline and
+   card-resident corpus; one batch of each host loader timed on the host;
+   (b) the LayerNorm-affine fold: the flagship's f32 weights (LayerNorm
+   affines moved off 1 and 0) folded, one forward and a 60-step decode
+   against the unfolded model in f32 (2e-4 over the forward and the first
+   frames) and bf16 (within twice the unfolded bf16 decode's distance
+   from f32), 16 launches a step of each TPU kernel's port and 32
+   affine-free LayerNorms in bf16, batch-20 frames/s folded against
+   unfolded in both dtypes, and ``Evaluator(fold_ln=True)`` in bf16 on
+   phase 7's 384-step bucket from the f32 train CLI's checkpoint.
 
 Phase 2 also checks and times both kernels at the training shapes
 (batch 32), and checks them at the eval's (the batches phase 7 dispatches
@@ -278,57 +296,66 @@ def ln_params(gen, cols=800):
 
 
 def check_layer_norm(ln, gen):
-    """Worst error of the bf16 LayerNorm kernel (bf16 input, f32
-    parameters) against its plain version, at the decode's, training's
-    and eval's rows and three other widths."""
+    """Worst error of the bf16 LayerNorm kernel against its plain version,
+    with f32 parameters and in its affine-free form (the folded model's,
+    phase 10), at the decode's, training's and eval's rows and three
+    other widths: (with parameters, affine-free)."""
     rows = [(m, 800) for m in [2 * 360, 2 * 48, 3, 257]
             + [DISPATCH * n for n in (360, 240, 120, 48)]
             + [TRAIN_BATCH * n for n in (360, 240, 120)]
             + [b * n for b in eval_batches() for n in (360, 240, 120, 48)]]
-    worst = 0.0
+    worst = [0.0, 0.0]
     for m, cols in rows + [(5, 64), (3, 1024), (4, 2)]:
         x = (torch.randn(m, cols, device="cuda", generator=gen) * 2
              + 0.5).bfloat16()
-        w, b = ln_params(gen, cols)
-        got = ln.layer_norm(x, w, b, 1e-5)
-        torch.cuda.synchronize()
-        want = ln.layer_norm_reference(x, w, b, 1e-5)
-        err = (got.float() - want.float()).abs()
-        # 1 bf16 ulp of each output (floored at the ulp of 2^-8, below
-        # which the two sides' f32 sums, not bf16, rule): both take f32
-        # statistics in another order and round once.
-        ulp = torch.exp2(torch.floor(torch.log2(
-            want.float().abs().clamp_min(2.0 ** -8))) - 7)
-        ulps = (err / ulp).max().item()
-        ok = ulps <= 1.0 and got.shape == want.shape and got.dtype == x.dtype
-        log(f"layer_norm bf16 x[{m},{cols}] f32 scale/bias: max_abs_err "
-            f"{err.max().item():.3e}, {ulps:.2f} ulps of the output (tol 1 "
-            f"bf16 ulp: f32 statistics in another order, one rounding) "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"layer_norm kernel disagrees: {ulps} ulps")
-        worst = max(worst, err.max().item())
-    return worst
+        for form, (w, b) in enumerate((ln_params(gen, cols), (None, None))):
+            got = ln.layer_norm(x, w, b, 1e-5)
+            torch.cuda.synchronize()
+            want = ln.layer_norm_reference(x, w, b, 1e-5)
+            err = (got.float() - want.float()).abs()
+            # 1 bf16 ulp of each output (floored at the ulp of 2^-8, below
+            # which the two sides' f32 sums, not bf16, rule): both take f32
+            # statistics in another order and round once.
+            ulp = torch.exp2(torch.floor(torch.log2(
+                want.float().abs().clamp_min(2.0 ** -8))) - 7)
+            ulps = (err / ulp).max().item()
+            ok = (ulps <= 1.0 and got.shape == want.shape
+                  and got.dtype == x.dtype)
+            what = "f32 scale/bias" if w is not None else "affine-free"
+            log(f"layer_norm bf16 x[{m},{cols}] {what}: max_abs_err "
+                f"{err.max().item():.3e}, {ulps:.2f} ulps of the output (tol"
+                f" 1 bf16 ulp: f32 statistics in another order, one "
+                f"rounding) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"layer_norm kernel ({what}) disagrees:"
+                                     f" {ulps} ulps")
+            worst[form] = max(worst[form], err.max().item())
+    return tuple(worst)
 
 
 def reset_launches():
     """Every kernel's launch count to 0."""
     from mint_tpu_torch.ops import attention, layer_norm, mlp
     attention.launches = mlp.launches = layer_norm.launches = 0
+    layer_norm.affine_free_launches = 0
 
 
 def launch_counts():
     """Every kernel's launches since the last :func:`reset_launches`."""
     from mint_tpu_torch.ops import attention, layer_norm, mlp
     return {"attention": attention.launches, "fused_mlp": mlp.launches,
-            "layer_norm": layer_norm.launches}
+            "layer_norm": layer_norm.launches,
+            "layer_norm_affine_free": layer_norm.affine_free_launches}
 
 
-def expected_launches(forwards: int, bf16: bool):
+def expected_launches(forwards: int, bf16: bool, folded: bool = False):
     """Launches of `forwards` flagship forwards: 16 blocks of attention and
-    MLP each, and in bf16 two LayerNorms a block."""
+    MLP each, and in bf16 two LayerNorms a block, in the affine-free form
+    where the model's LayerNorm affines are folded (phase 10)."""
+    norms = 32 * forwards if bf16 else 0
     return {"attention": 16 * forwards, "fused_mlp": 16 * forwards,
-            "layer_norm": 32 * forwards if bf16 else 0}
+            "layer_norm": 0 if folded else norms,
+            "layer_norm_affine_free": norms if folded else 0}
 
 
 def host_us(fn, iters: int = 200) -> float:
@@ -458,27 +485,41 @@ def time_kernels(att, mlp, ln, gen, card, batch, attn_shapes, mlp_rows,
             summary.setdefault(("fused_mlp", name), {})[rows] = row
     # The LayerNorm kernel takes bf16 rows with f32 parameters.  No single
     # PyTorch call computes that on the card: layer_norm refuses the mixed
-    # dtypes, so the plain version casts in and out (three launches).
+    # dtypes, so the plain version casts in and out (three launches).  Its
+    # affine-free form (the folded model's) has one: layer_norm of the
+    # bf16 rows with no parameters, statistics in f32 and the output
+    # rounded to bf16 once, the same function.
     w, b = ln_params(gen)
     for rows in (mlp_rows if (heads, width) == (10, 3072) else ()):
         m = batch * rows
         x = torch.randn(m, 800, device="cuda", generator=gen).bfloat16()
-        t_k = cuda_ms(lambda: ln.layer_norm(x, w, b, 1e-5))
-        t_p = cuda_ms(lambda: ln.layer_norm_reference(x, w, b, 1e-5))
-        # Read x, scale and bias once, write the output once; about 8 f32
-        # operations an element (sum, deviation, square, affine).
-        b_ms, b_by = bound(8.0 * m * 800, 2 * 2 * m * 800 + 2 * 4 * 800,
-                           "f32")
-        row = {"shape": f"x[{m},800]", "ms": t_k, "plain_ms": t_p,
-               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-        hosted = ""
-        if host:
-            row["host_us"] = host_us(lambda: ln.layer_norm(x, w, b, 1e-5))
-            hosted = f"; host {row['host_us']:.1f} us a call"
-        log(f"time layer_norm bf16 x[{m},800] f32 scale/bias: kernel "
-            f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}), no single library call{hosted} ({card})")
-        summary.setdefault(("layer_norm", "bf16"), {})[rows] = row
+        for key, params in (("layer_norm", (w, b)),
+                            ("layer_norm_affine_free", (None, None))):
+            t_k = cuda_ms(lambda: ln.layer_norm(x, *params, 1e-5))
+            t_p = cuda_ms(lambda: ln.layer_norm_reference(x, *params, 1e-5))
+            t_l = (None if params[0] is not None else cuda_ms(
+                lambda: F.layer_norm(x, (800,), eps=1e-5)))
+            # Read x (and the scale and bias) once, write the output once;
+            # about 8 f32 operations an element (sum, deviation, square,
+            # scale; the affine's two more are of the same order).
+            b_ms, b_by = bound(8.0 * m * 800, 2 * 2 * m * 800 + (
+                2 * 4 * 800 if params[0] is not None else 0), "f32")
+            row = {"shape": f"x[{m},800]", "ms": t_k, "plain_ms": t_p,
+                   "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by}
+            if t_l is not None:
+                row["library"] = "layer_norm (bf16, no parameters)"
+            hosted = ""
+            if host:
+                row["host_us"] = host_us(
+                    lambda: ln.layer_norm(x, *params, 1e-5))
+                hosted = f"; host {row['host_us']:.1f} us a call"
+            what = ("f32 scale/bias, no single library call"
+                    if t_l is None else f"affine-free, library layer_norm "
+                                        f"{t_l:.4f} ms")
+            log(f"time layer_norm bf16 x[{m},800] {what}: kernel {t_k:.4f} "
+                f"ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
+                f"{hosted} ({card})")
+            summary.setdefault((key, "bf16"), {})[rows] = row
     return summary
 
 
@@ -1004,12 +1045,18 @@ def run_train_cli(work, model_dir, steps, bf16, backend):
     return logged_launches(err, "train CLI"), err, seconds
 
 
+#: The line each input backend of the train CLI logs (and no other does).
+BACKEND_LOG = {"python": "input: the Python pipeline",
+               "native": "input: the native loader",
+               "device": "device-resident dataset"}
+
+
 def train_cli(work, name, backend):
     """The train CLI on the full flagship at batch 32 with input from
-    `backend` ("python": the host pipeline; "device": the corpus resident
-    on the card, windows drawn there): 4 steps, then a second invocation
-    that resumes at 4 and runs to 6.  Returns the first invocation's
-    launch counts."""
+    `backend` ("python": the host pipeline; "native": the C++ loader;
+    "device": the corpus resident on the card, windows drawn there): 4
+    steps, then a second invocation that resumes at 4 and runs to 6.
+    Returns the first invocation's launch counts."""
     bf16 = name == "bf16"
     name = f"{name}, {backend} input"
     model_dir = os.path.join(work, "run")
@@ -1022,7 +1069,7 @@ def train_cli(work, name, backend):
         return sorted(int(d) for d in os.listdir(model_dir) if d.isdigit())
 
     counts, err, seconds = run_train_cli(work, model_dir, 4, bf16, backend)
-    if (backend == "device") != ("device-resident dataset" in err):
+    if [b for b, line in BACKEND_LOG.items() if line in err] != [backend]:
         raise AssertionError(f"train CLI {name}: input backend not used")
     first = rows()
     # Saves at step 1, then when 3 steps have elapsed (never, by step 4),
@@ -1884,36 +1931,39 @@ TP = 2           # the model axis of phase 9's ranks: 5 heads, F = 1536
 TP_BATCH = 4     # phase 9b's batch (each rank's; one model group)
 WS1_STEPS = 101  # phase 9c's CLI steps: the first, then ten windows of 10
 WS1_FROM = 21    # 9c's synchronized rates run from this step's record
+UNEVEN_HEADS = (3, 2)  # a model = 4 rank's heads of the flagship's 10
 
 
-def check_shard_kernels(att, mlp, gen):
+def check_shard_kernels(att, mlp, gen, heads=(10 // TP,), width=3072 // TP,
+                        batches=(TP_BATCH, TRAIN_BATCH)):
     """Both kernels at a tensor-parallel rank's shapes (model = 2: 5 heads
     of q[B,5,N,80]; the MLP's F = 1536, its output bias left to the sum
-    over the model group, so the kernel gets none) against their plain
-    versions, f32 and bf16, at phase 9b's batch and at training's.
-    Returns the worst error per (kernel, dtype name)."""
+    over the model group, so the kernel gets none; model = 4: 3 or 2 of
+    the 10 heads, F = 768) against their plain versions, f32 and bf16, at
+    `batches` (phase 9b's and training's).  Returns the worst error per
+    (kernel, dtype name)."""
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = DTYPES[dtype]
-        for b in (TP_BATCH, TRAIN_BATCH):
+        for b, h in [(b, h) for b in batches for h in heads]:
             for n in (360, 240, 120):
-                q, k, v = _qkv("fused", b, 10 // TP, n, n, 80, dtype, gen)
+                q, k, v = _qkv("fused", b, h, n, n, 80, dtype, gen)
                 got = att.attention(q, k, v, SCALE)
                 torch.cuda.synchronize()
                 want = att.attention_reference(q, k, v, SCALE)
                 err = (got.float() - want.float()).abs().max().item()
                 tol = (1e-5 if dtype == torch.float32
                        else 2 * bf16_ulp(want.float().abs().max().item()))
-                log(f"attention {name} shard q[{b},5,{n},80]: max_abs_err "
+                log(f"attention {name} shard q[{b},{h},{n},80]: max_abs_err "
                     f"{err:.3e} tol {tol:.3e} "
                     f"{'ok' if err <= tol else 'FAIL'}")
                 if not err <= tol:
                     raise AssertionError(f"attention at a rank's shape: {err}")
                 worst["attention", name] = max(
                     worst.get(("attention", name), 0.0), err)
-        w1, b1, w2, _ = mlp_weights(gen, dtype, f=3072 // TP)
-        for m in (TP_BATCH * 360, TP_BATCH * 120, TRAIN_BATCH * 360,
-                  TRAIN_BATCH * 240, TRAIN_BATCH * 120):
+        w1, b1, w2, _ = mlp_weights(gen, dtype, f=width)
+        for m in sorted({b * n for b in batches for n in (360, 240, 120)},
+                        reverse=True):
             x = torch.randn(m, 800, device="cuda", generator=gen).to(dtype)
             got = mlp.fused_mlp(x, w1, b1, w2, None)
             torch.cuda.synchronize()
@@ -1923,8 +1973,8 @@ def check_shard_kernels(att, mlp, gen):
             peak = want.float().abs().max().item()
             tol = (1e-5 * max(1.0, peak) if dtype == torch.float32
                    else 2 * bf16_ulp(peak))
-            log(f"fused_mlp {name} shard x[{m},800] W1[800,1536] "
-                f"W2[1536,800], no b2: max_abs_err {err:.3e} tol {tol:.3e} "
+            log(f"fused_mlp {name} shard x[{m},800] W1[800,{width}] "
+                f"W2[{width},800], no b2: max_abs_err {err:.3e} tol {tol:.3e} "
                 f"{'ok' if err <= tol else 'FAIL'}")
             if not err <= tol:
                 raise AssertionError(f"fused MLP at a rank's shape: {err}")
@@ -1962,7 +2012,8 @@ def tp_rank(rank: int, port: int, work: str) -> None:
         for name, compute in (("f32", None), ("bf16", torch.bfloat16)):
             model = builder.build(cfg, is_training=True, device="cuda:0",
                                   compute_dtype=compute, mesh=mesh)
-            model.load_state_dict(mesh_lib.shard_state_dict(full, mesh))
+            model.load_state_dict(mesh_lib.shard_state_dict(
+                full, mesh, mesh_lib.attention_heads(model)))
             trainer = Trainer(model, schedules.constant(1e-4),
                               grad_clip_norm=clip, mesh=mesh)
             state = trainer.init_state(model)
@@ -2358,6 +2409,19 @@ def across_ranks(att, mlp, ln, gen, work, card):
                          ((360, 360), (240, 240), (120, 120)),
                          (360, 240, 120), host=False, heads=10 // TP,
                          width=3072 // TP)
+    # Uneven heads (model = 4: ranks of 3, 3, 2 and 2 heads, F = 768).
+    uneven_errs = check_shard_kernels(att, mlp, gen, heads=UNEVEN_HEADS,
+                                      width=3072 // 4,
+                                      batches=(TRAIN_BATCH,))
+    uneven_times = {}
+    for h in UNEVEN_HEADS:  # the MLP's F = 768 once
+        for key, rows in time_kernels(
+                att, mlp, ln, gen, card, TRAIN_BATCH,
+                ((360, 360), (240, 240), (120, 120)),
+                (360, 240, 120) if h == UNEVEN_HEADS[0] else (),
+                host=False, heads=h, width=3072 // 4).items():
+            label = f"{h} heads" if key[0] == "attention" else "F=768"
+            uneven_times.setdefault(key, {})[label] = rows
     tp = tensor_parallel_step(work, card)
     rates = distributed_world_of_one(work, card)
     replica_decode(card)
@@ -2370,7 +2434,275 @@ def across_ranks(att, mlp, ln, gen, work, card):
         f"{rates['distributed_synced']!r}, one device "
         f"{rates['plain_synced']!r}, the host pipeline "
         f"{rates['python_synced']!r} ({card})")
-    return errs, times, dict(tp, rates=rates)
+    return errs, times, dict(tp, rates=rates, uneven_errs=uneven_errs,
+                             uneven_times=uneven_times)
+
+
+# -- phase 10: the last modules --------------------------------------------
+
+FOLD_STEPS = 60  # 10b's decode, folded against unfolded
+HELD = 3         # its first frames, held to a tolerance (the rest recorded)
+
+
+def native_input(work, rates, card):
+    """10a: the train CLI with the C++ loader: ``--input_backend=native``
+    trains, checkpoints and resumes (bf16, batch 32); ``auto`` picks the
+    native loader (its log line) in a run over 9c's steps, whose
+    synchronized steps/s stand beside 9c's host pipeline and card-resident
+    corpus; and one batch of each host loader timed on the host.
+    Returns the train CLI's launch counts and the rates."""
+    import copy
+
+    from mint_tpu_torch.config.schema import load_pipeline_config
+    from mint_tpu_torch.data import native_loader
+    from mint_tpu_torch.data import pipeline as data_pipeline
+    from mint_tpu_torch.data import tfrecord
+
+    t0 = time.perf_counter()
+    counts = train_cli(work, "bf16", "native")
+    shutil.rmtree(os.path.join(work, "run"))
+    model_dir = os.path.join(work, "ws1_auto")
+    _, err, seconds = run_module("mint_tpu_torch.tools.train", [
+        f"--config_path={CONFIG}", f"--model_dir={model_dir}",
+        f"--steps={WS1_STEPS}", "--use_bfloat16", "--grad_clip_norm=1.0",
+        "--input_backend=auto", "--summary_interval=10"], work)
+    chosen = [b for b, line in BACKEND_LOG.items() if line in err]
+    native = {"cli": _cli_rates(model_dir),
+              "synced": _synced_rate(model_dir)}
+    expect = expected_launches(WS1_STEPS, bf16=True)
+    got = logged_launches(err, "train CLI auto")
+    log(f"train CLI bf16 --input_backend=auto chose {chosen} "
+        f"({native_loader.library_path()}); batch {TRAIN_BATCH} x "
+        f"{WS1_STEPS} steps in {seconds:.1f} s; steps_per_sec by step "
+        f"{native['cli']}; synchronized {native['synced']!r} steps/s over "
+        f"steps {WS1_FROM}-{WS1_STEPS - 10}; launches {got} ({card})")
+    if chosen != ["native"] or got != expect:
+        raise AssertionError(f"train CLI auto: chose {chosen}, launches "
+                             f"{got}, want native and {expect}")
+    log(f"native loader's question, bf16 batch {TRAIN_BATCH}, synchronized "
+        f"steps/s over steps {WS1_FROM}-{WS1_STEPS - 10}: native loader "
+        f"{native['synced']!r}, host pipeline {rates['python_synced']!r}, "
+        f"card-resident corpus {rates['plain_synced']!r}; native at "
+        f"{native['synced'] / rates['plain_synced']!r} of the card-resident"
+        f" rate, python at "
+        f"{rates['python_synced'] / rates['plain_synced']!r} ({card})")
+
+    # One batch of each host loader, timed on the host, at batch 32 of the
+    # flagship's windows over phase 6's corpus (each a reader thread ahead
+    # of the caller: the steady rate of 40 batches after the first).
+    pipe = load_pipeline_config(CONFIG)
+    dataset = copy.deepcopy(pipe.train_dataset)
+    dataset.data_files = os.path.join(work, dataset.data_files)
+    params = data_pipeline.get_modality_to_param_dict(dataset)
+    loaders = {
+        "native": native_loader.NativeTrainLoader(
+            tfrecord.glob(dataset.data_files), batch_size=TRAIN_BATCH,
+            motion_input_len=params["motion"]["input_length"],
+            target_len=params["motion"]["target_length"],
+            target_shift=params["motion"]["target_shift"],
+            audio_input_len=params["audio"]["input_length"],
+            motion_dim_raw=params["motion"]["feature_dim"],
+            audio_dim=params["audio"]["feature_dim"]),
+        "python": data_pipeline.create_input(pipe.train_config, dataset,
+                                             is_training=True)}
+    host_ms = {}
+    for name, loader in loaders.items():
+        t1 = time.perf_counter()
+        first = next(loader)
+        t_first = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        for _ in range(40):
+            batch = next(loader)
+        host_ms[name] = 1e3 * (time.perf_counter() - t1) / 40
+        shapes = {k: tuple(np.asarray(v).shape) for k, v in batch.items()
+                  if np.asarray(v).dtype == np.float32}
+        getattr(loader, "close", lambda: None)()
+        finite = all(np.isfinite(v).all() for v in map(np.asarray,
+                                                       first.values())
+                     if v.dtype == np.float32)
+        log(f"host loader {name}: first batch {1e3 * t_first:.1f} ms, then "
+            f"{host_ms[name]:.3f} ms a batch of {TRAIN_BATCH} (40 batches) "
+            f"{shapes}; first batch finite {finite} ({card})")
+        if not finite:
+            raise AssertionError(f"host loader {name}: non-finite batch")
+    log(f"phase 10a (native loader) in {time.perf_counter() - t0:.1f} s")
+    return counts, dict(native, host_ms=host_ms)
+
+
+def _ln_perturbed(model):
+    """`model` with its LayerNorm affines moved off 1 and 0 (from a CPU
+    generator seeded 5, as tests/test_fold.py moves them), so that the
+    fold has work to do."""
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".norm_" in name:
+                p.add_(0.3 * torch.randn(p.shape, generator=gen).to(p.device))
+    return model
+
+
+def _decode(model, inputs, steps):
+    from mint_tpu_torch.infer import decoder
+
+    return decoder.infer_auto_regressive(model, inputs, steps=steps).float()
+
+
+def fold_on_card(work, run_dir, card):
+    """10b: the LayerNorm-affine fold on the card.  The flagship's f32
+    weights (LayerNorm affines moved off 1 and 0) folded: one forward
+    and a 60-step decode against the unfolded model, f32 and bf16, the
+    launches a folded decode step, batch-20 frames/s folded against
+    unfolded, and the evaluator with ``fold_ln=True`` on phase 7's
+    384-step bucket from the f32 train CLI's checkpoint.  Returns the
+    folded bf16 decode's launches and the evaluator's."""
+    import copy
+
+    from mint_tpu_torch.config.schema import load_pipeline_config
+    from mint_tpu_torch.data import pipeline as data_pipeline
+    from mint_tpu_torch.eval.evaluator import Evaluator
+    from mint_tpu_torch.models import fold
+    from mint_tpu_torch.train.checkpoint import CheckpointManager
+
+    t0 = time.perf_counter()
+    model32 = _ln_perturbed(flagship(torch.float32, "cuda"))
+    state = model32.state_dict()
+    model16 = flagship(torch.bfloat16, "cuda")
+    model16.load_state_dict(state)
+    folded32, _ = fold.fold_for_decode(model32, state)
+    folded16, _ = fold.fold_for_decode(model16, state)
+
+    rng = np.random.default_rng(2)
+    motion = rng.standard_normal((1, 120, 225)).astype(np.float32) * 0.1
+    audio = rng.standard_normal((1, 240, 35)).astype(np.float32) * 0.5
+    inputs = {"motion_input": torch.from_numpy(motion).cuda(),
+              "audio_input": torch.from_numpy(audio).cuda()}
+    with torch.inference_mode():
+        want = model32(inputs)
+        got = folded32(inputs)
+    err = (got - want).abs().max().item()
+    log(f"fold f32 forward batch 1, folded vs unfolded on the card: "
+        f"max_abs_err {err:.3e} (peak {want.abs().max().item():.3e}) tol "
+        f"2e-4 (tests/test_fold.py's: the fold moves one rounding a "
+        f"weight)")
+    if not err <= 2e-4:
+        raise AssertionError(f"folded f32 forward disagrees: {err}")
+
+    audio = rng.standard_normal((1, FOLD_STEPS + 239, 35)).astype(
+        np.float32) * 0.5
+    inputs = {"motion_input": motion, "audio_input": audio}
+    ref = _decode(model32, inputs, FOLD_STEPS)
+    frames, launches = {}, {}
+    for name, model in (("f32 folded", folded32), ("bf16 folded", folded16),
+                        ("bf16", model16)):
+        reset_launches()
+        frames[name] = _decode(model, inputs, FOLD_STEPS)
+        torch.cuda.synchronize()
+        launches[name] = launch_counts()
+    per_step = {name: (f - ref).abs().amax(dim=(0, 2))
+                for name, f in frames.items()}
+    peak = ref.abs().max().item()
+    f32_held = per_step["f32 folded"][:HELD].max().item()
+    f32_all = per_step["f32 folded"].max().item()
+    plain16 = per_step["bf16"][:HELD].max().item()
+    fold16 = per_step["bf16 folded"][:HELD].max().item()
+    tol16 = 2 * plain16 + 2 * bf16_ulp(peak)
+    log(f"fold decode batch 1 x {FOLD_STEPS} steps against the unfolded f32"
+        f" decode: f32 folded first {HELD} frames max_abs_err "
+        f"{f32_held:.3e} tol 2e-4, all {FOLD_STEPS} {f32_all:.3e} tol 5e-3 "
+        f"(tests/test_fold.py's decode tolerance); bf16 folded first {HELD}"
+        f" {fold16:.3e} tol {tol16:.3e} (twice the unfolded bf16 decode's "
+        f"own {plain16:.3e}, plus 2 bf16 ulps of the peak {peak:.3e}), all "
+        f"{FOLD_STEPS}: bf16 folded "
+        f"{per_step['bf16 folded'].max().item():.3e}, bf16 unfolded "
+        f"{per_step['bf16'].max().item():.3e}")
+    if not (f32_held <= 2e-4 and f32_all <= 5e-3 and fold16 <= tol16
+            and torch.isfinite(frames["bf16 folded"]).all()):
+        raise AssertionError(f"folded decode disagrees: f32 {f32_held}, "
+                             f"{f32_all}; bf16 {fold16} (tol {tol16})")
+    for name, bf16 in (("f32 folded", False), ("bf16 folded", True)):
+        expect = expected_launches(FOLD_STEPS, bf16, folded=True)
+        log(f"fold decode {name}: launches {launches[name]} over "
+            f"{FOLD_STEPS} steps, want {expect} (16 a step of each TPU "
+            f"kernel's port; in bf16 32 affine-free LayerNorms, none with "
+            f"parameters)")
+        if launches[name] != expect:
+            raise AssertionError(f"fold decode {name}: launches "
+                                 f"{launches[name]}")
+
+    rates = {}
+    for dtype_name, pair in (("bf16", (model16, folded16)),
+                             ("f32", (model32, folded32))):
+        plain, folded = pair
+        order = (("unfolded", plain), ("folded", folded), ("folded", folded),
+                 ("unfolded", plain))
+        for label, model in order:
+            rates.setdefault((dtype_name, label), []).append(
+                throughput(model, f"{dtype_name} {label}", card))
+    log("fold decode batch 20 frames/s (unfolded, folded, folded, unfolded "
+        "in turn): " + "; ".join(
+            f"{d} {label} {r}" for (d, label), r in rates.items())
+        + f" ({card})")
+    del model32, model16, folded32, folded16
+    torch.cuda.empty_cache()
+
+    # The evaluator with fold_ln=True, bf16, on phase 7's 384-step bucket.
+    pipe = load_pipeline_config(CONFIG)
+    dataset = copy.deepcopy(pipe.eval_dataset)
+    dataset.data_files = os.path.join(work, "short", dataset.data_files)
+    short = [c for c in eval_clips() if 0 < true_steps(c[2]) < 1200]
+    model = flagship(torch.bfloat16, "cuda")
+    out = os.path.join(work, "out_bf16_folded")
+    evaluator = Evaluator(
+        model, lambda: data_pipeline.create_input(
+            pipe.eval_config, dataset, is_training=False, use_tpu=False),
+        output_dir=out, steps_bucket=EVAL_BUCKET, fold_ln=True)
+    params = CheckpointManager(run_dir).restore_params(model.state_dict())
+    reset_launches()
+    evaluator.evaluate(params)
+    torch.cuda.synchronize()
+    eval_counts = launch_counts()
+    check_clips(out, short, "Evaluator(fold_ln=True) bf16")
+    steps = sum(n for _, _, n in dispatch_plan(short, evaluator.decode_batch))
+    expect = expected_launches(steps, True, folded=True)
+    held, drift = {}, {}
+    for label, other in (("unfolded bf16", "out_bf16"),
+                         ("folded bf16", "out_bf16_folded")):
+        gaps = [np.abs(np.load(os.path.join(work, other, f"{m}_{a}.npy"))
+                       - np.load(os.path.join(work, "out_f32",
+                                              f"{m}_{a}.npy")))[SEED_FRAMES:]
+                for m, a, _ in short]
+        held[label] = max(g[:HELD].max() for g in gaps)
+        drift[label] = max(g.max() for g in gaps)
+    peak = max(np.abs(np.load(os.path.join(work, "out_f32", f"{m}_{a}.npy"))
+                      [SEED_FRAMES:]).max() for m, a, _ in short)
+    tol = 2 * held["unfolded bf16"] + 2 * bf16_ulp(peak)
+    log(f"Evaluator(fold_ln=True) bf16 on the 384-step bucket: launches "
+        f"{eval_counts}, want {expect} ({steps} decode steps); against the "
+        f"evaluate CLI's f32 clips, first {HELD} frames: folded "
+        f"{held['folded bf16']:.3e} tol {tol:.3e} (twice the unfolded bf16 "
+        f"clips' {held['unfolded bf16']:.3e}, plus 2 bf16 ulps of the peak),"
+        f" all frames: folded {drift['folded bf16']:.3e}, unfolded "
+        f"{drift['unfolded bf16']:.3e}")
+    if eval_counts != expect or not held["folded bf16"] <= tol:
+        raise AssertionError(f"Evaluator(fold_ln=True): launches "
+                             f"{eval_counts}, first frames "
+                             f"{held['folded bf16']} (tol {tol})")
+    del model, evaluator
+    torch.cuda.empty_cache()
+    log(f"phase 10b (the fold) in {time.perf_counter() - t0:.1f} s")
+    return launches["bf16 folded"], eval_counts, {
+        k: float(np.mean(v)) for k, v in rates.items()}
+
+
+def last_modules(work, run_dir, rates, card):
+    """Phase 10: the native loader (a), the fold (b); (c), the kernels at
+    a model = 4 rank's uneven heads, runs in phase 9a."""
+    counts, loader = native_input(work, rates, card)
+    fold_launches, eval_counts, fold_rates = fold_on_card(work, run_dir,
+                                                          card)
+    return {"train_launches": counts, "loader": loader,
+            "fold_launches": fold_launches, "eval_launches": eval_counts,
+            "fold_rates": fold_rates}
 
 
 def main():
@@ -2411,8 +2743,10 @@ def main():
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {"attention": check_attention(att, gen),
-            "fused_mlp": check_mlp(mlp, gen),
-            "layer_norm": {"bf16": check_layer_norm(ln, gen)}}
+            "fused_mlp": check_mlp(mlp, gen)}
+    ln_err, ln_free_err = check_layer_norm(ln, gen)
+    errs["layer_norm"] = {"bf16": ln_err}
+    errs["layer_norm_affine_free"] = {"bf16": ln_free_err}
     # The decode's shapes: Nq = Nk = 360 (11 blocks a step), 48 queries
     # against 360 keys (1), and the encoders' 240 and 120 (2 each); then
     # training's, at batch 32 with no truncated block.
@@ -2467,15 +2801,28 @@ def main():
         log(f"train bf16 batch {TRAIN_BATCH} Trainer.train_step: one device "
             f"(6c) {rate_bf16:.3f} steps/s, a world of one NCCL rank (9c) "
             f"{tp['rates']['step_world_of_one']:.3f} steps/s ({card})")
+        last = last_modules(work, os.path.join(work, "f32_run"),
+                            tp["rates"], card)
+    # The affine-free LayerNorm runs on the folded decode (10b): its
+    # launches there, a step, and in the folded evaluator's pass.
+    free = "layer_norm_affine_free"
+    launches[free, "bf16"] = last["fold_launches"][free]
+    per_step[free, "bf16"] = last["fold_launches"][free] / FOLD_STEPS
+    graph_launches[free, "bf16"] = per_step[free, "bf16"]
+    eval_launches[free, "bf16"] = last["eval_launches"][free]
 
     # The bf16 LayerNorm kernel replaces no TPU kernel: it is Flax's
-    # LayerNorm(dtype=bf16) with f32 parameters, which XLA fuses there.
+    # LayerNorm(dtype=bf16) with f32 parameters, which XLA fuses there;
+    # its affine-free form is the same LayerNorm with use_scale=False and
+    # use_bias=False, the folded model's (ln_affine_folded).
     sources = {"attention": ("mint_tpu_torch/csrc/attention.cu",
                              "mint_tpu/ops/attention.py:43", ("f32", "bf16")),
                "fused_mlp": ("mint_tpu_torch/csrc/mlp.cu",
                              "mint_tpu/ops/mlp.py:44", ("f32", "bf16")),
                "layer_norm": ("mint_tpu_torch/csrc/layer_norm.cu",
-                              "mint_tpu/models/layers.py:143", ("bf16",))}
+                              "mint_tpu/models/layers.py:143", ("bf16",)),
+               free: ("mint_tpu_torch/csrc/layer_norm.cu",
+                      "mint_tpu/models/layers.py:143", ("bf16",))}
     # Each row's times are at the batch-20 full shape (Nq or M/20 = 360);
     # "small" holds the same at the final block's 48 rows.  `launches` is
     # the serving path's count (through its graphs' captures and replays);
@@ -2488,7 +2835,11 @@ def main():
     # = 360, 240, 120, 48); "tensor_parallel" phase 9's: the worst error
     # at a model = 2 rank's shapes, the times there at batch 32 (Nq or
     # M/32 = 360, 240, 120; 5 heads, F = 1536) and each rank's launches a
-    # forward of phase 9b's run.
+    # forward of phase 9b's run, and "uneven_heads" the same at a model = 4
+    # rank's shapes (3 or 2 heads; F = 768).  The affine-free LayerNorm's
+    # `launches` are the folded bf16 decode's (10b), its graphed and eager
+    # launches a step that decode's, its `eval_launches` the folded
+    # evaluator's pass.
     kernels = [{"name": f"{name}_{dt}", "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name, dt],
                 "launches_per_step": per_step[name, dt],
@@ -2506,7 +2857,13 @@ def main():
                     "train": {str(n): row for n, row in
                               shard_times.get((name, dt), {}).items()},
                     "launches_per_forward_per_rank":
-                        tp[dt]["launches"][name]}}
+                        tp[dt]["launches"][name],
+                    "uneven_heads": {
+                        "max_abs_err": tp["uneven_errs"].get((name, dt)),
+                        "train": {label: {str(n): row for n, row in
+                                          rows.items()}
+                                  for label, rows in tp["uneven_times"].get(
+                                      (name, dt), {}).items()}}}}
                for name, (src, rep, dts) in sources.items() for dt in dts]
     print(json.dumps({"kernels": kernels}))
     print(card)

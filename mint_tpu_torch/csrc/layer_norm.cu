@@ -8,6 +8,13 @@
 // TPU kernel: the JAX package leaves LayerNorm to XLA, which fuses the
 // casts.
 //
+// The same kernel without parameters (gamma and beta both null) is Flax's
+// LayerNorm(use_scale=False, use_bias=False, dtype=bfloat16), the
+// LayerNorms of a model whose affines are folded into the next matmul
+// (mint_tpu_torch/models/fold.py): the statistics in f32, the output
+// (x - mean) * rstd rounded to bf16 once.  A template parameter picks the
+// form at compile time, so the affine-free launch reads no parameters.
+//
 // Bound by bytes (about 8 f32 operations per 4 bytes moved): each x is
 // read once and each output written once.  One warp per row, four rows a
 // block; the row stays in registers (bf16 pairs, 32-bit loads, 128 bytes
@@ -30,6 +37,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <bool kAffine>
 __global__ void __launch_bounds__(kWarps * 32)
     layer_norm_bf16_kernel(const __nv_bfloat162* __restrict__ x,
                            const float2* __restrict__ gamma,
@@ -63,9 +71,14 @@ __global__ void __launch_bounds__(kWarps * 32)
   for (int j = 0; j < kPairs; ++j) {
     const int i = lane + 32 * j;
     if (i < pairs) {
-      const float2 g = gamma[i], b = beta[i];
-      orow[i] = __floats2bfloat162_rn((v[j].x - mean) * rstd * g.x + b.x,
-                                      (v[j].y - mean) * rstd * g.y + b.y);
+      if constexpr (kAffine) {
+        const float2 g = gamma[i], b = beta[i];
+        orow[i] = __floats2bfloat162_rn((v[j].x - mean) * rstd * g.x + b.x,
+                                        (v[j].y - mean) * rstd * g.y + b.y);
+      } else {
+        orow[i] = __floats2bfloat162_rn((v[j].x - mean) * rstd,
+                                        (v[j].y - mean) * rstd);
+      }
     }
   }
 }
@@ -73,16 +86,26 @@ __global__ void __launch_bounds__(kWarps * 32)
 }  // namespace
 
 // x and out [rows, cols] bf16, row-major, 4-byte aligned; gamma and beta
-// [cols] f32, 8-byte aligned; 0 < cols <= 1024, even.
+// [cols] f32, 8-byte aligned, or both null (no affine); 0 < cols <= 1024,
+// even.
 extern "C" int mint_layer_norm_bf16(const void* x, const void* gamma,
                                     const void* beta, void* out, int rows,
                                     int cols, float eps, void* stream) {
-  if (rows <= 0 || cols <= 0 || cols % 2 || cols > kMaxCols)
+  if (rows <= 0 || cols <= 0 || cols % 2 || cols > kMaxCols ||
+      (gamma == nullptr) != (beta == nullptr))
     return (int)cudaErrorInvalidValue;
   const int blocks = (rows + kWarps - 1) / kWarps;
-  layer_norm_bf16_kernel<<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat162*>(x),
-      static_cast<const float2*>(gamma), static_cast<const float2*>(beta),
-      static_cast<__nv_bfloat162*>(out), rows, cols / 2, 1.0f / cols, eps);
+  const auto* xp = static_cast<const __nv_bfloat162*>(x);
+  const auto* gp = static_cast<const float2*>(gamma);
+  const auto* bp = static_cast<const float2*>(beta);
+  auto* op = static_cast<__nv_bfloat162*>(out);
+  if (gamma != nullptr)
+    layer_norm_bf16_kernel<true><<<blocks, kWarps * 32, 0,
+                                   (cudaStream_t)stream>>>(
+        xp, gp, bp, op, rows, cols / 2, 1.0f / cols, eps);
+  else
+    layer_norm_bf16_kernel<false><<<blocks, kWarps * 32, 0,
+                                    (cudaStream_t)stream>>>(
+        xp, gp, bp, op, rows, cols / 2, 1.0f / cols, eps);
   return (int)cudaGetLastError();
 }

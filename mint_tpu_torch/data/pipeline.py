@@ -87,8 +87,8 @@ def fact_preprocessing(example: Dict, modality_to_params: Dict,
                        rng: np.random.Generator) -> Dict:
     """Window sampling for FACT (inputs_util.py:59-105), NumPy edition.
 
-    Degenerate-data handling matches the JAX package's native loader
-    (``native/mint_loader.cc`` ``MakeWindow``): an example whose motion or
+    Degenerate-data handling matches the native loader
+    (``csrc/mint_loader.cc`` ``MakeWindow``): an example whose motion or
     audio is shorter than one window raises :class:`SequenceTooShort`
     (the stream drops it), a sampled window starting past the end of the
     audio likewise, and a window whose audio TAIL runs short is

@@ -5,10 +5,11 @@
     byte data[length]  | uint32 masked_crc32c(data)
 
 CRC is CRC-32C (Castagnoli, reflected, poly 0x1EDC6F41), masked as
-``((crc >> 15 | crc << 17) + 0xa282ead8) & 0xffffffff``.  The CRC here is
-pure Python only (the JAX package's copy reaches into its C++ loader when
-that is built); the byte loop walks a list table, so writing (and reading
-with ``verify_crc``) pays a Python step per byte.
+``((crc >> 15 | crc << 17) + 0xa282ead8) & 0xffffffff``.  As in the JAX
+package's copy, :func:`masked_crc32c` takes the port's C++ loader's CRC
+(``data/native_loader.py``) where that library builds, probed at the
+first call, not at import; where it does not, the pure-Python CRC, whose
+byte loop walks a list table, a Python step per byte.
 """
 
 from __future__ import annotations
@@ -43,7 +44,27 @@ def crc32c(data: bytes) -> int:
     return crc ^ 0xFFFFFFFF
 
 
+_native_masked = None
+_native_probed = False
+
+
+def _native_masked_crc():
+    """The C++ masked CRC of the port's native loader, or None where its
+    library does not build (probed once, at the first call: the probe may
+    run the build)."""
+    global _native_masked, _native_probed
+    if not _native_probed:
+        _native_probed = True
+        from mint_tpu_torch.data import native_loader
+        if native_loader.available():
+            _native_masked = native_loader.masked_crc32c
+    return _native_masked
+
+
 def masked_crc32c(data: bytes) -> int:
+    native = _native_masked_crc()
+    if native is not None:
+        return native(data)
     crc = crc32c(data)
     return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
 

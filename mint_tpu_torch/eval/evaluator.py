@@ -23,12 +23,18 @@ over them and its clips gathered in order; the default decode batch and
 the padding scale with the replica count, as they do with the mesh's
 data axis there.
 
+``fold_ln`` decodes with the model's LayerNorm affines folded into the
+next matmuls (``models/fold.py``), as the JAX evaluator's does: one
+folded twin of the model is built once, and each pass copies its folded
+weights into the twin's parameters in place, so the twin's decode graphs
+stay captured and keep reading live memory.  The replicas are copies of
+the twin.
+
 Not carried over from the JAX evaluator: ``decode_unroll`` (an XLA scan
-knob), ``fold_ln`` (``models/fold.py`` is not ported), and the
-``dispatch_chunk`` and ``decode_rows`` options: in eager PyTorch a decode
-split into chunks gives the same frames and saves no compile, and no
-caller asked for other rows, so each decode runs whole with the
-decoder's defaults.
+knob), and the ``dispatch_chunk`` and ``decode_rows`` options: in eager
+PyTorch a decode split into chunks gives the same frames and saves no
+compile, and no caller asked for other rows, so each decode runs whole
+with the decoder's defaults.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import numpy as np
 import torch
 
 from mint_tpu_torch.infer import decoder
+from mint_tpu_torch.models import fold
 from mint_tpu_torch.models.fact import FACT
 from mint_tpu_torch.parallel.replicas import Replicas
 
@@ -68,7 +75,8 @@ class Evaluator:
                  steps: int = 1200, decode_batch: Optional[int] = None,
                  steps_bucket: Optional[int] = None,
                  cache_examples: bool = True,
-                 devices: Optional[Sequence] = None):
+                 devices: Optional[Sequence] = None,
+                 fold_ln: bool = False):
         """`model` is a FACT on its device, in the dtype to decode in.
 
         `dataset` is an iterable of batches, or a zero-argument callable
@@ -94,9 +102,20 @@ class Evaluator:
         per clip before saving, and the metrics are updated per clip on
         the trimmed output (their ``audio_input`` keeps the padded tail,
         which the reference metric does not read).
+
+        `fold_ln` folds the pre-LN affines into the next QKV and fc1
+        kernels for each pass's weights (``models/fold.py``) and decodes
+        with the folded twin of `model` (exact up to rounding).  Default
+        False, as in the JAX evaluator.
         """
         self.model = model
-        self.replicas = Replicas(model, devices or [model.device])
+        self.fold_ln = bool(fold_ln)
+        # The model that decodes: with fold_ln its folded twin, built
+        # once, whose parameters each pass overwrites in place.
+        self._decode_model = (fold.fold_for_decode(model, model.state_dict())
+                              [0] if self.fold_ln else model)
+        self.replicas = Replicas(self._decode_model,
+                                 devices or [model.device])
         self.dataset = dataset
         self.metrics = list(metrics)
         self.output_dir = output_dir
@@ -154,6 +173,10 @@ class Evaluator:
         ``CheckpointManager.restore_params``) loaded into the model first,
         or the model's own weights; returns the metric dict."""
         t_pass = time.monotonic()
+        if self._decode_model is not self.model:  # fold_ln, not folded
+            # Fold first, then place: every replica gets the folded weights.
+            params = fold.fold_ln_affines(
+                self.model.state_dict() if params is None else params)
         if params is not None:
             self.replicas.load_state_dict(params)
         for metric in self.metrics:

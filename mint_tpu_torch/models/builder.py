@@ -39,8 +39,8 @@ def check_kernel_limits(config: FACTModelConfig,
     limits that depend on the batch are :func:`check_batch`'s.
 
     With `model` tensor-parallel ranks the shapes are a rank's: its heads
-    (the head dim is unchanged) and its slice of the MLP width.  Heads and
-    the MLP width must split evenly over the ranks (:func:`check_split`).
+    (the head dim is unchanged) and its slice of the MLP width, as
+    :func:`check_split` allows them.
     """
     check_split(config, model)
     models, params, _ = build_modalities_model(config.modality)
@@ -84,13 +84,18 @@ def check_kernel_limits(config: FACTModelConfig,
 
 
 def check_split(config: FACTModelConfig, model: int) -> None:
-    """Raise ValueError, naming the field, where a transformer's heads or
-    MLP width do not split evenly over `model` tensor-parallel ranks.
+    """Raise ValueError, naming the field, where `model` tensor-parallel
+    ranks do not split a transformer as the JAX package's rules do, or
+    would leave a rank without a head.
 
-    The JAX package takes any model axis that divides the dims it splits
-    (GSPMD cuts ``to_qkv``'s 3 x hidden columns anywhere and reshards);
-    here each rank computes whole heads, so the flagship's 10 heads take
-    1, 2, 5 or 10 ranks and refuse 4, which JAX would take."""
+    The JAX package takes any model axis that divides each dim its rules
+    split (``mint_tpu/parallel/mesh.py:43-53``): ``to_qkv``'s 3 x hidden
+    columns, ``to_out``'s hidden rows and the MLP width; so does this
+    check.  Each rank here computes a contiguous run of whole heads, their
+    counts differing by at most one (``parallel.mesh.head_split``: the
+    flagship's 10 heads over 4 ranks are 3, 3, 2 and 2), so a model axis
+    larger than a transformer's heads is refused, where JAX would take
+    it."""
     if model <= 1:
         return
     models, _, _ = build_modalities_model(config.modality)
@@ -102,15 +107,17 @@ def check_split(config: FACTModelConfig, model: int) -> None:
     for field, tf in stacks:
         if tf is None:
             continue
-        if tf.num_attention_heads % model:
+        for name, size in (("hidden_size", tf.hidden_size),
+                           ("3 x hidden_size", 3 * tf.hidden_size),
+                           ("intermediate_size", tf.intermediate_size)):
+            if size % model:
+                raise ValueError(f"{field}: {name} {size} does not split "
+                                 f"over {model} model ranks")
+        if tf.num_attention_heads < model:
             raise ValueError(
                 f"{field}: num_attention_heads {tf.num_attention_heads} "
-                f"does not split over {model} model ranks (each rank "
-                "computes whole heads)")
-        if tf.intermediate_size % model:
-            raise ValueError(
-                f"{field}: intermediate_size {tf.intermediate_size} does "
-                f"not split over {model} model ranks")
+                f"do not fill {model} model ranks (a rank would hold no "
+                "head)")
 
 
 def check_batch(model: FACT, batch: int) -> None:
@@ -130,7 +137,8 @@ def check_batch(model: FACT, batch: int) -> None:
 def build(model_config: MultiModalModelConfig, is_training: bool,
           dtype: torch.dtype = torch.float32,
           device: torch.device | str = "cuda",
-          compute_dtype: torch.dtype | None = None, mesh=None) -> FACT:
+          compute_dtype: torch.dtype | None = None, mesh=None,
+          ln_affine_folded: bool = False) -> FACT:
     """Build a model from a MultiModalModel config (dispatch on the oneof),
     cast once to `dtype` and placed on `device`.  Not training builds are
     put in eval mode.
@@ -149,10 +157,14 @@ def build(model_config: MultiModalModelConfig, is_training: bool,
     shape a kernel refuses fails here, not mid-decode or mid-step.
 
     `mesh` (``parallel/mesh.py``) with a model axis over 1 builds this
-    rank's slice of every attention and MLP; its heads and MLP widths
-    must split evenly (:func:`check_split`), and on the card the kernels'
-    limits are checked at the slice's shapes.  Load a full state_dict
-    into it through ``parallel.shard_state_dict``."""
+    rank's slice of every attention and MLP, as :func:`check_split`
+    allows, and on the card the kernels' limits are checked at the
+    slice's shapes.  Load a full state_dict into it through
+    ``parallel.shard_state_dict``.
+
+    ``ln_affine_folded`` builds the inference variant whose Blocks'
+    LayerNorms carry no parameters (``models/fold.py``: load weights
+    from ``fold_ln_affines``)."""
     device = torch.device(device)
     parts = mesh.model if mesh is not None else 1
     if model_config.which() == "fact_model":
@@ -164,7 +176,8 @@ def build(model_config: MultiModalModelConfig, is_training: bool,
     device = resolve(device, "builder.build")
     build_func = MODEL_BUILDER_MAP[model_config.which()]
     model = build_func(model_config, is_training,
-                       compute_dtype=compute_dtype, mesh=mesh).to(
+                       compute_dtype=compute_dtype, mesh=mesh,
+                       ln_affine_folded=ln_affine_folded).to(
                            device=device, dtype=dtype)
     # LayerNorm keeps f32 parameters under any cast, as Flax's
     # LayerNorm(dtype=...) keeps its scale and bias (models/layers.py).

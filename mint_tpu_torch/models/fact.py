@@ -31,13 +31,18 @@ class FACT(nn.Module):
     `mesh` (``parallel/mesh.py``), where its model axis is over 1, makes
     every attention and MLP hold this rank's slice (tensor parallelism);
     the embeddings, LayerNorms and output head stay whole on every rank.
+    ``ln_affine_folded`` builds the inference variant whose pre-LN scale
+    and bias live inside the next QKV and fc1 kernels: pair it with
+    weights from ``models/fold.py`` (``fold_for_decode``).
     """
 
     def __init__(self, config: FACTModelConfig, audio_dim: int = 0,
-                 compute_dtype: torch.dtype | None = None, mesh=None):
+                 compute_dtype: torch.dtype | None = None, mesh=None,
+                 ln_affine_folded: bool = False):
         super().__init__()
         self.config = config
         self.compute_dtype = compute_dtype
+        self.ln_affine_folded = ln_affine_folded
         motion_cfg = config.modality_by_name("motion")
         audio_cfg = config.modality_by_name("audio")
         feature_to_model, _, _ = build_modalities_model(config.modality)
@@ -59,7 +64,7 @@ class FACT(nn.Module):
             return layers.Transformer(tf.hidden_size, tf.num_hidden_layers,
                                       tf.num_attention_heads,
                                       tf.intermediate_size, compute_dtype,
-                                      mesh)
+                                      mesh, ln_affine_folded)
 
         self.motion_linear_embedding = layers.LinearEmbedding(
             self.motion_dim, motion_tf.hidden_size, compute_dtype)
@@ -76,7 +81,8 @@ class FACT(nn.Module):
             cm.transformer.num_attention_heads,
             cm.transformer.intermediate_size, cm.output_layer.out_dim,
             output_initializer_range=cm.output_layer.initializer_range,
-            compute_dtype=compute_dtype, mesh=mesh)
+            compute_dtype=compute_dtype, mesh=mesh,
+            ln_affine_folded=ln_affine_folded)
 
     @property
     def motion_seq_length(self) -> int:
@@ -144,7 +150,7 @@ def init_params(model: FACT, generator: torch.Generator) -> FACT:
             _fill(module.weight, generator, nn.init.xavier_uniform_)
             if module.bias is not None:
                 module.bias.zero_()
-        elif isinstance(module, nn.LayerNorm):
+        elif isinstance(module, nn.LayerNorm) and module.weight is not None:
             module.weight.fill_(1.0)
             module.bias.zero_()
         elif isinstance(module, layers.PositionEmbedding):

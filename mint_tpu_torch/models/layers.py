@@ -67,6 +67,15 @@ from mint_tpu_torch.parallel import mesh as mesh_lib
 
 gelu_tanh = mlp_op.gelu_tanh
 
+#: The activations by name (``mint_tpu/models/layers.py``'s table; GELU
+#: is the tanh form), read by ``models/model_utils.get_activation``.
+ACTIVATIONS = {
+    "gelu": gelu_tanh,
+    "relu": torch.relu,
+    "tanh": torch.tanh,
+    "linear": None,
+}
+
 
 def trunc_normal_(t: torch.Tensor, stddev: float = 0.02,
                   generator: torch.Generator | None = None) -> torch.Tensor:
@@ -108,23 +117,28 @@ class Dense(nn.Linear):
 
 class LayerNorm(nn.LayerNorm):
     """nn.LayerNorm, epsilon 1e-5, with f32 parameters in either dtype mode
-    (``models/builder.py`` keeps them f32 under the whole-model cast).
+    (``models/builder.py`` keeps them f32 under the whole-model cast), or
+    with none (``affine=False``: Flax's ``use_scale=False,
+    use_bias=False``, the LayerNorms of a model whose affines are folded
+    into the next matmul, ``models/fold.py``).
 
     A bf16 input, or a ``compute_dtype``, follows Flax's
     ``LayerNorm(dtype=...)``: statistics and the affine in f32 with the f32
     parameters, the output cast to ``compute_dtype`` (or kept in the
     input's dtype).  A bf16 input that stays bf16 goes through
-    ``ops.layer_norm``: one kernel launch on the card, its plain version on
-    the CPU.  An f32 input without a ``compute_dtype`` is one
-    ``layer_norm`` call."""
+    ``ops.layer_norm``: one kernel launch on the card (the affine-free
+    form of the kernel without parameters), its plain version on the CPU.
+    An f32 input without a ``compute_dtype`` is one ``layer_norm`` call."""
 
-    def __init__(self, dim: int, compute_dtype: torch.dtype | None = None):
-        super().__init__(dim, eps=1e-5)
+    def __init__(self, dim: int, compute_dtype: torch.dtype | None = None,
+                 affine: bool = True):
+        super().__init__(dim, eps=1e-5, elementwise_affine=affine)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out_dtype = self.compute_dtype or x.dtype
-        if x.dtype == out_dtype == self.weight.dtype:
+        if (self.weight is not None
+                and x.dtype == out_dtype == self.weight.dtype):
             return super().forward(x)
         if x.dtype == out_dtype == torch.bfloat16:
             return layer_norm_op.layer_norm(x, self.weight, self.bias,
@@ -147,21 +161,26 @@ def _row_parallel_out(partial: torch.Tensor, bias: torch.Tensor,
 
 class Attention(nn.Module):
     """Unmasked multi-head self-attention (``layers.py:61-96``).  With a
-    model axis in `mesh`, this rank's ``heads / model`` heads only."""
+    model axis in `mesh`, this rank's run of the heads only
+    (``mesh_lib.head_split``: ``heads / model`` rounded up on the first
+    ``heads % model`` ranks, down on the rest).  ``qkv_bias`` gives
+    ``to_qkv`` a bias, which carries the folded LayerNorm bias of a
+    model with ``ln_affine_folded`` (``models/fold.py``)."""
 
     def __init__(self, dim: int, heads: int = 8,
-                 compute_dtype: torch.dtype | None = None, mesh=None):
+                 compute_dtype: torch.dtype | None = None, mesh=None,
+                 qkv_bias: bool = False):
         super().__init__()
         self.dim = dim
         self.mesh = mesh if _tensor_parallel(mesh) else None
-        parts = self.mesh.model if self.mesh else 1
-        if heads % parts:
-            raise ValueError(f"{heads} attention heads do not split over "
-                             f"{parts} model ranks")
-        self.heads = heads // parts  # this rank's
+        self.total_heads = heads
+        self.head_start, self.heads = (  # this rank's
+            mesh_lib.head_split(heads, self.mesh.model,
+                                self.mesh.model_index)
+            if self.mesh else (0, heads))
         self.head_dim = dim // heads
         local = self.heads * self.head_dim
-        self.to_qkv = Dense(dim, 3 * local, bias=False,
+        self.to_qkv = Dense(dim, 3 * local, bias=qkv_bias,
                             compute_dtype=compute_dtype)
         self.to_out = Dense(local, dim, compute_dtype=compute_dtype)
 
@@ -228,15 +247,22 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """One pre-LN block: Residual(Norm(Attn)) + Residual(Norm(MLP))."""
+    """One pre-LN block: Residual(Norm(Attn)) + Residual(Norm(MLP)).
+
+    With ``ln_affine_folded`` the two LayerNorms carry no scale or bias:
+    ``models/fold.py`` moves them into ``to_qkv`` (which then has a bias)
+    and fc1, as ``mint_tpu/models/layers.py:119-157`` does."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  intermediate_size: int,
-                 compute_dtype: torch.dtype | None = None, mesh=None):
+                 compute_dtype: torch.dtype | None = None, mesh=None,
+                 ln_affine_folded: bool = False):
         super().__init__()
-        self.norm_attn = LayerNorm(hidden_size, compute_dtype)
-        self.attn = Attention(hidden_size, num_heads, compute_dtype, mesh)
-        self.norm_mlp = LayerNorm(hidden_size, compute_dtype)
+        affine = not ln_affine_folded
+        self.norm_attn = LayerNorm(hidden_size, compute_dtype, affine)
+        self.attn = Attention(hidden_size, num_heads, compute_dtype, mesh,
+                              qkv_bias=ln_affine_folded)
+        self.norm_mlp = LayerNorm(hidden_size, compute_dtype, affine)
         self.mlp = MLP(hidden_size, intermediate_size, hidden_size,
                        compute_dtype, mesh)
 
@@ -255,13 +281,14 @@ class Transformer(nn.Module):
     def __init__(self, hidden_size: int = 768, num_hidden_layers: int = 12,
                  num_attention_heads: int = 12,
                  intermediate_size: int = 3072,
-                 compute_dtype: torch.dtype | None = None, mesh=None):
+                 compute_dtype: torch.dtype | None = None, mesh=None,
+                 ln_affine_folded: bool = False):
         super().__init__()
         self.num_hidden_layers = num_hidden_layers
         for i in range(num_hidden_layers):
             self.add_module(f"block_{i}", Block(
                 hidden_size, num_attention_heads, intermediate_size,
-                compute_dtype, mesh))
+                compute_dtype, mesh, ln_affine_folded))
 
     def forward(self, x: torch.Tensor, last_n_out: int | None = None
                 ) -> torch.Tensor:
@@ -273,6 +300,34 @@ class Transformer(nn.Module):
             x = getattr(self, f"block_{i}")(
                 x, n_out=last_n_out if last else None)
         return x
+
+
+class PatchEmbedding(nn.Module):
+    """Image patch embedding (``layers.py:188-209``; unused by FACT, part
+    of the modality-model surface): [B, H*p, W*p, C] -> [B, H*W, hidden],
+    the patches flattened as (p1, p2, c) and projected by
+    ``patch_embed_layer``, a Dense whose kernel bridges as [in, out]
+    (``models/weights.py``)."""
+
+    def __init__(self, hidden_size: int, patch_size: int, num_channel: int,
+                 compute_dtype: torch.dtype | None = None):
+        super().__init__()
+        self.patch_size = patch_size
+        self.num_channel = num_channel
+        self.patch_embed_layer = Dense(patch_size * patch_size * num_channel,
+                                       hidden_size,
+                                       compute_dtype=compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, hp, wp, c = x.shape
+        p = self.patch_size
+        if c != self.num_channel or hp % p or wp % p:
+            raise ValueError(f"input {tuple(x.shape)} is not [B, H*{p}, "
+                             f"W*{p}, {self.num_channel}]")
+        h, w = hp // p, wp // p
+        # b (h p1) (w p2) c -> b (h w) (p1 p2 c)
+        x = x.reshape(b, h, p, w, p, c).permute(0, 1, 3, 2, 4, 5)
+        return self.patch_embed_layer(x.reshape(b, h * w, p * p * c))
 
 
 class LinearEmbedding(nn.Module):
@@ -309,13 +364,14 @@ class CrossModalLayer(nn.Module):
     def __init__(self, hidden_size: int, num_hidden_layers: int,
                  num_attention_heads: int, intermediate_size: int,
                  out_dim: int, output_initializer_range: float = 0.02,
-                 compute_dtype: torch.dtype | None = None, mesh=None):
+                 compute_dtype: torch.dtype | None = None, mesh=None,
+                 ln_affine_folded: bool = False):
         super().__init__()
         self.output_initializer_range = output_initializer_range
         self.transformer = Transformer(hidden_size, num_hidden_layers,
                                        num_attention_heads,
                                        intermediate_size, compute_dtype,
-                                       mesh)
+                                       mesh, ln_affine_folded)
         self.cross_output_layer = Dense(hidden_size, out_dim,
                                         compute_dtype=compute_dtype)
         trunc_normal_(self.cross_output_layer.weight,

@@ -6,7 +6,10 @@ The port's modules carry the Flax module names, so a leaf
 ``cross_modal_layer.transformer.block_3.attn.to_qkv.weight``.  A Dense
 ``kernel [in, out]`` becomes ``Linear.weight [out, in]`` (transposed),
 LayerNorm ``scale``/``bias`` become ``weight``/``bias``, and
-``pos_embedding`` is copied as is.  Only numpy arrays cross the bridge.
+``pos_embedding`` is copied as is.  A model whose LayerNorm affines are
+folded (``ln_affine_folded``, ``models/fold.py``) has no ``norm_attn`` or
+``norm_mlp`` leaves and a ``to_qkv/bias``, as the folded Flax tree has.
+Only numpy arrays cross the bridge.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ def _leaf_names(model: nn.Module) -> Dict[str, tuple]:
             out[f"{mod_name}.weight"] = ("/".join(prefix + ["kernel"]), True)
             if module.bias is not None:
                 out[f"{mod_name}.bias"] = ("/".join(prefix + ["bias"]), False)
-        elif isinstance(module, nn.LayerNorm):
+        elif isinstance(module, nn.LayerNorm) and module.weight is not None:
             out[f"{mod_name}.weight"] = ("/".join(prefix + ["scale"]), False)
             out[f"{mod_name}.bias"] = ("/".join(prefix + ["bias"]), False)
         elif isinstance(module, layers.PositionEmbedding):

@@ -40,7 +40,7 @@ _SIGNATURES = {
     # x, w1, b1, w2, b2, scratch, out, m, h, f, o, stream
     "mint_mlp_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mint_mlp_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, gamma, beta, out, rows, cols, eps, stream
+    # x, gamma, beta (both null: no affine), out, rows, cols, eps, stream
     "mint_layer_norm_bf16": [_P, _P, _P, _P, _I, _I, _F, _P],
 }
 

@@ -10,6 +10,13 @@ three launches.  :func:`layer_norm` launches one kernel instead (its
 source is ``mint_tpu_torch/csrc/layer_norm.cu``).  It is no port of a TPU
 kernel: the JAX package leaves LayerNorm to XLA, which fuses the casts.
 
+Without parameters (``weight`` and ``bias`` both None) it is Flax's
+``LayerNorm(use_scale=False, use_bias=False, dtype=bfloat16)``, the
+LayerNorm of a model whose affines are folded (``models/fold.py``): the
+statistics in f32 and the normalised output rounded to bf16, the plain
+version ``F.layer_norm(x.float(), ..., None, None, eps).to(bf16)``; the
+kernel's affine-free form is the same launch with null parameters.
+
 Gradients: where one is wanted, the launch runs inside
 :class:`LayerNormFunction`, whose backward is the VJP of
 :func:`layer_norm_reference` recomputed from the saved inputs.
@@ -22,8 +29,10 @@ import torch.nn.functional as F
 
 from mint_tpu_torch.ops import _build
 
-# Kernel launches made by :func:`layer_norm` (the CUDA path only).
+# Kernel launches made by :func:`layer_norm` (the CUDA path only): with
+# parameters, and in the affine-free form.
 launches = 0
+affine_free_launches = 0
 
 MAX_COLS = 1024  # csrc/layer_norm.cu holds a row in registers
 
@@ -36,18 +45,20 @@ def limit_broken(cols: int) -> str | None:
     return None
 
 
-def layer_norm_reference(x: torch.Tensor, weight: torch.Tensor,
-                         bias: torch.Tensor, eps: float) -> torch.Tensor:
+def layer_norm_reference(x: torch.Tensor, weight: torch.Tensor | None,
+                         bias: torch.Tensor | None, eps: float
+                         ) -> torch.Tensor:
     """LayerNorm over x's last dim: statistics and affine in f32 with the
-    f32 ``weight`` and ``bias``, the output in x's dtype."""
+    f32 ``weight`` and ``bias`` (or no affine where both are None), the
+    output in x's dtype."""
     return F.layer_norm(x.float(), x.shape[-1:], weight, bias,
                         eps).to(x.dtype)
 
 
-def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               eps: float) -> torch.Tensor:
+def layer_norm(x: torch.Tensor, weight: torch.Tensor | None,
+               bias: torch.Tensor | None, eps: float) -> torch.Tensor:
     """LayerNorm of bf16 ``x`` [..., C] with f32 ``weight`` and ``bias``
-    [C]; returns bf16.
+    [C], or with neither (both None); returns bf16.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (or raises), through :class:`LayerNormFunction` only where
@@ -55,8 +66,9 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """
     if x.device.type == "cpu":
         return layer_norm_reference(x, weight, bias, eps)
-    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
-                                    or bias.requires_grad):
+    if torch.is_grad_enabled() and (
+            x.requires_grad or (weight is not None and weight.requires_grad)
+            or (bias is not None and bias.requires_grad)):
         return LayerNormFunction.apply(x, weight, bias, eps, _launch)
     return _launch(x, weight, bias, eps)
 
@@ -75,10 +87,13 @@ class LayerNormFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        inputs = [None if t is None else t.detach().requires_grad_()
+                  for t in ctx.saved_tensors]
         with torch.enable_grad():
             out = layer_norm_reference(*inputs, ctx.eps)
-            grads = torch.autograd.grad(out, inputs, grad_out)
+            grads = iter(torch.autograd.grad(
+                out, [t for t in inputs if t is not None], grad_out))
+        grads = [None if t is None else next(grads) for t in inputs]
         return (*(g if need else None for g, need in
                   zip(grads, ctx.needs_input_grad)), None, None)
 
@@ -87,29 +102,45 @@ def _launch(x, weight, bias, eps):
     # A bf16 decode step makes 32 of these calls and is host-bound, so the
     # checks are plain comparisons and the launch takes few Python calls:
     # the raw stream in one call, each pointer read once.
-    global launches
+    global launches, affine_free_launches
     cols = x.shape[-1]
-    if (x.device.type != "cuda" or weight.device != x.device
-            or bias.device != x.device):
-        raise ValueError(f"layer_norm: inputs on {x.device}, "
-                         f"{weight.device}, {bias.device} (one CUDA device)")
-    if (x.dtype != torch.bfloat16 or weight.dtype != torch.float32
-            or bias.dtype != torch.float32):
-        raise ValueError(f"layer_norm: the kernel takes a bfloat16 input "
-                         f"with float32 weight and bias; got {x.dtype}, "
-                         f"{weight.dtype}, {bias.dtype}")
-    if (weight.shape != (cols,) or bias.shape != (cols,)
-            or limit_broken(cols)):
-        raise ValueError(f"layer_norm: x {tuple(x.shape)}, weight "
-                         f"{tuple(weight.shape)}, bias {tuple(bias.shape)} "
-                         f"(the kernel takes an even C <= {MAX_COLS})")
-    x, weight, bias = x.contiguous(), weight.contiguous(), bias.contiguous()
+    if weight is None and bias is None:  # the affine-free form
+        if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+            raise ValueError(f"layer_norm: the kernel takes a bfloat16 "
+                             f"CUDA input; got {x.dtype} on {x.device}")
+        if limit_broken(cols):
+            raise ValueError(f"layer_norm: x {tuple(x.shape)} (the kernel "
+                             f"takes an even C <= {MAX_COLS})")
+        x = x.contiguous()
+        px, pw, pb = x.data_ptr(), 0, 0
+    else:
+        if weight is None or bias is None:
+            raise ValueError("layer_norm: weight and bias are both given "
+                             "or both None")
+        if (x.device.type != "cuda" or weight.device != x.device
+                or bias.device != x.device):
+            raise ValueError(f"layer_norm: inputs on {x.device}, "
+                             f"{weight.device}, {bias.device} (one CUDA "
+                             "device)")
+        if (x.dtype != torch.bfloat16 or weight.dtype != torch.float32
+                or bias.dtype != torch.float32):
+            raise ValueError(f"layer_norm: the kernel takes a bfloat16 "
+                             f"input with float32 weight and bias; got "
+                             f"{x.dtype}, {weight.dtype}, {bias.dtype}")
+        if (weight.shape != (cols,) or bias.shape != (cols,)
+                or limit_broken(cols)):
+            raise ValueError(f"layer_norm: x {tuple(x.shape)}, weight "
+                             f"{tuple(weight.shape)}, bias "
+                             f"{tuple(bias.shape)} (the kernel takes an "
+                             f"even C <= {MAX_COLS})")
+        x, weight, bias = (x.contiguous(), weight.contiguous(),
+                           bias.contiguous())
+        px, pw, pb = x.data_ptr(), weight.data_ptr(), bias.data_ptr()
     out = torch.empty_like(x)
     rows = x.numel() // cols
     if rows == 0:
         return out
-    px, pw, pb = x.data_ptr(), weight.data_ptr(), bias.data_ptr()
-    if px % 4 or pw % 8 or pb % 8:
+    if px % 4 or pw % 8 or pb % 8:  # (null parameters: 0)
         raise ValueError("layer_norm: the kernel needs a 4-byte aligned x "
                          "and 8-byte aligned weight and bias")
     err = _build.library().mint_layer_norm_bf16(
@@ -117,5 +148,8 @@ def _launch(x, weight, bias, eps):
         torch._C._cuda_getCurrentRawStream(x.get_device()))
     if err:
         _build.check(err, "layer_norm kernel launch")
-    launches += 1
+    if pw:
+        launches += 1
+    else:
+        affine_free_launches += 1
     return out

@@ -6,6 +6,8 @@ from mint_tpu_torch.parallel.mesh import (  # noqa: F401
     DATA_AXIS,
     MODEL_AXIS,
     Mesh,
+    attention_heads,
+    head_split,
     make_mesh,
     param_spec,
     shard_state_dict,

@@ -53,15 +53,17 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def tiny_fact_config() -> S.FACTModelConfig:
+def tiny_fact_config(hidden_size: int = 32, heads: int = 4,
+                     intermediate_size: int = 64) -> S.FACTModelConfig:
     """The JAX entry's tiny FACT: width 32, 2 blocks of 4 heads and MLP
     64 in every transformer, windows of 8 motion (9-dim) and 16 audio
-    frames."""
+    frames (other widths and head counts on request)."""
 
     def transformer():
-        return S.TransformerConfig(hidden_size=32, num_hidden_layers=2,
-                                   num_attention_heads=4,
-                                   intermediate_size=64)
+        return S.TransformerConfig(hidden_size=hidden_size,
+                                   num_hidden_layers=2,
+                                   num_attention_heads=heads,
+                                   intermediate_size=intermediate_size)
 
     def modality(name, seq, dim):
         return S.ModalityConfig(
@@ -143,7 +145,7 @@ def run_rank(args) -> None:
                             torch.Generator().manual_seed(0))
         model = builder.build(cfg, True, device=device, mesh=mesh)
         model.load_state_dict(mesh_lib.shard_state_dict(
-            whole.state_dict(), mesh))
+            whole.state_dict(), mesh, mesh_lib.attention_heads(model)))
         batch = _batch(whole, args.batch)
         rows = args.batch // data
         mine = {k: v[mesh.data_index * rows:(mesh.data_index + 1) * rows]

@@ -26,15 +26,21 @@ dim split), ``to_out`` and fc2 row-parallel (their input dim split), fc1's
 bias split with its columns; every other leaf is replicated.  One
 difference: JAX cuts ``to_qkv``'s output, laid out (qkv, head, dim)
 (``mint_tpu/models/layers.py:85-90``), into contiguous blocks and lets
-GSPMD reshard behind it.  A rank here computes its own heads, so its
-slice takes the same heads from q, k and v: block m of each third.
+GSPMD reshard behind it.  A rank here computes its own heads
+(:func:`head_split`: a contiguous run, the first ``heads % model`` ranks
+one head more, so 10 heads over 4 ranks are 3, 3, 2 and 2), so its slice
+takes the same heads from q, k and v (rows of ``to_qkv`` and, in a model
+whose LayerNorm affines are folded, of its bias) and their columns of
+``to_out``.  The split of those leaves therefore needs each attention's
+head count (:func:`attention_heads`); every other split is even.
 """
 
 from __future__ import annotations
 
+import math
 import re
 import time
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -52,6 +58,7 @@ SEED_STRIDE = 1000003
 # is [out, in], so its spec reads backwards.
 _PARAM_RULES = (
     (re.compile(r"attn/to_qkv/kernel$"), (None, MODEL_AXIS)),
+    (re.compile(r"attn/to_qkv/bias$"), (MODEL_AXIS,)),
     (re.compile(r"attn/to_out/kernel$"), (MODEL_AXIS, None)),
     (re.compile(r"mlp/fc1/kernel$"), (None, MODEL_AXIS)),
     (re.compile(r"mlp/fc1/bias$"), (MODEL_AXIS,)),
@@ -87,8 +94,31 @@ def shard_dim(key: str) -> Optional[int]:
     return spec.index(MODEL_AXIS)
 
 
-def _is_qkv(key: str) -> bool:
-    return key.endswith("attn.to_qkv.weight")
+def head_split(heads: int, parts: int, index: int) -> Tuple[int, int]:
+    """(first head, head count) of model rank `index` of `parts` in an
+    attention of `heads` heads: a contiguous run, the first
+    ``heads % parts`` ranks one head more than the rest."""
+    if not 0 < parts <= heads:
+        raise ValueError(f"{heads} attention heads do not fill {parts} "
+                         "model ranks (a rank would hold no head)")
+    base, extra = divmod(heads, parts)
+    return index * base + min(index, extra), base + (index < extra)
+
+
+def attention_heads(model: torch.nn.Module) -> Dict[str, int]:
+    """Each attention's whole head count, by its state_dict prefix (the
+    ``heads`` that :func:`shard_state_dict` splits by)."""
+    return {name: m.total_heads for name, m in model.named_modules()
+            if hasattr(m, "total_heads")}
+
+
+def _head_leaf(key: str) -> Optional[str]:
+    """'qkv' or 'out' where `key` is a leaf split by heads, else None."""
+    if key.endswith(("attn.to_qkv.weight", "attn.to_qkv.bias")):
+        return "qkv"
+    if key.endswith("attn.to_out.weight"):
+        return "out"
+    return None
 
 
 class Mesh:
@@ -204,27 +234,42 @@ def leave() -> None:
 
 # -- the parameters' slices ---------------------------------------------------
 
-def _split(t: torch.Tensor, key: str, n: int, i: int) -> torch.Tensor:
+def _split(t: torch.Tensor, key: str, n: int, i: int,
+           heads: Optional[Mapping[str, int]]) -> torch.Tensor:
     """Slice i of n of the state_dict tensor `key`."""
     dim = shard_dim(key)
-    if _is_qkv(key):  # heads from each of q, k and v
-        rows = t.reshape(3, t.shape[0] // 3, *t.shape[1:])
-        return rows.chunk(n, dim=1)[i].reshape(-1, *t.shape[1:])
+    kind = _head_leaf(key)
+    if kind is not None:
+        prefix = key.rsplit(".", 2)[0]
+        if heads is None or prefix not in heads:
+            raise ValueError(f"{key}: splitting it needs the head count of "
+                             f"{prefix} (mesh.attention_heads(model))")
+        h = heads[prefix]
+        start, count = head_split(h, n, i)
+        if kind == "out":  # [dim, heads x head dim]: the heads' columns
+            hd = t.shape[1] // h
+            return t[:, start * hd:(start + count) * hd]
+        # [3 x heads x head dim, ...]: the heads' rows of q, k and v each
+        thirds = t.reshape(3, h, -1, *t.shape[1:])
+        return thirds[:, start:start + count].reshape(-1, *t.shape[1:])
     if t.shape[dim] % n:
         raise ValueError(f"{key}: dim {dim} of {tuple(t.shape)} does not "
                          f"split over {n} model ranks")
     return t.chunk(n, dim=dim)[i]
 
 
-def shard_state_dict(full: Mapping[str, torch.Tensor], mesh: Mesh
+def shard_state_dict(full: Mapping[str, torch.Tensor], mesh: Mesh,
+                     heads: Optional[Mapping[str, int]] = None
                      ) -> Dict[str, torch.Tensor]:
     """This rank's slice of a full state_dict (or of any dict keyed like
     one, such as an Adam moment): split leaves cut by ``mesh.model`` at
-    ``mesh.model_index``, replicated ones copied."""
+    ``mesh.model_index``, replicated ones copied.  `heads` (from
+    :func:`attention_heads` of the model) gives each attention's head
+    count, which the split of its ``to_qkv`` and ``to_out`` needs."""
     out = {}
     for key, t in full.items():
         if mesh.model > 1 and shard_dim(key) is not None:
-            t = _split(t, key, mesh.model, mesh.model_index)
+            t = _split(t, key, mesh.model, mesh.model_index, heads)
         out[key] = t.clone()
     return out
 
@@ -233,14 +278,14 @@ def unshard_state_dict(shards: Sequence[Mapping[str, torch.Tensor]]
                        ) -> Dict[str, torch.Tensor]:
     """The full state_dict from the slices of model index 0, 1, ... (the
     inverse of :func:`shard_state_dict`); replicated leaves from slice 0.
-    """
+    Each slice's heads are as many as its rows say."""
     n = len(shards)
     out = {}
     for key, t in shards[0].items():
         dim = shard_dim(key)
         if n == 1 or dim is None:
             out[key] = t.clone()
-        elif _is_qkv(key):
+        elif _head_leaf(key) == "qkv":
             parts = [s[key].reshape(3, -1, *t.shape[1:]) for s in shards]
             out[key] = torch.cat(parts, dim=1).reshape(-1, *t.shape[1:])
         else:
@@ -254,31 +299,54 @@ def gather_state_dicts(trees: Sequence[Mapping[str, torch.Tensor]],
     rank's slices of `trees` (state_dict-keyed dicts of tensors), gathered
     over the host: the ranks of data index 0 send their slices to rank 0
     through their gloo model group, one flat f32 buffer each.  Every rank
-    must call it."""
+    must call it.  The slices' shapes may differ from rank to rank (a
+    rank with one head more than another), so the ranks first share
+    every leaf's shape and pad their buffers to the longest."""
     host = [{k: t.detach().cpu() for k, t in tree.items()} for tree in trees]
     if mesh.model == 1:
         return host if mesh.is_chief else None
     if mesh.data_index != 0:
         return None
+    group = mesh.host_model_group
+    shape = torch.tensor([d for tree in host for t in tree.values()
+                          for d in t.shape], dtype=torch.int64)
+    shapes = [torch.empty_like(shape) for _ in range(mesh.model)]
+    dist.all_gather(shapes, shape, group=group)
+    sizes = [_leaf_shapes(host, s) for s in shapes]
+    longest = max(sum(math.prod(d) for d in size) for size in sizes)
     flat = torch.cat([t.float().reshape(-1) for tree in host
                       for t in tree.values()])
+    flat = torch.cat([flat, flat.new_zeros(longest - flat.numel())])
     parts = ([torch.empty_like(flat) for _ in range(mesh.model)]
              if mesh.is_chief else None)
-    dist.gather(flat, parts, dst=0, group=mesh.host_model_group)
+    dist.gather(flat, parts, dst=0, group=group)
     if not mesh.is_chief:
         return None
     out = []
     offsets = [0] * mesh.model
+    leaf = 0
     for tree in host:
-        shards = []
-        for i, part in enumerate(parts):
-            shard, at = {}, offsets[i]
-            for k, t in tree.items():
-                shard[k] = part[at:at + t.numel()].view(t.shape).to(t.dtype)
-                at += t.numel()
-            offsets[i] = at
-            shards.append(shard)
+        shards = [{} for _ in parts]
+        for j, (k, t) in enumerate(tree.items()):
+            for i, part in enumerate(parts):
+                size = sizes[i][leaf + j]
+                n = math.prod(size)
+                shards[i][k] = part[offsets[i]:offsets[i] + n].view(
+                    size).to(t.dtype)
+                offsets[i] += n
+        leaf += len(tree)
         out.append(unshard_state_dict(shards))
+    return out
+
+
+def _leaf_shapes(host, dims: torch.Tensor) -> list:
+    """Every leaf's shape in `dims` (one rank's shapes, flattened in the
+    order of `host`'s leaves, whose ranks of dims they share)."""
+    out, at = [], 0
+    for tree in host:
+        for t in tree.values():
+            out.append(tuple(int(d) for d in dims[at:at + t.dim()]))
+            at += t.dim()
     return out
 
 

@@ -150,7 +150,8 @@ def evaluate(args: argparse.Namespace) -> dict:
     # CPU, where the plain versions run).
     log.info("kernel launches: %s", json.dumps(
         {"attention": attention_op.launches, "fused_mlp": mlp_op.launches,
-         "layer_norm": layer_norm_op.launches}))
+         "layer_norm": layer_norm_op.launches,
+         "layer_norm_affine_free": layer_norm_op.affine_free_launches}))
     return results
 
 

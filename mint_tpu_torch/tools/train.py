@@ -17,8 +17,13 @@ As in the JAX CLI the Controller runs with ``fuse_loop``: each
 ``--steps_per_loop`` window's host batches (read two ahead by a
 background thread) are stacked, copied to the device in one copy, and
 trained by ``Trainer.train_steps``, whose steps replay a CUDA graph of the
-train step on the card.  With ``--input_backend=device`` the windows are
-drawn on the card instead.
+train step on the card.  ``--input_backend`` picks the host batches' source
+as the JAX CLI does: ``native``, the C++ loader
+(``data/native_loader.py``, built with g++ at first use; raises if it
+does not build), ``python``, the NumPy pipeline, or ``auto`` (the
+default), the C++ loader where it builds and else, with a warning, the
+Python pipeline; with ``device`` the windows are drawn on the card
+instead.
 
 It runs on one CUDA card unless ``--device=cpu`` is given (as the tests
 do); without a card the default raises.
@@ -37,9 +42,8 @@ examples of the config's global batch with a shuffle seeded by its data
 index, the ranks of one model group the same ones.  Only rank 0 writes
 the config snapshot, the metrics and the (whole, unsharded) checkpoints.
 ``--shard_corpus`` with ``--input_backend=device`` keeps each data
-rank's share of the corpus on its device.  Not in the port: the C++
-input loader, and ``--loop_unroll`` (an XLA knob with no counterpart
-here).
+rank's share of the corpus on its device.  Not in the port:
+``--loop_unroll`` (an XLA knob with no counterpart here).
 
     torchrun --nproc_per_node=8 -m mint_tpu_torch.tools.train \
         --config_path=... --model_dir=... --distributed \
@@ -60,6 +64,7 @@ import torch.distributed as dist
 
 from mint_tpu_torch.config.schema import load_pipeline_config
 from mint_tpu_torch.config.serialize import save_pipeline_config
+from mint_tpu_torch.data import native_loader
 from mint_tpu_torch.data import pipeline as data_pipeline
 from mint_tpu_torch.data import tfrecord
 from mint_tpu_torch.data.device_dataset import DeviceDataset
@@ -103,12 +108,17 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "(parameters and Adam state stay f32).")
     p.add_argument("--accumulate_steps", type=int, default=1,
                    help="Micro-batches to average per optimizer update.")
-    p.add_argument("--input_backend", choices=("python", "device"),
-                   default="python",
-                   help="'python': the host pipeline, prefetched onto the "
-                        "device two batches ahead; 'device': the whole "
-                        "corpus resident on the device, windows drawn "
-                        "there (i.i.d. windows instead of epochs).")
+    p.add_argument("--input_backend",
+                   choices=("auto", "native", "python", "device"),
+                   default="auto",
+                   help="'native': the C++ reader thread "
+                        "(csrc/mint_loader.cc); 'python': the NumPy "
+                        "pipeline; 'auto': native where its library "
+                        "builds, else python (both host loaders, "
+                        "prefetched two batches ahead); 'device': the "
+                        "whole corpus resident on the device, windows "
+                        "drawn there (i.i.d. windows instead of "
+                        "epochs).")
     p.add_argument("--device", default="cuda",
                    help="Device to train on: 'cuda' (one card, the "
                         "default; a rank's own card with --distributed) or "
@@ -198,7 +208,45 @@ def _initial_params(pipeline, model, mesh, compute_dtype):
                           device="cpu", compute_dtype=compute_dtype)
     full = dict(init_params(whole, generator).named_parameters())
     return mesh_lib.shard_state_dict(
-        {k: v.detach() for k, v in full.items()}, mesh)
+        {k: v.detach() for k, v in full.items()}, mesh,
+        mesh_lib.attention_heads(model))
+
+
+def host_input(backend: str, train_config, dataset_config,
+               seed: Optional[int], batch_size: int):
+    """The host batches of `backend` ('auto', 'native' or 'python'):
+    `batch_size` examples each, shuffled by `seed` (None: the Python
+    pipeline's default, the loader's 0), as the JAX CLI's
+    ``_make_input`` opens them."""
+    if backend in ("auto", "native"):
+        if native_loader.available():
+            params = data_pipeline.get_modality_to_param_dict(
+                dataset_config)
+            files = tfrecord.glob(dataset_config.data_files)
+            if not files:
+                raise FileNotFoundError(
+                    f"no input files match {dataset_config.data_files!r}")
+            log.info("input: the native loader (%d shards, batch %d, "
+                     "seed %d)", len(files), batch_size, seed or 0)
+            return native_loader.NativeTrainLoader(
+                files, batch_size=batch_size,
+                motion_input_len=params["motion"]["input_length"],
+                target_len=params["motion"]["target_length"],
+                target_shift=params["motion"]["target_shift"],
+                audio_input_len=params["audio"]["input_length"],
+                motion_dim_raw=params["motion"]["feature_dim"],
+                audio_dim=params["audio"]["feature_dim"],
+                seed=seed or 0)
+        if backend == "native":
+            raise RuntimeError(f"native loader unavailable: "
+                               f"{native_loader.build_error()}")
+        log.warning("native loader unavailable (%s); Python pipeline",
+                    native_loader.build_error())
+    log.info("input: the Python pipeline (batch %d, seed %s)", batch_size,
+             seed)
+    return data_pipeline.create_input(
+        train_config, dataset_config, is_training=True, seed=seed,
+        batch_size_override=batch_size)
 
 
 def train(args: argparse.Namespace) -> None:
@@ -265,15 +313,15 @@ def _train(args: argparse.Namespace, mesh) -> None:
         seed = (mesh_lib.SEED_STRIDE * mesh.data_index
                 if mesh is not None else None)
         batches = DevicePrefetcher(
-            data_pipeline.create_input(
-                train_config, pipeline.train_dataset, is_training=True,
-                seed=seed,
-                batch_size_override=train_config.batch_size // data),
+            host_input(args.input_backend, train_config,
+                       pipeline.train_dataset, seed,
+                       train_config.batch_size // data),
             lambda b: b)
 
     manager = CheckpointManager(
         args.model_dir, save_interval_steps=args.checkpoint_interval,
-        max_to_keep=5, mesh=mesh)
+        max_to_keep=5, mesh=mesh,
+        heads=mesh_lib.attention_heads(model))
     controller = Controller(
         trainer=trainer, train_iter=batches, state=state,
         steps_per_loop=args.steps_per_loop, checkpoint_manager=manager,
@@ -293,7 +341,8 @@ def _train(args: argparse.Namespace, mesh) -> None:
         log.info("kernel launches: %s", json.dumps(
             {"attention": attention_op.launches,
              "fused_mlp": mlp_op.launches,
-             "layer_norm": layer_norm_op.launches}))
+             "layer_norm": layer_norm_op.launches,
+             "layer_norm_affine_free": layer_norm_op.affine_free_launches}))
     finally:
         controller.close()
         if batches is not None:

@@ -84,10 +84,16 @@ class CheckpointManager:
 
     def __init__(self, directory: str, save_interval_steps: int = 1000,
                  max_to_keep: int = 5, async_join_grace: float = 1.0,
-                 mesh: Optional[mesh_lib.Mesh] = None):
+                 mesh: Optional[mesh_lib.Mesh] = None,
+                 heads: Optional[Dict[str, int]] = None):
         """`mesh`: this rank's place in a mesh of ranks that share
-        `directory`; every rank makes a manager and calls it alike."""
+        `directory`; every rank makes a manager and calls it alike.
+        `heads`: each attention's head count
+        (``mesh_lib.attention_heads(model)``), which a restore over a
+        model axis needs to cut this rank's heads out of the whole
+        files."""
         self.mesh = mesh
+        self.heads = heads
         self.directory = os.path.abspath(directory)
         self.save_interval_steps = save_interval_steps
         self.max_to_keep = max_to_keep
@@ -308,7 +314,7 @@ class CheckpointManager:
         with a model axis)."""
         if self.mesh is None or self.mesh.model == 1:
             return tree
-        return mesh_lib.shard_state_dict(tree, self.mesh)
+        return mesh_lib.shard_state_dict(tree, self.mesh, self.heads)
 
     # -- restoring --------------------------------------------------------
 

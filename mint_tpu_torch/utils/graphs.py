@@ -64,7 +64,11 @@ _cuda = torch.cuda  # what this module calls of CUDA (the CPU tests fake it)
 capture_lock = threading.RLock()
 _count_lock = threading.Lock()
 
-_OPS = {"attention": attention, "fused_mlp": mlp, "layer_norm": layer_norm}
+#: Each kernel's launch count: its wrapper's module and the attribute.
+_COUNTERS = {"attention": (attention, "launches"),
+             "fused_mlp": (mlp, "launches"),
+             "layer_norm": (layer_norm, "launches"),
+             "layer_norm_affine_free": (layer_norm, "affine_free_launches")}
 
 #: Captured steps whose graphs hold collectives (thread-local captures).
 _with_collectives: "weakref.WeakSet[Step]" = weakref.WeakSet()
@@ -76,7 +80,12 @@ def enabled(device: torch.device | str) -> bool:
 
 
 def _launches() -> dict:
-    return {name: op.launches for name, op in _OPS.items()}
+    return {name: getattr(op, attr) for name, (op, attr) in _COUNTERS.items()}
+
+
+def _set_launches(name: str, n: int) -> None:
+    op, attr = _COUNTERS[name]
+    setattr(op, attr, n)
 
 
 class Graphs:
@@ -145,8 +154,9 @@ class Step:
         if self._graph is not None:
             self._graph.replay()
             with _count_lock:  # replicas replay from several threads
+                counted = _launches()
                 for name, n in self.launches.items():
-                    _OPS[name].launches += n
+                    _set_launches(name, counted[name] + n)
             return self._out
         if self._stream is None:
             return self._warm_up()
@@ -183,7 +193,7 @@ class Step:
                 captured = {name: n - counted[name]
                             for name, n in _launches().items()}
                 for name, n in counted.items():
-                    _OPS[name].launches = n
+                    _set_launches(name, n)
             grew = _cuda.memory_reserved(self.device) - reserved
         seconds = time.perf_counter() - t0
         self._graph, self._out, self.launches = graph, out, captured

@@ -14,7 +14,10 @@ the decode replicas, among them) and runs its forward, decode, fused
 training loop, scoring and audio feature paths on the CPU, where no graph
 is captured, then a decode over two CPU replicas, a model's slices
 round-tripped through the mesh's partition rules, and the reference
-checkpoint's name map.
+checkpoint's name map; then it opens the port's C++ train loader (built
+from the port's own source) over a small shard and runs the forward of
+the model with its LayerNorm affines folded.  The port's sources never
+name the JAX package's native library.
 """
 
 import ast
@@ -119,7 +122,8 @@ for k in range(4):  # a click every half second
 audio = extract_audio_features(y, sr, start_bpm=120, device="cpu")
 assert audio.shape == (121, 35) and np.isfinite(audio).all()
 assert audio[:, 34].sum() > 0
-from mint_tpu_torch.parallel import Mesh, shard_state_dict, unshard_state_dict
+from mint_tpu_torch.parallel import (Mesh, attention_heads, shard_state_dict,
+                                     unshard_state_dict)
 from mint_tpu_torch.parallel.replicas import Replicas
 from mint_tpu_torch.tools import convert_checkpoint
 replicas = Replicas(model, ["cpu", "cpu"])
@@ -130,7 +134,8 @@ two = replicas.decode({"motion_input": rng.standard_normal((2, 4, 9),
                       steps=3)
 assert two.shape == (2, 3, 9) and np.isfinite(two).all()
 full = model.state_dict()
-back = unshard_state_dict([shard_state_dict(full, Mesh(1, 2, r))
+back = unshard_state_dict([shard_state_dict(full, Mesh(1, 2, r),
+                                            attention_heads(model))
                            for r in range(2)])
 assert all(torch.equal(back[k], full[k]) for k in full)
 state, report = convert_checkpoint.convert_tf_variables(
@@ -139,6 +144,37 @@ assert not report and all(torch.equal(state[k], full[k]) for k in full)
 assert _build._lib is None, "the CPU path must not build the kernels"
 from mint_tpu_torch.utils import graphs
 assert graphs.of(model).captures == 0, "the CPU path captures no graph"
+import tempfile
+from mint_tpu_torch.data import native_loader
+from mint_tpu_torch.data.example import encode_example
+from mint_tpu_torch.data.tfrecord import TFRecordWriter
+from mint_tpu_torch.models import fold
+with tempfile.TemporaryDirectory() as tmp:
+    shard = tmp + "/shard"
+    with TFRecordWriter(shard) as w:
+        for i in range(3):
+            m = rng.standard_normal((30, 219)).astype(np.float32)
+            a = rng.standard_normal((30, 35)).astype(np.float32)
+            w.write(encode_example({
+                "motion_sequence": m.ravel(),
+                "motion_sequence_shape": np.asarray(m.shape, np.int64),
+                "audio_sequence": a.ravel(),
+                "audio_sequence_shape": np.asarray(a.shape, np.int64)}))
+    loader = native_loader.NativeTrainLoader(
+        [shard], batch_size=2, motion_input_len=4, target_len=2,
+        target_shift=4, audio_input_len=6, seed=1)
+    batch = next(loader)
+    loader.close()
+assert batch["motion_input"].shape == (2, 4, 225)
+assert native_loader.library_path().startswith(native_loader.BUILD_DIR)
+folded, _ = fold.fold_for_decode(model, model.state_dict())
+inputs = {"motion_input": torch.from_numpy(
+              rng.standard_normal((1, 4, 9)).astype(np.float32)),
+          "audio_input": torch.from_numpy(
+              rng.standard_normal((1, 6, 35)).astype(np.float32))}
+with torch.no_grad():
+    torch.testing.assert_close(folded(inputs), model(inputs), rtol=0,
+                               atol=1e-5)
 print("MODULES", len(names))
 print("LOADED", " ".join(sorted(sys.modules)))
 """
@@ -205,7 +241,27 @@ def test_sources_use_no_jax_and_no_stand_in_kernels():
             # time_kernels and nowhere else; the port never calls it.
             text, yardstick = _without_function(text, "time_kernels")
             assert SDPA in yardstick
+        if rel == os.path.join("mint_tpu_torch", "models", "model_utils.py"):
+            # The reference's masked attention helper bears the name; it
+            # is the plain formula and calls no library attention.
+            text, helper = _without_function(text, SDPA)
+            assert "functional" not in helper and "F." not in helper
         assert not stand_ins.search(text), rel
+
+
+def test_sources_never_name_the_jax_packages_native_library():
+    """The port builds and loads its own copy of the C++ loader
+    (``mint_tpu_torch/csrc/mint_loader.cc``): no source of the port, nor
+    chip_smoke.py, names the JAX package's ``native/`` directory or its
+    library."""
+    files = _port_sources() + [os.path.join(
+        REPO, "mint_tpu_torch", "csrc", "mint_loader.cc")]
+    for path in files:
+        with open(path) as f:
+            text = f.read()
+        rel = os.path.relpath(path, REPO)
+        assert "native/" not in text, rel
+        assert "libmintloader" not in text, rel
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -38,7 +38,7 @@ from mint_tpu_torch.data.device_dataset import DeviceDataset
 from mint_tpu_torch.eval.evaluator import Evaluator
 from mint_tpu_torch.infer import decoder
 from mint_tpu_torch.models import builder, weights
-from mint_tpu_torch.models.fact import FACT
+from mint_tpu_torch.models.fact import FACT, init_params
 from mint_tpu_torch.parallel import mesh as mesh_lib
 from mint_tpu_torch.parallel.dryrun import (dryrun, free_port, run_ranks,
                                             tiny_fact_config)
@@ -104,7 +104,9 @@ def test_shard_unshard_round_trip_and_head_split(model_ax):
     it)."""
     _, _, model = _jax_pair()
     full = model.state_dict()
-    shards = [mesh_lib.shard_state_dict(full, mesh_lib.Mesh(1, model_ax, r))
+    heads = mesh_lib.attention_heads(model)
+    shards = [mesh_lib.shard_state_dict(full, mesh_lib.Mesh(1, model_ax, r),
+                                        heads)
               for r in range(model_ax)]
     back = mesh_lib.unshard_state_dict(shards)
     assert list(back) == list(full)
@@ -129,18 +131,120 @@ def test_shard_unshard_round_trip_and_head_split(model_ax):
 
 
 def test_build_refuses_heads_that_do_not_split():
-    """The flagship's 10 heads split over 2 model ranks and not over 4
-    (JAX takes 4: GSPMD cuts columns anywhere); MLP widths likewise."""
+    """The flagship's 10 heads split over 2, 4 and 8 model ranks, the
+    sizes that divide the dims the JAX rules split, 800, 2400 and 3072
+    (uneven heads: 3, 3, 2, 2 at 4); a model axis that does not divide a
+    split dim is refused, as is one with more ranks than heads (16: a
+    rank with no head, which JAX would take), each naming the field."""
     from mint_tpu_torch.config.schema import load_pipeline_config
 
     cfg = load_pipeline_config(CONFIG).multi_modal_model.fact_model
-    builder.check_split(cfg, 2)
-    with pytest.raises(ValueError, match="num_attention_heads 10 does not "
-                       "split over 4 model ranks"):
-        builder.check_split(cfg, 4)
-    with pytest.raises(ValueError, match="4 model ranks"):
-        builder.check_kernel_limits(cfg, torch.float32, 4)
+    for model in (2, 4, 8):
+        builder.check_split(cfg, model)
     builder.check_kernel_limits(cfg, torch.bfloat16, 2)  # F = 1536 fits
+    builder.check_kernel_limits(cfg, torch.bfloat16, 4)  # F = 768 fits
+    builder.check_kernel_limits(cfg, torch.float32, 8)
+    with pytest.raises(ValueError, match="hidden_size 800 does not split "
+                       "over 3 model ranks"):
+        builder.check_split(cfg, 3)
+    with pytest.raises(ValueError, match="intermediate_size 3072 does not "
+                       "split over 5 model ranks"):
+        builder.check_split(cfg, 5)
+    with pytest.raises(ValueError, match="modality 'motion' transformer: "
+                       "num_attention_heads 10 do not fill 16 model ranks"):
+        builder.check_split(cfg, 16)
+    with pytest.raises(ValueError, match="16 model ranks"):
+        builder.check_kernel_limits(cfg, torch.float32, 16)
+    assert [mesh_lib.head_split(10, 4, r) for r in range(4)] == [
+        (0, 3), (3, 3), (6, 2), (8, 2)]
+    assert [mesh_lib.head_split(6, 4, r) for r in range(4)] == [
+        (0, 2), (2, 2), (4, 1), (5, 1)]
+    assert [mesh_lib.head_split(10, 2, r) for r in range(2)] == [
+        (0, 5), (5, 5)]
+
+
+# The uneven-head config of the tests below: 6 heads of 8 at width 48 and
+# MLP 64, over 4 model ranks (2, 2, 1 and 1 heads; 16 of the MLP each).
+UNEVEN = {"hidden_size": 48, "heads": 6, "intermediate_size": 64}
+
+
+@pytest.mark.parametrize("folded", [False, True])
+def test_uneven_heads_shard_and_unshard_bit_for_bit(folded):
+    """Over 4 ranks the 6 heads split 2, 2, 1, 1: each rank's model has
+    its run of heads (to_qkv's rows of q, k and v for them and, folded,
+    of its bias; to_out's columns), the MLP's even quarter; the slices
+    load into those models and round-trip bit for bit."""
+    cfg = S.MultiModalModelConfig(fact_model=tiny_fact_config(**UNEVEN))
+    whole = builder.build(cfg, is_training=False, device="cpu",
+                          ln_affine_folded=folded)
+    gen = torch.Generator().manual_seed(3)
+    full = {k: torch.randn(v.shape, generator=gen)
+            for k, v in whole.state_dict().items()}
+    heads = mesh_lib.attention_heads(whole)
+    assert set(heads.values()) == {6} and len(heads) == 6
+    shards = []
+    for r in range(4):
+        mesh = mesh_lib.Mesh(1, 4, r)
+        shard = mesh_lib.shard_state_dict(full, mesh, heads)
+        rank_model = builder.build(cfg, is_training=False, device="cpu",
+                                   mesh=mesh, ln_affine_folded=folded)
+        rank_model.load_state_dict(shard)  # the shapes fit the rank's
+        start, count = mesh_lib.head_split(6, 4, r)
+        attn = rank_model.cross_modal_layer.transformer.block_1.attn
+        assert (attn.head_start, attn.heads) == (start, count)
+        prefix = "cross_modal_layer.transformer.block_1.attn."
+        rows = [s * 48 + h * 8 + j for s in range(3)
+                for h in range(start, start + count) for j in range(8)]
+        assert torch.equal(shard[prefix + "to_qkv.weight"],
+                           full[prefix + "to_qkv.weight"][rows])
+        if folded:
+            assert torch.equal(shard[prefix + "to_qkv.bias"],
+                               full[prefix + "to_qkv.bias"][rows])
+        assert torch.equal(shard[prefix + "to_out.weight"],
+                           full[prefix + "to_out.weight"][
+                               :, start * 8:(start + count) * 8])
+        assert shard[prefix.replace("attn.", "mlp.") + "fc1.weight"
+                     ].shape == (16, 48)
+        shards.append(shard)
+    back = mesh_lib.unshard_state_dict(shards)
+    assert list(back) == list(full)
+    for key in full:
+        assert torch.equal(back[key], full[key]), key
+    with pytest.raises(ValueError, match="head count"):
+        mesh_lib.shard_state_dict(full, mesh_lib.Mesh(1, 4, 0))
+
+
+def test_uneven_heads_over_4_ranks_match_one_rank(tmp_path):
+    """4 gloo ranks holding 2, 2, 1 and 1 of 6 heads give the single-rank
+    port's f32 loss within 1e-5 relative and every gradient, gathered
+    whole from the ranks' unequal slices, within 1e-5 of its leaf's
+    peak."""
+    from mint_tpu_torch.train import Trainer, schedules
+
+    model = FACT(tiny_fact_config(**UNEVEN))
+    init_params(model, torch.Generator().manual_seed(4))
+    with torch.no_grad():  # LayerNorm affines off 1 and 0
+        gen = torch.Generator().manual_seed(5)
+        for name, p in model.named_parameters():
+            if ".norm_" in name:
+                p.add_(0.3 * torch.randn(p.shape, generator=gen))
+    rng = np.random.default_rng(9)
+    batch = {"motion_input": rng.standard_normal((3, 8, 9), np.float32),
+             "audio_input": rng.standard_normal((3, 16, 35), np.float32),
+             "target": rng.standard_normal((3, 4, 9), np.float32)}
+    torch.save(model.state_dict(), tmp_path / "full.pt")
+    np.savez(tmp_path / "inputs.npz", **batch)
+    with open(tmp_path / "config.json", "w") as f:
+        json.dump(UNEVEN, f)
+    loss, grads = Trainer(model, schedules.constant(1e-3)).loss_and_grads(
+        dict(model.named_parameters()), batch)
+    _run_ranks("grads", 4, tmp_path)
+    got = torch.load(tmp_path / "grads.pt", weights_only=True)
+    assert got["loss"] == pytest.approx(float(loss), rel=1e-5)
+    assert set(got["grads"]) == set(grads)
+    for key, want in grads.items():
+        assert got["grads"][key].shape == want.shape, key
+        _close_to_peak(got["grads"][key].numpy(), want.numpy(), key)
 
 
 def test_padded_batch_size_rounds_to_the_data_axis():

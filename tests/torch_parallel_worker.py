@@ -7,7 +7,8 @@ computes the JAX oracle in its own process and starts one of these a
 rank.  `dir` holds the inputs the parent wrote (``full.pt``: the whole
 model's state_dict; ``inputs.npz``) and takes the outputs.
 
-Tasks (the tiny FACT of ``mint_tpu_torch.parallel.dryrun``):
+Tasks (the tiny FACT of ``mint_tpu_torch.parallel.dryrun``, at the
+widths of ``config.json`` where the parent wrote one):
 
 - ``forward``: a (data 1, model `world`) mesh; each rank loads its slice
   of ``full.pt`` and runs the f32 forward on ``inputs.npz``; rank 0 saves
@@ -16,6 +17,9 @@ Tasks (the tiny FACT of ``mint_tpu_torch.parallel.dryrun``):
   clipping on rank's rows of the global batch in ``inputs.npz``; rank 0
   saves ``metrics.json``; then every rank saves the state through
   ``CheckpointManager(dir/ckpt, mesh=...)`` (whole, unsharded files).
+- ``grads``: a (data 1, model `world`) mesh; the f32 loss and gradients
+  of ``inputs.npz`` (with its ``target``); rank 0 saves the loss and the
+  gathered (whole) gradients in ``grads.pt``.
 """
 
 import json
@@ -46,10 +50,15 @@ def schedule():
 
 
 def sharded_model(mesh, work):
-    config = S.MultiModalModelConfig(fact_model=tiny_fact_config())
+    widths = {}
+    if os.path.exists(os.path.join(work, "config.json")):
+        with open(os.path.join(work, "config.json")) as f:
+            widths = json.load(f)
+    config = S.MultiModalModelConfig(fact_model=tiny_fact_config(**widths))
     model = builder.build(config, is_training=True, device="cpu", mesh=mesh)
     full = torch.load(os.path.join(work, "full.pt"), weights_only=True)
-    model.load_state_dict(mesh_lib.shard_state_dict(full, mesh))
+    model.load_state_dict(mesh_lib.shard_state_dict(
+        full, mesh, mesh_lib.attention_heads(model)))
     return model
 
 
@@ -86,6 +95,16 @@ def main():
                                         mesh=mesh)
             manager.save(state.step, state, force=True)
             manager.close()
+        elif task == "grads":
+            mesh = mesh_lib.make_mesh(data=1, model=world)
+            model = sharded_model(mesh, work)
+            loss, grads = Trainer(model, schedule(), mesh=mesh
+                                  ).loss_and_grads(
+                dict(model.named_parameters()), inputs)
+            gathered = mesh_lib.gather_state_dicts([grads], mesh)
+            if rank == 0:
+                torch.save({"loss": float(loss), "grads": gathered[0]},
+                           os.path.join(work, "grads.pt"))
         else:
             raise ValueError(f"unknown task {task!r}")
     except BaseException:
