@@ -112,6 +112,26 @@ CPU):
    affine-free LayerNorms in bf16, batch-20 frames/s folded against
    unfolded in both dtypes, and ``Evaluator(fold_ln=True)`` in bf16 on
    phase 7's 384-step bucket from the f32 train CLI's checkpoint.
+11. configs past the kernels' old limits: (a) each kernel against its
+   plain version at shapes it once refused, at phase 2's tolerance for
+   its dtype, timed beside its plain version, its bound and, where one
+   PyTorch call computes it, that call: bf16 attention streaming K past
+   shared memory (q[20,10,1320,80], q[20,8,720,128]), both dtypes at
+   head dims 130, 256, 50 and 67 (q[20,H,360,D]) and at 65540 (batch,
+   head) pairs (q[6554,10,48,80] against 120 keys); the MLP at F = 3070
+   (f32) and 3080 (bf16) and at H = O = 804; the bf16 LayerNorm at
+   x[7200,1040], [7200,1041] and [7200,2048], with parameters and
+   affine-free; (b) each config the kernels once refused (the flagship
+   with one geometry field changed: tests/test_torch_ops.py's
+   LIMIT_CASES, a 720-key D = 128 config and hidden 804 over 12 heads)
+   at full width and depth, built on the card in f32 and bf16: a decode
+   of 8 steps at batch 4 through its CUDA graph against the CPU's, one
+   train step's loss and gradients against the CPU's (bf16 compute for
+   training), the launch counts of both; (c) 4 gloo ranks on cuda:0 over
+   a 2-head tiny config (a model axis wider than the heads: each head
+   gathered from a group of 2 ranks) against one rank: loss, gradients,
+   one train step (``chip_smoke.py --wide-rank R ...``, one process
+   each).
 
 Phase 2 also checks and times both kernels at the training shapes
 (batch 32), and checks them at the eval's (the batches phase 7 dispatches
@@ -2705,6 +2725,425 @@ def last_modules(work, run_dir, rates, card):
             "fold_rates": fold_rates}
 
 
+# -- phase 11: configs past the old limits ------------------------------------
+
+# 11a: (dtype names, B, H, Nq, Nk, D) of attention, each at once past a limit
+# the kernels had: bf16 keys past the resident schedule (streamed K), head
+# dims over 128, bf16 head dims no multiple of 16 (and of 8: 67), and more
+# (batch, head) pairs than one grid takes (65540).
+WIDE_ATTENTION = [(("bf16",), 20, 10, 1320, 1320, 80),
+                  (("bf16",), 20, 8, 720, 720, 128)] + [
+    (("f32", "bf16"), 20, h, 360, 360, d)
+    for h, d in ((8, 130), (4, 256), (16, 50), (12, 67))] + [
+    (("f32", "bf16"), 6554, 10, 48, 120, 80)]
+# (dtype names, M, H, F, O) of the fused MLP: F no multiple of 8 (f32) or
+# 16 (bf16), and H = O = 804, rows TMA cannot address in bf16.
+WIDE_MLP = [(("f32",), 7200, 800, 3070, 800),
+            (("bf16",), 7200, 800, 3080, 800),
+            (("f32", "bf16"), 7200, 804, 3072, 804)]
+WIDE_LN = [(7200, 1040), (7200, 1041), (7200, 2048)]  # bf16 LayerNorm rows
+# 11b: the flagship with one geometry field changed, each a config the
+# kernels once refused (tests/test_torch_ops.py's LIMIT_CASES), then a
+# 720-key D = 128 config and hidden 804 over 12 heads.
+LIMIT_CONFIGS = {
+    "head_dim_over_128": dict(hidden=1040, heads=8),
+    "bf16_head_dim_step": dict(heads=16),
+    "bf16_keys": dict(audio_seq=1200),
+    "f32_mlp_width": dict(mlp_width=3070),
+    "bf16_mlp_width": dict(mlp_width=3080),
+    "bf16_layer_norm": dict(hidden=1040, heads=13),
+    "keys_720_d128": dict(hidden=1024, heads=8, audio_seq=600),
+    "hidden_804": dict(hidden=804, heads=12),
+}
+LIMIT_DECODE = (4, 8)  # 11b's decode: batch, steps
+LIMIT_TRAIN = 2        # 11b's train batch
+WIDE_AXIS = dict(hidden_size=48, heads=2, intermediate_size=64)  # 11c
+WIDE_AXIS_RANKS = 4
+
+
+def _wide_row(name, shape, err, ok, tol, t_k, t_p, t_l, work, peak, card,
+              library=None):
+    """One 11a row: max_abs_err against the plain version, whether it is
+    within the tolerance `tol` states, times, bound; logged."""
+    b_ms, b_by = bound(*work, peak)
+    log(f"{name} {shape}: max_abs_err {err:.3e}, tol {tol} "
+        f"{'ok' if ok else 'FAIL'}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms"
+        f", library {'none' if t_l is None else f'{t_l:.4f} ms'}, bound "
+        f"{b_ms:.4f} ms ({b_by}) ({card})")
+    if not ok:
+        raise AssertionError(f"{name} {shape} disagrees: {err}")
+    row = {"shape": shape, "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+           "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by}
+    if library:
+        row["library"] = library
+    return row
+
+
+def wide_kernels(att, mlp, ln, gen, card):
+    """11a: each kernel at the shapes of WIDE_ATTENTION, WIDE_MLP and
+    WIDE_LN against its plain version, at phase 2's tolerance for its
+    dtype, timed beside its plain version, its bound and, where one
+    PyTorch call computes it, that call.  Returns {(kernel, dtype name):
+    {shape: row}}."""
+    import torch.nn.functional as F
+
+    rows = {}
+    for names, b, h, nq, nk, d in WIDE_ATTENTION:
+        for name in names:
+            dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[name]
+            q, k, v = _qkv("fused", b, h, nq, nk, d, dtype, gen)
+            got = att.attention(q, k, v, SCALE)
+            torch.cuda.synchronize()
+            want = att.attention_reference(q, k, v, SCALE)
+            err = (got.float() - want.float()).abs().max().item()
+            tol = (1e-5 if name == "f32"
+                   else 2 * bf16_ulp(want.float().abs().max().item()))
+            del got, want
+            shape = f"q[{b},{h},{nq},{d}] k[{b},{h},{nk},{d}]"
+            rows.setdefault(("attention", name), {})[shape] = _wide_row(
+                f"attention {name}", shape, err, err <= tol, f"{tol:.3e}",
+                cuda_ms(lambda: att.attention(q, k, v, SCALE), 5),
+                cuda_ms(lambda: att.attention_reference(q, k, v, SCALE), 3),
+                cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, scale=SCALE), 5),
+                attention_work(b, h, nq, nk, d, dtype.itemsize), name, card,
+                "scaled_dot_product_attention")
+            del q, k, v
+            torch.cuda.empty_cache()
+    for names, m, hid, f, o in WIDE_MLP:
+        for name in names:
+            dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[name]
+            w1, b1, w2, b2 = mlp_weights(gen, dtype, h=hid, f=f, o=o)
+            x = torch.randn(m, hid, device="cuda", generator=gen).to(dtype)
+            got = mlp.fused_mlp(x, w1, b1, w2, b2)
+            torch.cuda.synchronize()
+            want = mlp.mlp_reference(x, w1, b1, w2, b2)
+            err = (got.float() - want.float()).abs().max().item()
+            peak = want.float().abs().max().item()
+            tol = 1e-5 * max(1.0, peak) if name == "f32" else 2 * bf16_ulp(
+                peak)
+            shape = f"x[{m},{hid}] W1[{hid},{f}] W2[{f},{o}]"
+            rows.setdefault(("fused_mlp", name), {})[shape] = _wide_row(
+                f"fused_mlp {name}", shape, err, err <= tol, f"{tol:.3e}",
+                cuda_ms(lambda: mlp.fused_mlp(x, w1, b1, w2, b2), 5),
+                cuda_ms(lambda: mlp.mlp_reference(x, w1, b1, w2, b2), 3),
+                None, mlp_work(m, hid, f, o, dtype.itemsize), name, card)
+    for m, c in WIDE_LN:
+        x = (torch.randn(m, c, device="cuda", generator=gen) * 2
+             + 0.5).bfloat16()
+        for key, params in (("layer_norm", ln_params(gen, c)),
+                            ("layer_norm_affine_free", (None, None))):
+            got = ln.layer_norm(x, *params, 1e-5)
+            torch.cuda.synchronize()
+            want = ln.layer_norm_reference(x, *params, 1e-5)
+            err = (got.float() - want.float()).abs()
+            # phase 2's tolerance: 1 bf16 ulp of each output (floored at
+            # the ulp of 2^-8).
+            ulp = torch.exp2(torch.floor(torch.log2(
+                want.float().abs().clamp_min(2.0 ** -8))) - 7)
+            ulps = (err / ulp).max().item()
+            affine = params[0] is not None
+            rows.setdefault((key, "bf16"), {})[f"x[{m},{c}]"] = _wide_row(
+                f"{key} bf16", f"x[{m},{c}]", err.max().item(), ulps <= 1.0,
+                f"1 bf16 ulp of each output ({ulps:.2f})",
+                cuda_ms(lambda: ln.layer_norm(x, *params, 1e-5)),
+                cuda_ms(lambda: ln.layer_norm_reference(x, *params, 1e-5)),
+                None if affine else cuda_ms(
+                    lambda: F.layer_norm(x, (c,), eps=1e-5)),
+                (8.0 * m * c, 2 * 2 * m * c + (8 * c if affine else 0)),
+                "f32", card, None if affine else "layer_norm")
+    return rows
+
+
+def limit_config(hidden=800, heads=10, mlp_width=3072, audio_seq=240):
+    """The flagship's config with one geometry field changed."""
+    from mint_tpu_torch.config.schema import load_pipeline_config
+
+    cfg = load_pipeline_config(CONFIG).multi_modal_model
+    fact = cfg.fact_model
+    for tf in [m.model[0].transformer for m in fact.modality] + [
+            fact.cross_modal_model.transformer]:
+        tf.hidden_size, tf.num_attention_heads = hidden, heads
+        tf.intermediate_size = mlp_width
+    fact.modality_by_name("audio").sequence_length = audio_seq
+    return cfg
+
+
+def _rel_l2(got, want):
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def limit_configs(card):
+    """11b: each LIMIT_CONFIGS config at full width and depth, built on the
+    card in f32 and in bf16 (the whole-model cast, and bf16 compute for
+    training), its weights a CPU generator's (seed 0): a decode of
+    LIMIT_DECODE (batch, steps) through the decode's CUDA graph, its
+    first row against the same decode on the CPU (f32: 1e-3, phase 4's;
+    bf16: 0.1 relative L2 over every frame against the CPU's f32, phase
+    6a's bf16 rule: bf16 rounding through 16 blocks, where a wrong kernel
+    gives an error of order 1), and the launches counted through capture
+    and replays; one train step's loss and gradients at batch LIMIT_TRAIN
+    against the CPU's (f32: loss 1e-5 relative, gradients 1e-4 of each
+    leaf's peak; bf16 compute: loss 1e-2 relative as 9b's, gradients 0.1
+    relative L2 of all and of each leaf as 6a's), 16 launches of each
+    kernel a forward (32 LayerNorms in bf16), and the step through the
+    trainer's graph finite.  Returns {(config, dtype name): launches}."""
+    from mint_tpu_torch.infer import decoder
+    from mint_tpu_torch.models import builder
+    from mint_tpu_torch.models.fact import init_params
+    from mint_tpu_torch.train import Trainer, schedules
+
+    b, steps = LIMIT_DECODE
+    counted = {}
+    for case, change in LIMIT_CONFIGS.items():
+        t0 = time.perf_counter()
+        cfg = limit_config(**change)
+        cpu = init_params(builder.build(cfg, is_training=True, device="cpu"),
+                          torch.Generator().manual_seed(0))
+        weights = cpu.state_dict()
+        rng = np.random.default_rng(11)
+        audio_seq = cpu.audio_seq_length
+        inputs = {"motion_input": rng.standard_normal(
+                      (b, 120, 225)).astype(np.float32) * 0.5,
+                  "audio_input": rng.standard_normal(
+                      (b, steps + audio_seq - 1, 35)).astype(np.float32)
+                  * 0.5}
+        batch = {"motion_input": rng.standard_normal(
+                     (LIMIT_TRAIN, 120, 225)).astype(np.float32) * 0.5,
+                 "audio_input": rng.standard_normal(
+                     (LIMIT_TRAIN, audio_seq, 35)).astype(np.float32) * 0.5,
+                 "target": rng.standard_normal(
+                     (LIMIT_TRAIN, 20, 225)).astype(np.float32) * 0.5}
+        batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+        cpu.eval()
+        want = decoder.infer_auto_regressive(
+            cpu, {k: v[:1] for k, v in inputs.items()}, steps=steps)
+        cpu.train()
+        want_loss, want_grads = Trainer(cpu, schedules.constant(0.0)
+                                        ).loss_and_grads(
+            dict(cpu.named_parameters()), batch)
+        want_loss = float(want_loss)
+        t_cpu = time.perf_counter() - t0
+        del cpu
+        for name in ("f32", "bf16"):
+            bf16 = name == "bf16"
+            dtype = torch.bfloat16 if bf16 else torch.float32
+            model = builder.build(cfg, is_training=False, dtype=dtype,
+                                  device="cuda")
+            model.load_state_dict(weights)
+            reset_launches()
+            got = decoder.infer_auto_regressive(model, inputs, steps=steps)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            expect = expected_launches(steps, bf16)
+            got = got.float().cpu()
+            finite = bool(torch.isfinite(got).all())
+            if bf16:
+                err, tol = _rel_l2(got[:1], want), 0.1
+                what = "relative L2 of the first row against the CPU's f32"
+            else:
+                err, tol = (got[:1] - want).abs().max().item(), 1e-3
+                what = "max_abs_err of the first row against the CPU"
+            log(f"limit config {case} {name}: decode batch {b} x {steps} "
+                f"steps through its graph, {what} {err:.3e} (tol {tol:.0e}),"
+                f" finite {finite}; launches {counts}, want {expect} "
+                f"({card})")
+            if not (err <= tol and finite and counts == expect):
+                raise AssertionError(f"limit config {case} {name} decode: "
+                                     f"{err}, finite {finite}, {counts}")
+            counted[case, name] = counts
+            del model
+            model = builder.build(cfg, is_training=True, device="cuda",
+                                  compute_dtype=dtype if bf16 else None)
+            model.load_state_dict(weights)
+            trainer = Trainer(model, schedules.constant(1e-4))
+            state = trainer.init_state(model)
+            cuda_batch = {k: v.cuda() for k, v in batch.items()}
+            reset_launches()
+            loss, grads = trainer.loss_and_grads(state.params, cuda_batch)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            loss = float(loss)
+            rel = abs(loss - want_loss) / abs(want_loss)
+            if bf16:
+                per_leaf = {k: _rel_l2(grads[k].cpu(), g)
+                            for k, g in want_grads.items()}
+                overall = _rel_l2(
+                    torch.cat([grads[k].cpu().reshape(-1)
+                               for k in want_grads]),
+                    torch.cat([g.reshape(-1) for g in want_grads.values()]))
+                loss_tol, grad_tol = 1e-2, 0.1
+            else:
+                per_leaf = {k: (grads[k].cpu() - g).abs().max().item()
+                            / max(g.abs().max().item(), 1e-30)
+                            for k, g in want_grads.items()}
+                overall, loss_tol, grad_tol = 0.0, 1e-5, 1e-4
+            worst = max(per_leaf, key=per_leaf.get)
+            state, metrics = trainer.train_step(state, cuda_batch)
+            stepped = float(metrics["loss"])
+            expect = expected_launches(1, bf16)
+            log(f"limit config {case} {name}: train batch {LIMIT_TRAIN} "
+                f"loss {loss:.6f} vs CPU {want_loss:.6f} (rel {rel:.2e}, tol "
+                f"{loss_tol:.0e}); worst gradient {per_leaf[worst]:.3e} "
+                f"({worst}; tol {grad_tol:.0e}"
+                + (f", all {overall:.3e}" if bf16 else " of the leaf's peak")
+                + f"); launches a forward {counts}, want {expect}; "
+                f"train_step loss {stepped:.6f} ({card})")
+            if (not rel <= loss_tol or not per_leaf[worst] <= grad_tol
+                    or not overall <= grad_tol or counts != expect
+                    or not math.isfinite(stepped)):
+                raise AssertionError(f"limit config {case} {name} train: "
+                                     f"{rel}, {worst} {per_leaf[worst]}, "
+                                     f"{overall}, {counts}, {stepped}")
+            del model, trainer, state, grads
+            torch.cuda.empty_cache()
+        log(f"limit config {case} in {time.perf_counter() - t0:.1f} s (CPU "
+            f"reference {t_cpu:.1f} s)")
+    return counted
+
+
+def wide_axis_rank(rank: int, port: int, work: str) -> None:
+    """One of 11c's gloo ranks on cuda:0 (``chip_smoke.py --wide-rank R
+    --wide-port P --wide-work DIR``): a (data 1, model WIDE_AXIS_RANKS)
+    mesh over the tiny config of WIDE_AXIS (2 heads: groups of 2 ranks a
+    head), the rank's slice of ``full.pt``; the f32 loss and gradients of
+    ``batch.pt`` and the forward's launches, then one train step and the
+    loss after it; rank 0 saves them, the gradients and the stepped
+    parameters gathered whole, in ``rank0.pt``."""
+    import torch.distributed as dist
+    from mint_tpu_torch.config import schema as S
+    from mint_tpu_torch.models import builder
+    from mint_tpu_torch.parallel import mesh as mesh_lib
+    from mint_tpu_torch.parallel.dryrun import tiny_fact_config
+    from mint_tpu_torch.train import Trainer, schedules
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=WIDE_AXIS_RANKS, rank=rank)
+    try:
+        mesh = mesh_lib.make_mesh(data=1, model=WIDE_AXIS_RANKS,
+                                  device="cuda:0")
+        cfg = S.MultiModalModelConfig(
+            fact_model=tiny_fact_config(**WIDE_AXIS))
+        model = builder.build(cfg, is_training=True, device="cuda:0",
+                              mesh=mesh)
+        full = torch.load(os.path.join(work, "full.pt"), weights_only=True)
+        model.load_state_dict(mesh_lib.shard_state_dict(
+            full, mesh, mesh_lib.attention_heads(model)))
+        batch = {k: v.cuda() for k, v in torch.load(
+            os.path.join(work, "batch.pt"), weights_only=True).items()}
+        trainer = Trainer(model, schedules.constant(1e-3), mesh=mesh)
+        state = trainer.init_state(model)
+        with torch.no_grad():
+            reset_launches()
+            trainer.loss(state.params, batch)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        loss, grads = trainer.loss_and_grads(state.params, batch)
+        gathered = mesh_lib.gather_state_dicts([grads], mesh)
+        state, _ = trainer.train_step(state, batch)
+        with torch.no_grad():
+            after = float(trainer.loss(state.params, batch))
+        stepped = mesh_lib.gather_state_dicts([state.params], mesh)
+        if rank == 0:
+            torch.save({"loss": float(loss), "launches": counts,
+                        "grads": gathered[0], "loss_after": after,
+                        "params": stepped[0]},
+                       os.path.join(work, "rank0.pt"))
+    except BaseException:
+        dist.destroy_process_group()
+        raise
+    mesh_lib.leave()
+
+
+def wide_model_axis(work, card):
+    """11c: WIDE_AXIS_RANKS gloo ranks on cuda:0 over the 2-head tiny
+    config (each head gathered from a group of 2 ranks holding 12 of its
+    24 columns) against one rank on the card, same weights and batch: f32
+    loss 1e-5 relative, every gradient 1e-4 of its leaf's peak, 6 launches
+    of each kernel a forward a rank (the config's 6 blocks; each rank runs
+    its whole head), the loss after one step 1e-5 relative and the stepped
+    parameters within 2e-5, as 9b holds 2 ranks to one.  Returns the
+    numbers."""
+    from mint_tpu_torch.config import schema as S
+    from mint_tpu_torch.models import builder
+    from mint_tpu_torch.models.fact import init_params
+    from mint_tpu_torch.parallel.dryrun import (free_port, run_ranks,
+                                                tiny_fact_config)
+    from mint_tpu_torch.train import Trainer, schedules
+
+    t0 = time.perf_counter()
+    wide_dir = os.path.join(work, "wide_axis")
+    os.makedirs(wide_dir)
+    cfg = S.MultiModalModelConfig(fact_model=tiny_fact_config(**WIDE_AXIS))
+    model = init_params(builder.build(cfg, is_training=True, device="cpu"),
+                        torch.Generator().manual_seed(7))
+    torch.save(model.state_dict(), os.path.join(wide_dir, "full.pt"))
+    rng = np.random.default_rng(12)
+    batch = {"motion_input": rng.standard_normal((3, 8, 9), np.float32),
+             "audio_input": rng.standard_normal((3, 16, 35), np.float32),
+             "target": rng.standard_normal((3, 4, 9), np.float32)}
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    torch.save(batch, os.path.join(wide_dir, "batch.pt"))
+    port = free_port()
+    run_ranks(lambda r: [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                         "--wide-rank", str(r), "--wide-port", str(port),
+                         "--wide-work", wide_dir], WIDE_AXIS_RANKS,
+              timeout=300)
+    got = torch.load(os.path.join(wide_dir, "rank0.pt"), weights_only=True)
+    one = builder.build(cfg, is_training=True, device="cuda")
+    one.load_state_dict(model.state_dict())
+    trainer = Trainer(one, schedules.constant(1e-3))
+    state = trainer.init_state(one)
+    cuda_batch = {k: v.cuda() for k, v in batch.items()}
+    loss, grads = trainer.loss_and_grads(state.params, cuda_batch)
+    state, _ = trainer.train_step(state, cuda_batch)
+    with torch.no_grad():
+        after = float(trainer.loss(state.params, cuda_batch))
+    rel = abs(got["loss"] - float(loss)) / abs(float(loss))
+    per_leaf = {k: (got["grads"][k].cuda() - g).abs().max().item()
+                / max(g.abs().max().item(), 1e-30) for k, g in grads.items()}
+    worst = max(per_leaf, key=per_leaf.get)
+    step_rel = abs(got["loss_after"] - after) / abs(after)
+    moved = max((got["params"][k].cuda() - v).abs().max().item()
+                for k, v in state.params.items())
+    expect = {"attention": 6, "fused_mlp": 6, "layer_norm": 0,
+              "layer_norm_affine_free": 0}
+    log(f"model axis wider than the heads: {WIDE_AXIS_RANKS} gloo ranks on "
+        f"cuda:0 over 2 heads vs one rank, f32: loss {got['loss']:.6f} vs "
+        f"{float(loss):.6f} (rel {rel:.2e}, tol 1e-5); worst gradient "
+        f"{per_leaf[worst]:.3e} of its leaf's peak ({worst}; tol 1e-4); "
+        f"launches a forward of rank 0 {got['launches']}, want {expect}; "
+        f"after one step: loss rel {step_rel:.2e} (tol 1e-5), parameters "
+        f"max_abs_err {moved:.3e} (tol 2e-5); phase 11c in "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    if (not rel <= 1e-5 or not per_leaf[worst] <= 1e-4
+            or got["launches"] != expect or not step_rel <= 1e-5
+            or not moved <= 2e-5):
+        raise AssertionError(f"model axis wider than the heads: {rel}, "
+                             f"{worst} {per_leaf[worst]}, "
+                             f"{got['launches']}, {step_rel}, {moved}")
+    return {"loss_rel": rel, "worst_grad": per_leaf[worst],
+            "step_loss_rel": step_rel, "max_abs_err": moved,
+            "launches_per_forward_per_rank": got["launches"]}
+
+
+def past_old_limits(att, mlp, ln, gen, work, card):
+    """Phase 11: the kernels at the new shapes (a), the configs the
+    kernels once refused at full width and depth (b), and a model axis
+    wider than the heads (c)."""
+    t0 = time.perf_counter()
+    rows = wide_kernels(att, mlp, ln, gen, card)
+    log(f"phase 11a (kernels past the old limits) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    launches = limit_configs(card)
+    log(f"phase 11b (configs past the old limits) in "
+        f"{time.perf_counter() - t1:.1f} s")
+    axis = wide_model_axis(work, card)
+    log(f"phase 11 in {time.perf_counter() - t0:.1f} s")
+    return rows, launches, axis
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; "
@@ -2803,6 +3242,8 @@ def main():
             f"{tp['rates']['step_world_of_one']:.3f} steps/s ({card})")
         last = last_modules(work, os.path.join(work, "f32_run"),
                             tp["rates"], card)
+        wide_rows, limit_launches, wide_axis = past_old_limits(
+            att, mlp, ln, gen, work, card)
     # The affine-free LayerNorm runs on the folded decode (10b): its
     # launches there, a step, and in the folded evaluator's pass.
     free = "layer_norm_affine_free"
@@ -2863,7 +3304,15 @@ def main():
                         "train": {label: {str(n): row for n, row in
                                           rows.items()}
                                   for label, rows in tp["uneven_times"].get(
-                                      (name, dt), {}).items()}}}}
+                                      (name, dt), {}).items()}}},
+                "past_old_limits": {
+                    "shapes": wide_rows.get((name, dt), {}),
+                    "config_launches": {
+                        case: counts[name] for (case, d), counts in
+                        limit_launches.items() if d == dt},
+                    "model_axis_wider_than_heads":
+                        wide_axis["launches_per_forward_per_rank"].get(name)
+                        if dt == "f32" else None}}
                for name, (src, rep, dts) in sources.items() for dt in dts]
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -2873,12 +3322,17 @@ def main():
 
 
 if __name__ == "__main__":
-    if "--tp-rank" in sys.argv:  # one of phase 9b's ranks
+    if "--tp-rank" in sys.argv or "--wide-rank" in sys.argv:
+        # one of phase 9b's ranks, or of 11c's
         if not torch.cuda.is_available():
-            raise SystemExit("a phase 9b rank needs a CUDA card")
+            raise SystemExit("a rank of phase 9b or 11c needs a CUDA card")
         sys.path.insert(0, REPO)
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
-        tp_rank(int(args["--tp-rank"]), int(args["--tp-port"]),
-                args["--tp-work"])
+        if "--tp-rank" in args:
+            tp_rank(int(args["--tp-rank"]), int(args["--tp-port"]),
+                    args["--tp-work"])
+        else:
+            wide_axis_rank(int(args["--wide-rank"]), int(args["--wide-port"]),
+                           args["--wide-work"])
     else:
         main()

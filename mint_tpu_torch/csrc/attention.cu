@@ -40,7 +40,12 @@
 //   V along D (22 loads per 160 FMAs at D = 80).  Row strides are padded
 //   so that those reads are free of bank conflicts.  FACT's D = 80 has an
 //   instance of its own with every loop over D unrolled (1.4x to 1.9x as
-//   fast as the general one on an H100).
+//   fast as the general one on an H100).  A head dim over 128 takes
+//   attention_wide_kernel: the grid's z axis cuts the output into chunks
+//   of 128 columns; each block computes the scores over the whole head dim
+//   in 128-column slabs of Q and K (Q read again for every key tile, from
+//   L2), then P.V for its own chunk only.  The scores are computed once
+//   a chunk: simple and exact, not fast.
 // - bf16 (attention_tc_kernel): Hopper's TMA and wgmma, two passes over
 //   the keys: the first finds each row's max and sum of exp (online,
 //   merged across the four threads that share a row), the second forms
@@ -64,9 +69,28 @@
 //   warpgroup per 64 query rows, two when Nq > 64 (three blocks per head
 //   at Nq = 360, 600 for the batch-20 decode); at D = 80 and Nk = 360 it
 //   takes 92 KB and at most 128 registers a thread, so two blocks share an
-//   SM.  Needs D a multiple of 16, and the head's K within shared memory
-//   (Nk <= 1216 at D = 80, 704 at D = 128; ops/attention.py's
-//   bf16_max_keys mirrors tc_smem_bytes and raises above it).
+//   SM.  That schedule ("resident") holds while the head's K fits in
+//   shared memory: Nk <= 1216 at D = 80, 704 at D = 128
+//   (ops/attention.py's bf16_max_keys mirrors tc_smem_bytes).  Past it,
+//   and for every head dim over 128, the same kernel runs a streamed
+//   schedule (kStream): K goes through a ring of kTcSlots 64-key tiles
+//   with V, one mbarrier a slot whose phase parity counts its reuses, in
+//   the order the passes read them (pass 1: the K tiles; pass 2: each K
+//   tile, then its V tile), so pass 1 reads K once from L2 and pass 2
+//   reads K and V once.  A slot is refilled once every thread is done with
+//   it (a block barrier, then thread 0 issues the load kTcSlots ahead).
+//   Any head dim: the kernel's D is a chunk of at most 128 columns, a
+//   multiple of 16; TMA's zero fill pads a head dim that is not (the
+//   wrapper pads a layout TMA cannot address to 8 columns with zeros), and
+//   Q's loads past the head dim read zeros.  Over 128 the grid's z axis
+//   cuts the output into chunks of D columns: a block sums the scores over
+//   every chunk of Q and K (Q's fragments read again a chunk, from L2) and
+//   forms P.V for its own chunk.  Keys past Nk in the last tile, zeros
+//   from TMA, are masked out of the max and the sum as before.
+//
+// Both kernels put the (batch, head) pairs on the grid's y axis, at most
+// 65535 a launch; the C entry points launch as many times as B * H needs,
+// each launch starting at pair bh0.
 
 #include <math.h>
 
@@ -143,9 +167,158 @@ __device__ __forceinline__ void load_rows(float* dst, int ld,
   }
 }
 
-// One block per (batch*head, 16 * warps query rows); each warp owns 16
-// rows.  NQ: float4 columns of the head dim per lane in P.V (d <= 16 NQ);
-// D4: d / 4 when fixed at compile time (FACT's d = 80), else 0.
+// Scores of one 32-key tile: s[i][j] += q(row sr + 4 i) . k(key sc + 8 j)
+// over the float4 columns [0, d4) of the tile (qw: this lane's first Q
+// row, kt: its first K row, both `ld` floats a row).
+template <int kJ>
+__device__ __forceinline__ void scores_fma(float (&s)[4][kJ], const float* qw,
+                                           const float* kt, int ld, int d4) {
+#pragma unroll
+  for (int c = 0; c < 4 * d4; c += 4) {
+    float4 kv[kJ];
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) kv[j] = ld4(kt + 8 * j * ld + c);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 qv = ld4(qw + 4 * i * ld + c);
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
+        s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
+        s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
+        s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
+      }
+    }
+  }
+}
+
+// Online softmax of one tile's scores (`valid` of its keys are real): a
+// row's keys sit on the 8 lanes of equal sr.  Writes P = exp(s - new max)
+// to ps, each row's rescale of the old sums to alpha_s, and updates the
+// running max m and this lane's sum lsum.
+template <int kJ>
+__device__ __forceinline__ void softmax_tile(float (&s)[4][kJ], float (&m)[4],
+                                             float (&lsum)[4], float* ps,
+                                             float* alpha_s, int sr, int sc,
+                                             int valid, float scale) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      s[i][j] = (sc + 8 * j < valid) ? s[i][j] * scale : -INFINITY;
+      mx = fmaxf(mx, s[i][j]);
+    }
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float mn = fmaxf(m[i], mx);  // finite: the tile's first key is valid
+    const float alpha = expf(m[i] - mn);  // 0 on the first tile
+    m[i] = mn;
+    float sum = 0.f;
+    float* prow = ps + (sr + 4 * i) * kLdP + sc;
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      const float p = expf(s[i][j] - mn);
+      prow[8 * j] = p;
+      sum += p;
+    }
+    lsum[i] = lsum[i] * alpha + sum;
+    if (sc == 0) alpha_s[sr + 4 * i] = alpha;
+  }
+}
+
+// acc = acc * alpha + P.V over `keys` keys (a multiple of 4) of the tile:
+// rows pr + 8 i, head-dim float4 columns pq + 4 u below d4.  P is 0 past
+// the valid keys and V's rows there are zero-filled.
+template <int NQ>
+__device__ __forceinline__ void pv_fma(float4 (&acc)[2][NQ], const float* ps,
+                                       const float* alpha_s, const float* vs,
+                                       int ld, int pr, int pq, int keys,
+                                       int d4) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float alpha = alpha_s[pr + 8 * i];
+#pragma unroll
+    for (int u = 0; u < NQ; ++u) {
+      acc[i][u].x *= alpha;
+      acc[i][u].y *= alpha;
+      acc[i][u].z *= alpha;
+      acc[i][u].w *= alpha;
+    }
+  }
+  const float* p0 = ps + pr * kLdP;
+  const float* vt = vs + 4 * pq;
+  for (int kk = 0; kk < keys; kk += 4) {
+    const float4 pa = ld4(p0 + kk);
+    const float4 pb = ld4(p0 + 8 * kLdP + kk);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float a0 = get(pa, e), a1 = get(pb, e);
+      const float* vrow = vt + (kk + e) * ld;
+#pragma unroll
+      for (int u = 0; u < NQ; ++u) {
+        if (pq + 4 * u < d4) {
+          const float4 vv = ld4(vrow + 16 * u);
+          acc[0][u].x = fmaf(a0, vv.x, acc[0][u].x);
+          acc[0][u].y = fmaf(a0, vv.y, acc[0][u].y);
+          acc[0][u].z = fmaf(a0, vv.z, acc[0][u].z);
+          acc[0][u].w = fmaf(a0, vv.w, acc[0][u].w);
+          acc[1][u].x = fmaf(a1, vv.x, acc[1][u].x);
+          acc[1][u].y = fmaf(a1, vv.y, acc[1][u].y);
+          acc[1][u].z = fmaf(a1, vv.z, acc[1][u].z);
+          acc[1][u].w = fmaf(a1, vv.w, acc[1][u].w);
+        }
+      }
+    }
+  }
+}
+
+// Divides this warp's accumulators by their rows' sums (this lane's
+// partial sums merged across the 8 lanes of a row, handed to the P.V
+// layout through l_s) and writes rows row0 + pr + 8 i below nq, columns
+// [0, d) of each (orow0: row row0's first output column).
+template <int NQ>
+__device__ __forceinline__ void write_rows(const float4 (&acc)[2][NQ],
+                                           const float (&lsum)[4], float* l_s,
+                                           float* orow0, long long ostride,
+                                           int row0, int nq, int d, bool vec,
+                                           int sr, int sc, int pr, int pq) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float l = lsum[i];
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1)
+      l += __shfl_xor_sync(0xffffffffu, l, off);
+    if (sc == 0) l_s[sr + 4 * i] = l;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + pr + 8 * i;
+    if (row >= nq) continue;
+    const float l = l_s[pr + 8 * i];
+    float* orow = orow0 + (row - row0) * ostride;
+#pragma unroll
+    for (int u = 0; u < NQ; ++u) {
+      const int c = 4 * (pq + 4 * u);
+      if (c >= d) continue;
+      const float4 o = make_float4(acc[i][u].x / l, acc[i][u].y / l,
+                                   acc[i][u].z / l, acc[i][u].w / l);
+      if (vec) {
+        *reinterpret_cast<float4*>(orow + c) = o;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c + e < d) orow[c + e] = get(o, e);
+      }
+    }
+  }
+}
+
+// One block per (batch*head bh0 + blockIdx.y, 16 * warps query rows); each
+// warp owns 16 rows.  NQ: float4 columns of the head dim per lane in P.V
+// (d <= 16 NQ); D4: d / 4 when fixed at compile time (FACT's d = 80), else 0.
 template <int NQ, int D4>
 __global__ void __launch_bounds__(32 * kMaxWarps)
     attention_kernel(const float* __restrict__ q,
@@ -153,7 +326,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
                      const float* __restrict__ v, float* __restrict__ out,
                      Strides qs_, Strides ks_, Strides vs_, Strides os_,
                      int heads, int nq, int nk, int d, float scale,
-                     bool vec) {
+                     bool vec, long long bh0) {
   extern __shared__ float4 smem4[];
   const int ld = tile_ld(D4 ? 4 * D4 : d);
   const int d4 = D4 ? D4 : (d + 3) / 4;
@@ -168,7 +341,8 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
   float* alpha_s = ps + kWarpRows * kLdP;  // [16]: this tile's rescale
   float* l_s = alpha_s + kWarpRows;        // [16]: final row sums
 
-  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const long long bh = bh0 + blockIdx.y;
+  const int b = (int)(bh / heads), h = (int)(bh % heads);
   const int q0 = blockIdx.x * kWarpRows * warps;
   const float* qh = q + b * qs_.b + h * qs_.h;
   const float* kh = k + b * ks_.b + h * ks_.h;
@@ -202,6 +376,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
 #pragma unroll
     for (int u = 0; u < NQ; ++u) acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
 
+  constexpr int kJ = kKTile / 8;  // keys per lane
   for (int k0 = 0; k0 < nk; k0 += kKTile) {
     // K(t) has landed for every thread, and every warp is done with V(t-1).
     mint::cp_async_wait<0>();
@@ -209,58 +384,14 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
     load_rows(vs, ld, vh, vs_.n, k0, kKTile, nk, dd, vec);  // overlaps the scores
     mint::cp_async_commit();
 
-    constexpr int kJ = kKTile / 8;  // keys per lane
     float s[4][kJ];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < kJ; ++j) s[i][j] = 0.f;
-    const float* kt = ks + sc * ld;
-#pragma unroll
-    for (int c = 0; c < 4 * d4; c += 4) {
-      float4 kv[kJ];
-#pragma unroll
-      for (int j = 0; j < kJ; ++j) kv[j] = ld4(kt + 8 * j * ld + c);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 qv = ld4(qw + 4 * i * ld + c);
-#pragma unroll
-        for (int j = 0; j < kJ; ++j) {
-          s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
-        }
-      }
-    }
-
-    // Online softmax: a row's keys sit on the 8 lanes of equal sr.
+    scores_fma<kJ>(s, qw, ks + sc * ld, ld, d4);
     const int valid = nk - k0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kJ; ++j) {
-        s[i][j] = (sc + 8 * j < valid) ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float mn = fmaxf(m[i], mx);  // finite: key k0 is valid
-      const float alpha = expf(m[i] - mn);  // 0 on the first tile
-      m[i] = mn;
-      float sum = 0.f;
-      float* prow = ps + (sr + 4 * i) * kLdP + sc;
-#pragma unroll
-      for (int j = 0; j < kJ; ++j) {
-        const float p = expf(s[i][j] - mn);
-        prow[8 * j] = p;
-        sum += p;
-      }
-      lsum[i] = lsum[i] * alpha + sum;
-      if (sc == 0) alpha_s[sr + 4 * i] = alpha;
-    }
+    softmax_tile<kJ>(s, m, lsum, ps, alpha_s, sr, sc, valid, scale);
 
     // V(t) has landed, and every warp is done with K(t).
     mint::cp_async_wait<0>();
@@ -269,78 +400,110 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
       load_rows(ks, ld, kh, ks_.n, k0 + kKTile, kKTile, nk, dd, vec);
     mint::cp_async_commit();  // K(t+1) overlaps P.V
 
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float alpha = alpha_s[pr + 8 * i];
-#pragma unroll
-      for (int u = 0; u < NQ; ++u) {
-        acc[i][u].x *= alpha;
-        acc[i][u].y *= alpha;
-        acc[i][u].z *= alpha;
-        acc[i][u].w *= alpha;
-      }
-    }
-    // P is 0 past the valid keys and V's rows there are zero-filled.
-    const int keys = (min(kKTile, valid) + 3) & ~3;
-    const float* p0 = ps + pr * kLdP;
-    const float* vt = vs + 4 * pq;
-    for (int kk = 0; kk < keys; kk += 4) {
-      const float4 pa = ld4(p0 + kk);
-      const float4 pb = ld4(p0 + 8 * kLdP + kk);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float a0 = get(pa, e), a1 = get(pb, e);
-        const float* vrow = vt + (kk + e) * ld;
-#pragma unroll
-        for (int u = 0; u < NQ; ++u) {
-          if (pq + 4 * u < d4) {
-            const float4 vv = ld4(vrow + 16 * u);
-            acc[0][u].x = fmaf(a0, vv.x, acc[0][u].x);
-            acc[0][u].y = fmaf(a0, vv.y, acc[0][u].y);
-            acc[0][u].z = fmaf(a0, vv.z, acc[0][u].z);
-            acc[0][u].w = fmaf(a0, vv.w, acc[0][u].w);
-            acc[1][u].x = fmaf(a1, vv.x, acc[1][u].x);
-            acc[1][u].y = fmaf(a1, vv.y, acc[1][u].y);
-            acc[1][u].z = fmaf(a1, vv.z, acc[1][u].z);
-            acc[1][u].w = fmaf(a1, vv.w, acc[1][u].w);
-          }
-        }
-      }
-    }
+    pv_fma<NQ>(acc, ps, alpha_s, vs, ld, pr, pq,
+               (min(kKTile, valid) + 3) & ~3, d4);
   }
 
-  // Row sums: merge the 8 lanes of a row, hand them to the P.V layout.
+  const int row0 = q0 + warp * kWarpRows;
+  write_rows<NQ>(acc, lsum, l_s, out + b * os_.b + h * os_.h + row0 * os_.n,
+                 os_.n, row0, nq, d, vec, sr, sc, pr, pq);
+}
+
+// Heads wider than kMaxD: one block per (batch*head bh0 + blockIdx.y,
+// 16 * warps query rows, kMaxD-column chunk blockIdx.z of the output).
+// For every 32-key tile the scores are summed over the head dim in
+// kMaxD-column slabs of Q and K, each loaded (cp.async) and consumed in
+// turn; then the online softmax, and P.V over the block's chunk of V.
+__global__ void __launch_bounds__(32 * kMaxWarps)
+    attention_wide_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ out,
+                          Strides qs_, Strides ks_, Strides vs_, Strides os_,
+                          int heads, int nq, int nk, int d, float scale,
+                          bool vec, long long bh0) {
+  constexpr int NQ = kMaxD / 16;
+  extern __shared__ float4 smem4[];
+  const int ld = tile_ld(kMaxD);
+  const int warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int rows = kWarpRows * warps;
+  float* qs = reinterpret_cast<float*>(smem4);  // [rows][ld]
+  float* ks = qs + rows * ld;                   // [kKTile][ld]
+  float* vs = ks + kKTile * ld;                 // [kKTile][ld]
+  float* ps = vs + kKTile * ld + warp * kWarpRows * (kLdP + 2);
+  float* alpha_s = ps + kWarpRows * kLdP;
+  float* l_s = alpha_s + kWarpRows;
+
+  const long long bh = bh0 + blockIdx.y;
+  const int b = (int)(bh / heads), h = (int)(bh % heads);
+  const int q0 = blockIdx.x * rows;
+  const int c0 = blockIdx.z * kMaxD;     // this block's output columns
+  const int dc = min(kMaxD, d - c0);
+  const int dc4 = (dc + 3) / 4;
+  const float* qh = q + b * qs_.b + h * qs_.h;
+  const float* kh = k + b * ks_.b + h * ks_.h;
+  const float* vh = v + b * vs_.b + h * vs_.h + c0;
+
+  if (dc % 4) {  // V's pad columns dc .. 4 dc4 stay zero (loads skip them)
+    const int pad = 4 * dc4 - dc;
+    for (int i = threadIdx.x; i < kKTile * pad; i += blockDim.x)
+      vs[(i / pad) * ld + dc + i % pad] = 0.f;
+  }
+
+  const int sr = lane / 8, sc = lane % 8;
+  const int pr = lane / 4, pq = lane % 4;
+  const float* qw = qs + (warp * kWarpRows + sr) * ld;
+  float m[4], lsum[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    float l = lsum[i];
-#pragma unroll
-    for (int off = 1; off < 8; off <<= 1)
-      l += __shfl_xor_sync(0xffffffffu, l, off);
-    if (sc == 0) l_s[sr + 4 * i] = l;
+    m[i] = -INFINITY;
+    lsum[i] = 0.f;
   }
-  __syncwarp();
-  float* oh = out + b * os_.b + h * os_.h;
+  float4 acc[2][NQ];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + warp * kWarpRows + pr + 8 * i;
-    if (row >= nq) continue;
-    const float l = l_s[pr + 8 * i];
-    float* orow = oh + row * os_.n;
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int u = 0; u < NQ; ++u) {
-      const int c = 4 * (pq + 4 * u);
-      if (c >= d) continue;
-      const float4 o = make_float4(acc[i][u].x / l, acc[i][u].y / l,
-                                   acc[i][u].z / l, acc[i][u].w / l);
-      if (vec) {
-        *reinterpret_cast<float4*>(orow + c) = o;
-      } else {
+    for (int u = 0; u < NQ; ++u) acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  constexpr int kJ = kKTile / 8;
+  for (int k0 = 0; k0 < nk; k0 += kKTile) {
+    float s[4][kJ];
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (c + e < d) orow[c + e] = get(o, e);
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) s[i][j] = 0.f;
+    for (int s0 = 0; s0 < d; s0 += kMaxD) {
+      const int w = min(kMaxD, d - s0);
+      const int w4 = (w + 3) / 4;
+      // Every warp is done with the last slab and with the last tile's V.
+      __syncthreads();
+      if (w % 4) {  // a ragged last slab: its pad columns read as zeros
+        const int pad = 4 * w4 - w;
+        for (int i = threadIdx.x; i < (rows + kKTile) * pad; i += blockDim.x)
+          qs[(i / pad) * ld + w + i % pad] = 0.f;
       }
+      load_rows(qs, ld, qh + s0, qs_.n, q0, rows, nq, w, vec);
+      load_rows(ks, ld, kh + s0, ks_.n, k0, kKTile, nk, w, vec);
+      mint::cp_async_commit();
+      mint::cp_async_wait<0>();
+      __syncthreads();
+      scores_fma<kJ>(s, qw, ks + sc * ld, ld, w4);
     }
+    const int valid = nk - k0;
+    softmax_tile<kJ>(s, m, lsum, ps, alpha_s, sr, sc, valid, scale);
+    load_rows(vs, ld, vh, vs_.n, k0, kKTile, nk, dc, vec);
+    mint::cp_async_commit();
+    mint::cp_async_wait<0>();
+    __syncthreads();
+    pv_fma<NQ>(acc, ps, alpha_s, vs, ld, pr, pq,
+               (min(kKTile, valid) + 3) & ~3, dc4);
   }
+
+  const int row0 = q0 + warp * kWarpRows;
+  write_rows<NQ>(acc, lsum, l_s,
+                 out + b * os_.b + h * os_.h + row0 * os_.n + c0, os_.n, row0,
+                 nq, dc, vec, sr, sc, pr, pq);
 }
 
 // ---- bf16 on tensor cores: TMA + wgmma ----------------------------------
@@ -349,6 +512,7 @@ constexpr int kTcWgRows = 64;     // query rows per warpgroup (wgmma's M)
 constexpr int kTcMaxWgs = 2;      // warpgroups per block
 constexpr int kTcKeys = 64;       // keys per K / V tile (N of the scores)
 constexpr int kTcVStages = 3;     // V tiles resident at a time (a ring)
+constexpr int kTcSlots = 6;       // the streamed schedule's ring of tiles
 constexpr int kTcBarBytes = 1024;     // mbarriers at the start of smem
 constexpr int kTcMaxTiles = kTcBarBytes / 8 / 2;
 constexpr size_t kSmemLimit = 232448;  // 227 KB a block can use on an H100
@@ -368,11 +532,16 @@ struct TcTile {
   static constexpr int kBytes = kWide * kWideBytes + kNarrow * kNarrowBytes;
 };
 
-// Every K tile, and up to kTcVStages V tiles.
+// The resident schedule: every K tile, and up to kTcVStages V tiles.
 size_t tc_smem_bytes(int d, int tiles) {
   // 1 KB of slack to align the tiles to the swizzle's 1 KB atoms.
   return 2 * kTcBarBytes +
          (size_t)(tiles + std::min(tiles, kTcVStages)) * kTcKeys * 2 * d;
+}
+
+// The streamed schedule: the ring.
+size_t tc_stream_smem_bytes(int d) {
+  return 2 * kTcBarBytes + (size_t)kTcSlots * kTcKeys * 2 * d;
 }
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
@@ -394,6 +563,26 @@ __device__ __forceinline__ void merge_stats(float& m, float& l, float mo,
   l = a + b;
 }
 
+// mbar_wait that ends the kernel with a trap, an error its launch reports,
+// where a phase never completes (some 2^24 polls, seconds): a fault in the
+// streamed schedule's ring then fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = mint::smem_addr(bar);
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done = 0;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls > (1u << 24)) __trap();
+  }
+}
+
 // Descriptor of a swizzled slab: 128-byte (layout 1) or 32-byte (layout 3)
 // rows, 8-row groups `group` bytes apart.  Both offsets get that stride:
 // as a K-major operand only the one between 8-row groups is read, and as
@@ -406,10 +595,12 @@ __device__ __forceinline__ uint64_t slab_desc(const void* p, uint32_t group,
 
 // Issues (and commits; the caller waits) the scores of this warpgroup's
 // 64 query rows against K tile kt: s[4 n + e] = q . k of row (warp's 16
-// rows) g + 8 (e / 2) and key 8 n + 2 t + e % 2 of the tile, unscaled.
+// rows) g + 8 (e / 2) and key 8 n + 2 t + e % 2 of the tile, unscaled;
+// added to s where `acc` (a later chunk of the head dim), else written.
 template <int D>
 __device__ __forceinline__ void tc_scores(const uint32_t (&qf)[D / 16][4],
-                                          const uint8_t* kt, float (&s)[32]) {
+                                          const uint8_t* kt, float (&s)[32],
+                                          bool acc = false) {
   using T = TcTile<D>;
   mint::wgmma_fence();
 #pragma unroll
@@ -421,15 +612,19 @@ __device__ __forceinline__ void tc_scores(const uint32_t (&qf)[D / 16][4],
             : slab_desc(kt + T::kWide * T::kWideBytes +
                             (kk - 4 * T::kWide) * T::kNarrowBytes,
                         256, 3);
-    mint::wgmma_rs<64, 0>(s, qf[kk], desc, kk > 0);  // k-step 0 overwrites
+    mint::wgmma_rs<64, 0>(s, qf[kk], desc, acc || kk > 0);
   }
   mint::wgmma_commit();
 }
 
-// One block per (batch*head, 64 * warpgroups query rows); warpgroup w
-// owns rows q0 + 64 w ..; within it warp j owns 16 rows, and a thread
-// rows g and g + 8 of those (g = lane / 4, t = lane % 4).
-template <int D>
+// One block per (64 * warpgroups query rows, batch*head bh0 + blockIdx.y,
+// D-column chunk blockIdx.z of the output); warpgroup w owns rows
+// q0 + 64 w ..; within it warp j owns 16 rows, and a thread rows g and
+// g + 8 of those (g = lane / 4, t = lane % 4).  D: the chunk, a multiple
+// of 16 up to 128; `chunks` of them cover the head dim d (one unless
+// d > 128).  kStream: the streamed schedule (K through the ring); else K
+// resident (chunks == 1).
+template <int D, bool kStream>
 __global__ void __launch_bounds__(128 * kTcMaxWgs, 2)
     attention_tc_kernel(const __nv_bfloat16* __restrict__ q, Strides qs_,
                         const __grid_constant__ CUtensorMap kwide,
@@ -437,7 +632,8 @@ __global__ void __launch_bounds__(128 * kTcMaxWgs, 2)
                         const __grid_constant__ CUtensorMap vwide,
                         const __grid_constant__ CUtensorMap vnarrow,
                         __nv_bfloat16* __restrict__ out, Strides os_,
-                        int heads, int nq, int nk, float scale_log2) {
+                        int heads, int nq, int nk, int d, int chunks,
+                        float scale_log2, long long bh0, bool pairs) {
   using bf16 = __nv_bfloat16;
   using T = TcTile<D>;
   extern __shared__ uint8_t smem_raw[];
@@ -445,37 +641,78 @@ __global__ void __launch_bounds__(128 * kTcMaxWgs, 2)
   const uint32_t base = mint::smem_addr(smem_raw) + kTcBarBytes;
   uint8_t* ks = smem_raw + kTcBarBytes + (1024 - base % 1024) % 1024;
   const int tiles = (nk + kTcKeys - 1) / kTcKeys;
-  uint8_t* vs = ks + tiles * T::kBytes;  // [kTcVStages][T::kBytes]
-  uint64_t* kbar = bars;          // K tile t
-  uint64_t* vbar = bars + tiles;  // V tile t
+  // Resident: K tile t at ks + t * T::kBytes, V tiles in a ring of
+  // kTcVStages after them; K tile t completes on kbar[t], V tile t on
+  // vbar[t].  Streamed: ks is the ring of kTcSlots tiles, slot i
+  // completing on bars[i].
+  uint8_t* vs = ks + tiles * T::kBytes;
+  uint64_t* kbar = bars;
+  uint64_t* vbar = bars + tiles;
 
-  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const long long bh = bh0 + blockIdx.y;
+  const int b = (int)(bh / heads), h = (int)(bh % heads);
   const int q0 = blockIdx.x * kTcWgRows * (blockDim.x / 128);
+  const int z = blockIdx.z;  // output columns D z .. D z + D
   // One thread issues the TMA loads: a slab per box, a tile per mbarrier.
   auto load = [&](const CUtensorMap* wide, const CUtensorMap* narrow,
-                  uint8_t* dst, uint64_t* bar, int t) {
+                  uint8_t* dst, uint64_t* bar, int t, int col) {
     mint::mbar_expect_tx(bar, T::kBytes);
     for (int i = 0; i < T::kWide; ++i)
-      mint::tma_load_4d(dst + i * T::kWideBytes, wide, bar, 64 * i,
+      mint::tma_load_4d(dst + i * T::kWideBytes, wide, bar, col + 64 * i,
                         kTcKeys * t, h, b);
     for (int i = 0; i < T::kNarrow; ++i)
       mint::tma_load_4d(dst + T::kWide * T::kWideBytes + i * T::kNarrowBytes,
-                        narrow, bar, 64 * T::kWide + 16 * i, kTcKeys * t, h,
-                        b);
+                        narrow, bar, col + 64 * T::kWide + 16 * i, kTcKeys * t,
+                        h, b);
+  };
+  // The streamed schedule's loads, in the order the passes read them:
+  // pass 1 reads K tile t chunk c as load t * chunks + c; pass 2 reads, a
+  // tile at a time, its K chunks then its V chunk z.
+  const int pass1 = tiles * chunks;
+  const int total = pass1 + tiles * (chunks + 1);
+  auto issue = [&](int j) {
+    uint8_t* dst = ks + (j % kTcSlots) * T::kBytes;
+    uint64_t* bar = bars + j % kTcSlots;
+    if (j < pass1) {
+      load(&kwide, &knarrow, dst, bar, j / chunks, D * (j % chunks));
+      return;
+    }
+    const int t = (j - pass1) / (chunks + 1), r = (j - pass1) % (chunks + 1);
+    if (r < chunks)
+      load(&kwide, &knarrow, dst, bar, t, D * r);
+    else
+      load(&vwide, &vnarrow, dst, bar, t, D * z);
   };
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2 * tiles; ++i) mint::mbar_init(bars + i, 1);
+    const int n = kStream ? kTcSlots : 2 * tiles;
+    for (int i = 0; i < n; ++i) mint::mbar_init(bars + i, 1);
     mint::mbar_fence_init();
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    // Every K tile, then the first V tiles: pass 1 starts on key 0 while
-    // the rest lands.
-    for (int t = 0; t < tiles; ++t)
-      load(&kwide, &knarrow, ks + t * T::kBytes, kbar + t, t);
-    for (int t = 0; t < min(tiles, kTcVStages); ++t)
-      load(&vwide, &vnarrow, vs + t * T::kBytes, vbar + t, t);
+    if constexpr (kStream) {
+      for (int j = 0; j < min(total, kTcSlots); ++j) issue(j);
+    } else {
+      // Every K tile, then the first V tiles: pass 1 starts on key 0 while
+      // the rest lands.
+      for (int t = 0; t < tiles; ++t)
+        load(&kwide, &knarrow, ks + t * T::kBytes, kbar + t, t, 0);
+      for (int t = 0; t < min(tiles, kTcVStages); ++t)
+        load(&vwide, &vnarrow, vs + t * T::kBytes, vbar + t, t, 0);
+    }
   }
+  // Streamed: load `next` is the next to read; release() frees its slot
+  // once every thread is done with it and refills it kTcSlots loads ahead.
+  int next = 0;
+  auto acquire = [&]() -> const uint8_t* {
+    mbar_wait_or_trap(bars + next % kTcSlots, (next / kTcSlots) & 1);
+    return ks + (next % kTcSlots) * T::kBytes;
+  };
+  auto release = [&]() {
+    __syncthreads();
+    if (threadIdx.x == 0 && next + kTcSlots < total) issue(next + kTcSlots);
+    ++next;
+  };
 
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x % 128) / 32;
@@ -483,30 +720,49 @@ __global__ void __launch_bounds__(128 * kTcMaxWgs, 2)
   const int t4 = threadIdx.x % 4;
   const int row = q0 + kTcWgRows * wg + 16 * warp + g;
 
-  // Q's A fragments straight from device memory (each is read once):
-  // k-step kk holds columns 16 kk + 2 t (a[0], a[1]) and + 8 (a[2], a[3]).
+  // Q's A fragments of head-dim chunk c straight from device memory: k-step
+  // kk holds columns D c + 16 kk + 2 t (a[0], a[1]) and + 8 (a[2], a[3]);
+  // zeros past the rows and past the head dim (a pair starting below an odd
+  // d reads q's zero padding at column d).
   uint32_t qf[D / 16][4];
-  {
-    const bf16* q0p = q + b * qs_.b + h * qs_.h + row * qs_.n + 2 * t4;
-    const bf16* q8p = q0p + 8 * qs_.n;
+  const bf16* q0p = q + b * qs_.b + h * qs_.h + row * qs_.n + 2 * t4;
+  const bf16* q8p = q0p + 8 * qs_.n;
+  auto load_q = [&](int c) {
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      qf[kk][0] = row < nq ? ld32(q0p + 16 * kk) : 0u;
-      qf[kk][1] = row + 8 < nq ? ld32(q8p + 16 * kk) : 0u;
-      qf[kk][2] = row < nq ? ld32(q0p + 16 * kk + 8) : 0u;
-      qf[kk][3] = row + 8 < nq ? ld32(q8p + 16 * kk + 8) : 0u;
+      const int col = D * c + 16 * kk;
+      const bool lo = col + 2 * t4 < d, hi = col + 8 + 2 * t4 < d;
+      qf[kk][0] = row < nq && lo ? ld32(q0p + col) : 0u;
+      qf[kk][1] = row + 8 < nq && lo ? ld32(q8p + col) : 0u;
+      qf[kk][2] = row < nq && hi ? ld32(q0p + col + 8) : 0u;
+      qf[kk][3] = row + 8 < nq && hi ? ld32(q8p + col + 8) : 0u;
     }
-  }
+  };
+  load_q(0);
+  float s[32];
+  // Streamed: the scores of the next key tile, summed over the chunks of
+  // the head dim, each K chunk's slot freed as soon as its product is done.
+  auto stream_scores = [&]() {
+    for (int c = 0; c < chunks; ++c) {
+      if (chunks > 1) load_q(c);
+      tc_scores<D>(qf, acquire(), s, c > 0);
+      mint::wgmma_wait<0>();
+      release();
+    }
+  };
 
   // Pass 1: max and sum of exp2(s - max) (s in log2 units) of rows g
   // (r = 0) and g + 8 (r = 1) over this thread's keys, then merged across
   // the 4 threads of a row.
-  float s[32];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   for (int t = 0; t < tiles; ++t) {
-    mint::mbar_wait(kbar + t, 0);
-    tc_scores<D>(qf, ks + t * T::kBytes, s);
-    mint::wgmma_wait<0>();
+    if constexpr (kStream) {
+      stream_scores();
+    } else {
+      mint::mbar_wait(kbar + t, 0);
+      tc_scores<D>(qf, ks + t * T::kBytes, s);
+      mint::wgmma_wait<0>();
+    }
     const int valid = nk - kTcKeys * t;
     // Only the last tile has keys to mask; the others skip the test.
     auto stats = [&](auto full) {
@@ -552,13 +808,17 @@ __global__ void __launch_bounds__(128 * kTcMaxWgs, 2)
   // the 16-key step j: a[0] / a[2] row g, a[1] / a[3] row g + 8).  P.V runs
   // one m64n64k16 per wide slab of V and one m64n16k16 per narrow one; the
   // first (tile 0, keys 0-15: always valid) overwrites the accumulators.
-  // Once every warpgroup is done with V tile t, its ring slot takes tile
-  // t + kTcVStages.
+  // Resident: once every warpgroup is done with V tile t, its ring slot
+  // takes tile t + kTcVStages.
   float ow[T::kWide ? T::kWide : 1][32];
   float on[T::kNarrow ? T::kNarrow : 1][8];
   for (int t = 0; t < tiles; ++t) {
-    tc_scores<D>(qf, ks + t * T::kBytes, s);
-    mint::wgmma_wait<0>();
+    if constexpr (kStream) {
+      stream_scores();
+    } else {
+      tc_scores<D>(qf, ks + t * T::kBytes, s);
+      mint::wgmma_wait<0>();
+    }
     const int valid = nk - kTcKeys * t;
     uint32_t a[kTcKeys / 16][4];
     auto probs = [&](auto full) {
@@ -583,8 +843,13 @@ __global__ void __launch_bounds__(128 * kTcMaxWgs, 2)
       probs(std::true_type());
     else
       probs(std::false_type());
-    mint::mbar_wait(vbar + t, 0);
-    const uint8_t* vt = vs + (t % kTcVStages) * T::kBytes;
+    const uint8_t* vt;
+    if constexpr (kStream) {
+      vt = acquire();
+    } else {
+      mint::mbar_wait(vbar + t, 0);
+      vt = vs + (t % kTcVStages) * T::kBytes;
+    }
     mint::wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kTcKeys / 16; ++j) {
@@ -606,22 +871,40 @@ __global__ void __launch_bounds__(128 * kTcMaxWgs, 2)
     }
     mint::wgmma_commit();
     mint::wgmma_wait<0>();
-    if (t + kTcVStages < tiles) {
+    if constexpr (kStream) {
+      release();
+    } else if (t + kTcVStages < tiles) {
       __syncthreads();  // every warpgroup's P.V of tile t is done
       if (threadIdx.x == 0)
         load(&vwide, &vnarrow, vs + (t % kTcVStages) * T::kBytes,
-             vbar + t + kTcVStages, t + kTcVStages);
+             vbar + t + kTcVStages, t + kTcVStages, 0);
     }
   }
 
-  bf16* oh = out + b * os_.b + h * os_.h;
+  // Columns D z + col of rows `row` and `row + 8`, those below d; in pairs
+  // of 4 bytes where the output's strides allow (`pairs`).
+  bf16* oh = out + b * os_.b + h * os_.h + D * z;
+  const int dz = d - D * z;  // this chunk's columns below d
   auto store = [&](int col, float v0, float v1, float v2, float v3) {
-    if (row < nq)
-      *reinterpret_cast<__nv_bfloat162*>(oh + row * os_.n + col) =
-          __floats2bfloat162_rn(v0, v1);
-    if (row + 8 < nq)
-      *reinterpret_cast<__nv_bfloat162*>(oh + (row + 8) * os_.n + col) =
-          __floats2bfloat162_rn(v2, v3);
+    if (col >= dz) return;
+    if (pairs && col + 1 < dz) {
+      if (row < nq)
+        *reinterpret_cast<__nv_bfloat162*>(oh + row * os_.n + col) =
+            __floats2bfloat162_rn(v0, v1);
+      if (row + 8 < nq)
+        *reinterpret_cast<__nv_bfloat162*>(oh + (row + 8) * os_.n + col) =
+            __floats2bfloat162_rn(v2, v3);
+      return;
+    }
+    const bool second = col + 1 < dz;
+    if (row < nq) {
+      oh[row * os_.n + col] = __float2bfloat16_rn(v0);
+      if (second) oh[row * os_.n + col + 1] = __float2bfloat16_rn(v1);
+    }
+    if (row + 8 < nq) {
+      oh[(row + 8) * os_.n + col] = __float2bfloat16_rn(v2);
+      if (second) oh[(row + 8) * os_.n + col + 1] = __float2bfloat16_rn(v3);
+    }
   };
 #pragma unroll
   for (int w = 0; w < T::kWide; ++w)
@@ -637,11 +920,26 @@ __global__ void __launch_bounds__(128 * kTcMaxWgs, 2)
             on[w][4 * n + 1], on[w][4 * n + 2], on[w][4 * n + 3]);
 }
 
+// Launches `kernel` on grid (x, the (batch, head) pairs, z) as many times
+// as the pairs need, at most 65535 (the grid's y axis) a launch; `launch`
+// (grid, bh0) launches one.
+template <typename Launch>
+cudaError_t over_pairs(long long pairs, unsigned x, unsigned z,
+                       Launch launch) {
+  for (long long bh0 = 0; bh0 < pairs; bh0 += 65535) {
+    const dim3 grid(x, (unsigned)std::min<long long>(65535, pairs - bh0), z);
+    launch(grid, bh0);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 int launch_f32(const void* q, const void* k, const void* v, void* out,
                const long long* st, int batch, int heads, int nq, int nk,
                int d, float scale, void* stream) {
   const long long bh = (long long)batch * heads;
-  if (bh <= 0 || nq <= 0 || nk <= 0 || d <= 0 || d > kMaxD || bh > 65535)
+  if (bh <= 0 || nq <= 0 || nk <= 0 || d <= 0)
     return (int)cudaErrorInvalidValue;
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
@@ -653,6 +951,27 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
     vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
   // As many 16-row warps as the query rows need, up to kMaxWarps.
   const int warps = min(kMaxWarps, (nq + kWarpRows - 1) / kWarpRows);
+  const int rows = kWarpRows * warps;
+  const auto* qp = static_cast<const float*>(q);
+  const auto* kp = static_cast<const float*>(k);
+  const auto* vp = static_cast<const float*>(v);
+  auto* op = static_cast<float*>(out);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const unsigned x = (unsigned)((nq + rows - 1) / rows);
+  if (d > kMaxD) {
+    const size_t smem = smem_bytes(kMaxD, warps);
+    cudaError_t err = cudaFuncSetAttribute(
+        attention_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    return (int)over_pairs(
+        bh, x, (unsigned)((d + kMaxD - 1) / kMaxD),
+        [&](dim3 grid, long long bh0) {
+          attention_wide_kernel<<<grid, 32 * warps, smem, s>>>(
+              qp, kp, vp, op, qs, ks, vs, os, heads, nq, nk, d, scale, vec,
+              bh0);
+        });
+  }
   const size_t smem = smem_bytes(d, warps);
   // FACT's head dim has its own instance, with every loop over D unrolled.
   auto kernel = d == 80   ? attention_kernel<5, 20>
@@ -661,83 +980,94 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int rows = kWarpRows * warps;
-  const dim3 grid((nq + rows - 1) / rows, (unsigned)bh);
-  kernel<<<grid, 32 * warps, smem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), qs, ks, vs, os,
-      heads, nq, nk, d, scale, vec);
-  return (int)cudaGetLastError();
+  return (int)over_pairs(bh, x, 1, [&](dim3 grid, long long bh0) {
+    kernel<<<grid, 32 * warps, smem, s>>>(qp, kp, vp, op, qs, ks, vs, os,
+                                         heads, nq, nk, d, scale, vec, bh0);
+  });
 }
 
-// TMA map of one [B, H, N, D] bf16 view: dims (D, N, H, B), boxes of
-// `cols` columns x 64 rows with the given swizzle.  Strides of size-1 dims
-// are free; give them a legal value.
+// TMA map of one [B, H, N, cols] bf16 view: dims (cols, N, H, B), boxes of
+// `box` columns x 64 rows with the given swizzle; columns past `cols` (and
+// rows past N) read as zeros.  Strides of size-1 dims are free; give them
+// a legal value.
 bool tc_map(CUtensorMap* map, const void* p, const long long* st, int batch,
-            int heads, int n, int d, int cols, CUtensorMapSwizzle swizzle) {
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)n,
+            int heads, int n, int cols, int box, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)n,
                               (cuuint64_t)heads, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {
-      2ull * (n > 1 ? st[2] : d), 2ull * (heads > 1 ? st[1] : d),
-      2ull * (batch > 1 ? st[0] : d)};
-  const cuuint32_t box[4] = {(cuuint32_t)cols, kTcKeys, 1, 1};
-  return mint::make_map(map, p, 4, dims, strides, box, swizzle);
+  const cuuint64_t free = 16ull * ((cols + 7) / 8);  // 16-byte steps
+  const cuuint64_t strides[3] = {n > 1 ? 2ull * st[2] : free,
+                                 heads > 1 ? 2ull * st[1] : free,
+                                 batch > 1 ? 2ull * st[0] : free};
+  const cuuint32_t boxes[4] = {(cuuint32_t)box, kTcKeys, 1, 1};
+  return mint::make_map(map, p, 4, dims, strides, boxes, swizzle);
 }
 
+// D: the chunk width.
 template <int D>
 cudaError_t launch_tc(const __nv_bfloat16* q, Strides qs, const void* k,
                       const void* v, const long long* st,
                       __nv_bfloat16* out, Strides os, int batch, int heads,
-                      int nq, int nk, float scale_log2, cudaStream_t stream) {
+                      int nq, int nk, int d, int chunks,
+                      float scale_log2, bool pairs, cudaStream_t stream) {
   const int wgs = nq > kTcWgRows ? 2 : 1;
   const int tiles = (nk + kTcKeys - 1) / kTcKeys;
-  const size_t smem = tc_smem_bytes(D, tiles);
-  if (tiles > kTcMaxTiles || smem > kSmemLimit) return cudaErrorInvalidValue;
+  // K resident wherever it fits, as the flagship's heads do; else streamed.
+  const bool streamed = chunks > 1 || tiles > kTcMaxTiles ||
+                        tc_smem_bytes(D, tiles) > kSmemLimit;
+  const size_t smem =
+      streamed ? tc_stream_smem_bytes(D) : tc_smem_bytes(D, tiles);
   // Maps of the wide and the narrow slabs; one that a head dim does not
   // use is never read (it is encoded as a narrow one, always legal).
   CUtensorMap kw, kn, vw, vn;
   const bool wide = TcTile<D>::kWide > 0;
   const int wc = wide ? 64 : 16;
   const auto ws = wide ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
-  if (!tc_map(&kw, k, st + 3, batch, heads, nk, D, wc, ws) ||
-      !tc_map(&kn, k, st + 3, batch, heads, nk, D, 16,
+  if (!tc_map(&kw, k, st + 3, batch, heads, nk, d, wc, ws) ||
+      !tc_map(&kn, k, st + 3, batch, heads, nk, d, 16,
               CU_TENSOR_MAP_SWIZZLE_32B) ||
-      !tc_map(&vw, v, st + 6, batch, heads, nk, D, wc, ws) ||
-      !tc_map(&vn, v, st + 6, batch, heads, nk, D, 16,
+      !tc_map(&vw, v, st + 6, batch, heads, nk, d, wc, ws) ||
+      !tc_map(&vn, v, st + 6, batch, heads, nk, d, 16,
               CU_TENSOR_MAP_SWIZZLE_32B))
     return cudaErrorInvalidValue;
+  auto kernel = streamed ? attention_tc_kernel<D, true>
+                         : attention_tc_kernel<D, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((nq + kTcWgRows * wgs - 1) / (kTcWgRows * wgs),
-                  batch * heads);
-  attention_tc_kernel<D><<<grid, 128 * wgs, smem, stream>>>(
-      q, qs, kw, kn, vw, vn, out, os, heads, nq, nk, scale_log2);
-  return cudaGetLastError();
+  const unsigned x = (unsigned)((nq + kTcWgRows * wgs - 1) / (kTcWgRows * wgs));
+  return over_pairs((long long)batch * heads, x, (unsigned)chunks,
+                    [&](dim3 grid, long long bh0) {
+                      kernel<<<grid, 128 * wgs, smem, stream>>>(
+                          q, qs, kw, kn, vw, vn, out, os, heads, nq, nk, d,
+                          chunks, scale_log2, bh0, pairs);
+                    });
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 const long long* st, int batch, int heads, int nq, int nk,
                 int d, float scale, void* stream) {
   const long long bh = (long long)batch * heads;
-  if (bh <= 0 || nq <= 0 || nk <= 0 || d <= 0 || d > kMaxD || d % 16 ||
-      bh > 65535 || reinterpret_cast<uintptr_t>(q) % 4 ||
-      reinterpret_cast<uintptr_t>(out) % 4)
+  if (bh <= 0 || nq <= 0 || nk <= 0 || d <= 0 ||
+      reinterpret_cast<uintptr_t>(q) % 4)
     return (int)cudaErrorInvalidValue;
-  const int even[6] = {0, 1, 2, 9, 10, 11};  // 4-byte loads of q, stores of out
-  for (int i : even)
+  for (int i : {0, 1, 2})  // 4-byte loads of q
     if (st[i] % 2) return (int)cudaErrorInvalidValue;
+  // 4-byte stores of output pairs where its base and strides allow.
+  bool pairs = reinterpret_cast<uintptr_t>(out) % 4 == 0;
+  for (int i : {9, 10, 11}) pairs = pairs && st[i] % 2 == 0;
   const Strides qs{st[0], st[1], st[2]}, os{st[9], st[10], st[11]};
   const float scale_log2 = scale * 1.4426950408889634f;
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   auto* o = static_cast<__nv_bfloat16*>(out);
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (d) {
-#define MINT_CASE(D)                                                   \
-  case D:                                                              \
-    return (int)launch_tc<D>(qp, qs, k, v, st, o, os, batch, heads, nq, \
-                             nk, scale_log2, s);
+  // Chunks of at most kMaxD columns, as even as 16-column steps allow.
+  const int chunks = (d + kMaxD - 1) / kMaxD;
+  const int width = ((d + chunks - 1) / chunks + 15) / 16 * 16;
+  switch (width) {
+#define MINT_CASE(D)                                                      \
+  case D:                                                                 \
+    return (int)launch_tc<D>(qp, qs, k, v, st, o, os, batch, heads, nq,   \
+                             nk, d, chunks, scale_log2, pairs, s);
     MINT_CASE(16)
     MINT_CASE(32)
     MINT_CASE(48)
@@ -755,9 +1085,10 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 
 // q [B, H, nq, d], k and v [B, H, nk, d] and out [B, H, nq, d], each a view
 // with D contiguous and strides[12] = (b, h, n) strides in elements of q,
-// k, v and out, in that order.  f32: d <= 128.  bf16: d a multiple of 16,
-// <= 128; q, k and v 16-byte aligned with strides of whole 8-element
-// steps (TMA), and the head's K and V within shared memory.
+// k, v and out, in that order; any d, nq, nk and B * H.  bf16: q 4-byte
+// aligned with even strides, and a zero at column d of each row where d
+// is odd (the wrapper pads such heads); k and v 16-byte aligned with
+// strides of whole 8-element steps (TMA).
 extern "C" int mint_attention_f32(const void* q, const void* k,
                                   const void* v, void* out,
                                   const long long* strides, int batch,

@@ -19,11 +19,15 @@
 // read once and each output written once.  One warp per row, four rows a
 // block; the row stays in registers (bf16 pairs, 32-bit loads, 128 bytes
 // a warp per step) across three passes over it: the mean, the sum of
-// squared deviations from it, then the affine.  Rows of up to kMaxCols
-// columns, an even count.
+// squared deviations from it, then the affine.  That form takes rows of up
+// to kMaxCols columns, an even count.  Any other row (wider, or odd) takes
+// the wide form: the same warp a row and the same three passes, each
+// reading the row again (single bf16 values, 64 bytes a warp per step),
+// the second and third from L1 or L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -83,29 +87,76 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+// The wide form: rows of any width, read from memory in each pass.
+template <bool kAffine>
+__global__ void __launch_bounds__(kWarps * 32)
+    layer_norm_wide_kernel(const __nv_bfloat16* __restrict__ x,
+                           const float* __restrict__ gamma,
+                           const float* __restrict__ beta,
+                           __nv_bfloat16* __restrict__ out, int rows,
+                           int cols, float inv_cols, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const __nv_bfloat16* xr = x + (size_t)row * cols;
+  float sum = 0.f;
+  for (int i = lane; i < cols; i += 32) sum += __bfloat162float(xr[i]);
+  const float mean = warp_sum(sum) * inv_cols;
+  float sq = 0.f;
+  for (int i = lane; i < cols; i += 32) {
+    const float a = __bfloat162float(xr[i]) - mean;
+    sq += a * a;
+  }
+  const float rstd = rsqrtf(warp_sum(sq) * inv_cols + eps);
+  __nv_bfloat16* orow = out + (size_t)row * cols;
+  for (int i = lane; i < cols; i += 32) {
+    const float v = (__bfloat162float(xr[i]) - mean) * rstd;
+    if constexpr (kAffine)
+      orow[i] = __float2bfloat16_rn(v * gamma[i] + beta[i]);
+    else
+      orow[i] = __float2bfloat16_rn(v);
+  }
+}
+
 }  // namespace
 
-// x and out [rows, cols] bf16, row-major, 4-byte aligned; gamma and beta
-// [cols] f32, 8-byte aligned, or both null (no affine); 0 < cols <= 1024,
-// even.
+// x and out [rows, cols] bf16, row-major; gamma and beta [cols] f32, or
+// both null (no affine); any cols > 0.  Even rows of up to 1024 columns
+// whose pointers allow 4-byte bf16 pairs (8-byte parameter pairs) take the
+// register form, every other the wide form.
 extern "C" int mint_layer_norm_bf16(const void* x, const void* gamma,
                                     const void* beta, void* out, int rows,
                                     int cols, float eps, void* stream) {
-  if (rows <= 0 || cols <= 0 || cols % 2 || cols > kMaxCols ||
-      (gamma == nullptr) != (beta == nullptr))
+  if (rows <= 0 || cols <= 0 || (gamma == nullptr) != (beta == nullptr))
     return (int)cudaErrorInvalidValue;
   const int blocks = (rows + kWarps - 1) / kWarps;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(gamma) % 8 == 0 &&
+                       reinterpret_cast<uintptr_t>(beta) % 8 == 0;
+  if (cols % 2 || cols > kMaxCols || !aligned) {
+    const auto* xp = static_cast<const __nv_bfloat16*>(x);
+    const auto* gp = static_cast<const float*>(gamma);
+    const auto* bp = static_cast<const float*>(beta);
+    auto* op = static_cast<__nv_bfloat16*>(out);
+    if (gamma != nullptr)
+      layer_norm_wide_kernel<true><<<blocks, kWarps * 32, 0, s>>>(
+          xp, gp, bp, op, rows, cols, 1.0f / cols, eps);
+    else
+      layer_norm_wide_kernel<false><<<blocks, kWarps * 32, 0, s>>>(
+          xp, gp, bp, op, rows, cols, 1.0f / cols, eps);
+    return (int)cudaGetLastError();
+  }
   const auto* xp = static_cast<const __nv_bfloat162*>(x);
   const auto* gp = static_cast<const float2*>(gamma);
   const auto* bp = static_cast<const float2*>(beta);
   auto* op = static_cast<__nv_bfloat162*>(out);
   if (gamma != nullptr)
-    layer_norm_bf16_kernel<true><<<blocks, kWarps * 32, 0,
-                                   (cudaStream_t)stream>>>(
+    layer_norm_bf16_kernel<true><<<blocks, kWarps * 32, 0, s>>>(
         xp, gp, bp, op, rows, cols / 2, 1.0f / cols, eps);
   else
-    layer_norm_bf16_kernel<false><<<blocks, kWarps * 32, 0,
-                                    (cudaStream_t)stream>>>(
+    layer_norm_bf16_kernel<false><<<blocks, kWarps * 32, 0, s>>>(
         xp, gp, bp, op, rows, cols / 2, 1.0f / cols, eps);
   return (int)cudaGetLastError();
 }

@@ -61,6 +61,14 @@
 //   144x128 were timed on an H100: 112x80 is the fastest or within 4% of
 //   it at every M of the decode; 144x80 is 4% faster at fc1's M = 7200,
 //   and 112x80 alone there made the f32 batch-20 decode 1% slower.)
+//   Any widths: rows and a K range that 16-byte copies cannot address (K
+//   or a row stride not a multiple of 4 floats) take 4-byte copies, each
+//   zero-filled past K (the kVec = false instance).
+// - bf16 takes any widths whose rows TMA can address (H and F multiples of
+//   8, O even); TMA's zero fill covers the ragged last k-tile and the
+//   weights' rows past N.  The wrapper (ops/mlp.py) pads other widths with
+//   zero columns of x and W1's rows, zero columns of W1 and b1 and rows of
+//   W2, and zero columns of W2 and b2, which change no output it keeps.
 
 #include <math.h>
 
@@ -104,15 +112,18 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 }
 
 // One (16 TM x 80) tile of c = a b^T over the K range of split blockIdx.z:
-// a [M, K], b [N, K] row-major, K a multiple of 4.  With one split the
-// epilogue adds bias and applies tanh-GELU when kGelu and writes c [M, N];
-// with several, split z writes its raw sum to c + z * M * N and
+// a [M, K] and b [N, K] with rows lda and ldb floats apart.  kVec: K, lda
+// and ldb multiples of 4 and both bases 16-byte aligned (16-byte copies),
+// else 4-byte ones.  With one split the epilogue adds bias and applies
+// tanh-GELU when kGelu and writes c [M, N] (rows ldc apart); with several,
+// split z writes its raw sum to c + z * M * N (rows N apart) and
 // reduce_kernel finishes.
-template <int TM, bool kGelu>
+template <int TM, bool kGelu, bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
     gemm_nt_kernel(const float* __restrict__ a, const float* __restrict__ b,
                    const float* __restrict__ bias, float* __restrict__ c,
-                   int m, int n, int k, int split) {
+                   int m, int n, int k, int lda, int ldb, int ldc,
+                   int split) {
   constexpr int kBM = 16 * TM;
   extern __shared__ float4 smem4[];
   float* as = reinterpret_cast<float*>(smem4);  // [kStages][kBM][kLd]
@@ -130,29 +141,41 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int ke = min(k, kb + kper);
   const int tiles = ke > kb ? (ke - kb + kBK - 1) / kBK : 0;
 
-  // This thread copies column cc of rows cr + kCopyRows p of each tile;
-  // rows past m or n, and columns past the split's end, are zero-filled.
+  // This thread copies columns cc .. cc + 3 of rows cr + kCopyRows p of
+  // each tile; rows past m or n, and columns past the split's end, are
+  // zero-filled.
   const int cr = tid / kChunks, cc = 4 * (tid % kChunks);
-  const float* ag = a + (size_t)(m0 + cr) * k + kb + cc;
-  const float* bg = b + (size_t)(n0 + cr) * k + kb + cc;
+  const float* ag = a + (size_t)(m0 + cr) * lda + kb + cc;
+  const float* bg = b + (size_t)(n0 + cr) * ldb + kb + cc;
   const int soff = cr * kLd + cc;
+  // Copies the 4 columns at src (the first `cols` of them real) to dst.
+  auto copy4 = [&](float* dst, const float* src, bool row_ok, int cols) {
+    if constexpr (kVec) {
+      const bool ok = row_ok && cols > 0;
+      mint::cp_async16(dst, ok ? src : a, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = row_ok && e < cols;
+        mint::cp_async4(dst + e, ok ? src + e : a, ok);
+      }
+    }
+  };
   auto load = [&](int t) {
-    const bool kok = kb + t * kBK + cc < ke;
+    const int cols = ke - (kb + t * kBK + cc);  // real columns from cc on
     float* ad = as + (t % kStages) * kBM * kLd + soff;
     float* bd = bs + (t % kStages) * kBN * kLd + soff;
 #pragma unroll
     for (int r = 0; r < kBM; r += kCopyRows) {
       if (r + cr >= kBM) break;
-      const bool ok = kok && m0 + r + cr < m;
-      mint::cp_async16(ad + r * kLd, ok ? ag + (size_t)r * k + t * kBK : a,
-                       ok);
+      copy4(ad + r * kLd, ag + (size_t)r * lda + t * kBK, m0 + r + cr < m,
+            cols);
     }
 #pragma unroll
     for (int r = 0; r < kBN; r += kCopyRows) {
       if (r + cr >= kBN) break;
-      const bool ok = kok && n0 + r + cr < n;
-      mint::cp_async16(bd + r * kLd, ok ? bg + (size_t)r * k + t * kBK : b,
-                       ok);
+      copy4(bd + r * kLd, bg + (size_t)r * ldb + t * kBK, n0 + r + cr < n,
+            cols);
     }
   };
 
@@ -198,6 +221,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 
   float* cz = c + (size_t)blockIdx.z * m * n;
+  const size_t ld_out = split == 1 ? ldc : n;
 #pragma unroll
   for (int j = 0; j < kTN; ++j) {
     const int col = n0 + tx + 16 * j;
@@ -208,18 +232,18 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int row = m0 + ty + 16 * i;
       if (row < m) {
         const float v = acc[i][j] + bj;
-        cz[(size_t)row * n + col] = (kGelu && split == 1) ? gelu_tanh(v) : v;
+        cz[row * ld_out + col] = (kGelu && split == 1) ? gelu_tanh(v) : v;
       }
     }
   }
 }
 
 // c = epilogue(part[0] + ... + part[split - 1] + bias), summed in that
-// order, so the result does not depend on the schedule.
+// order, so the result does not depend on the schedule; c's rows ldc apart.
 template <bool kGelu>
 __global__ void reduce_kernel(const float* __restrict__ part,
                               const float* __restrict__ bias,
-                              float* __restrict__ c, int m, int n,
+                              float* __restrict__ c, int m, int n, int ldc,
                               int split) {
   const size_t mn = (size_t)m * n;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < mn;
@@ -227,7 +251,7 @@ __global__ void reduce_kernel(const float* __restrict__ part,
     float v = part[i];
     for (int s = 1; s < split; ++s) v += part[s * mn + i];
     v += bias[i % n];
-    c[i] = kGelu ? gelu_tanh(v) : v;
+    c[i / n * ldc + i % n] = kGelu ? gelu_tanh(v) : v;
   }
 }
 
@@ -270,6 +294,10 @@ cudaError_t sm_count(int* sms) {
   return err;
 }
 
+// The f32 activation's row stride: F rounded up to 4 floats, so that its
+// rows start on 16 bytes.
+int act_ld(int f) { return (f + 3) / 4 * 4; }
+
 cudaError_t plan_f32(int m, int h, int f, int o, Plan* p) {
   int sms = 0;
   const cudaError_t err = sm_count(&sms);
@@ -278,40 +306,54 @@ cudaError_t plan_f32(int m, int h, int f, int o, Plan* p) {
   p->fc2 = plan_pass(m, o, f, sms);
   const size_t part1 = p->fc1.split > 1 ? (size_t)p->fc1.split * m * f : 0;
   const size_t part2 = p->fc2.split > 1 ? (size_t)p->fc2.split * m * o : 0;
-  p->scratch = (size_t)m * f + std::max(part1, part2);
+  p->scratch = (size_t)m * act_ld(f) + std::max(part1, part2);
   return cudaSuccess;
+}
+
+template <int TM, bool kGelu, bool kVec>
+cudaError_t launch_gemm(const float* a, const float* b, const float* bias,
+                        float* c, int m, int n, int k, int lda, int ldb,
+                        int ldc, int split, cudaStream_t stream) {
+  constexpr size_t smem = gemm_smem<TM>();
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_nt_kernel<TM, kGelu, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kBN - 1) / kBN, (m + 16 * TM - 1) / (16 * TM), split);
+  gemm_nt_kernel<TM, kGelu, kVec><<<grid, kThreads, smem, stream>>>(
+      a, b, bias, c, m, n, k, lda, ldb, ldc, split);
+  return cudaGetLastError();
 }
 
 template <int TM, bool kGelu>
 cudaError_t launch_gemm(const float* a, const float* b, const float* bias,
-                        float* c, int m, int n, int k, int split,
-                        cudaStream_t stream) {
-  constexpr size_t smem = gemm_smem<TM>();
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_nt_kernel<TM, kGelu>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + kBN - 1) / kBN, (m + 16 * TM - 1) / (16 * TM), split);
-  gemm_nt_kernel<TM, kGelu><<<grid, kThreads, smem, stream>>>(a, b, bias, c,
-                                                              m, n, k, split);
-  return cudaGetLastError();
+                        float* c, int m, int n, int k, int lda, int ldb,
+                        int ldc, int split, cudaStream_t stream) {
+  const bool vec = k % 4 == 0 && lda % 4 == 0 && ldb % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  return vec ? launch_gemm<TM, kGelu, true>(a, b, bias, c, m, n, k, lda, ldb,
+                                            ldc, split, stream)
+             : launch_gemm<TM, kGelu, false>(a, b, bias, c, m, n, k, lda,
+                                             ldb, ldc, split, stream);
 }
 
-// c = epilogue(a b^T + bias) as planned; part holds the split sums.
+// c = epilogue(a b^T + bias) as planned (a's rows lda apart, b's K, c's
+// ldc); part holds the split sums.
 template <bool kGelu>
 cudaError_t gemm(const float* a, const float* b, const float* bias, float* c,
-                 float* part, int m, int n, int k, Pass pass,
-                 cudaStream_t stream) {
+                 float* part, int m, int n, int k, int lda, int ldc,
+                 Pass pass, cudaStream_t stream) {
   float* dst = pass.split > 1 ? part : c;
   cudaError_t err =
-      pass.tall
-          ? launch_gemm<kTallTM, kGelu>(a, b, bias, dst, m, n, k, 1, stream)
-          : launch_gemm<kTM, kGelu>(a, b, bias, dst, m, n, k, pass.split,
-                                    stream);
+      pass.tall ? launch_gemm<kTallTM, kGelu>(a, b, bias, dst, m, n, k, lda,
+                                              k, ldc, 1, stream)
+                : launch_gemm<kTM, kGelu>(a, b, bias, dst, m, n, k, lda, k,
+                                          ldc, pass.split, stream);
   if (err != cudaSuccess || pass.split == 1) return err;
   const int blocks =
       (int)std::min<long long>(1024, ((long long)m * n + 255) / 256);
-  reduce_kernel<kGelu><<<blocks, 256, 0, stream>>>(part, bias, c, m, n,
+  reduce_kernel<kGelu><<<blocks, 256, 0, stream>>>(part, bias, c, m, n, ldc,
                                                    pass.split);
   return cudaGetLastError();
 }
@@ -413,7 +455,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int col = n0 + 8 * j + 2 * t;
-    if (col >= n) continue;  // n is a multiple of 8: col + 1 < n too
+    if (col >= n) continue;  // n is even: col + 1 < n too
     const float bias0 = split == 1 ? __bfloat162float(bias[col]) : 0.f;
     const float bias1 = split == 1 ? __bfloat162float(bias[col + 1]) : 0.f;
 #pragma unroll
@@ -522,28 +564,30 @@ cudaError_t gemm_tc(const __nv_bfloat16* a, const __nv_bfloat16* b,
 int launch_f32(const void* x, const void* w1t, const void* b1,
                const void* w2t, const void* b2, void* scratch, void* out,
                int m, int h, int f, int o, void* stream) {
-  if (m <= 0 || h <= 0 || f <= 0 || o <= 0 || h % 8 || f % 8)
+  if (m <= 0 || h <= 0 || f <= 0 || o <= 0)
     return (int)cudaErrorInvalidValue;
   Plan p;
   cudaError_t err = plan_f32(m, h, f, o, &p);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
+  const int ldf = act_ld(f);
   float* act = static_cast<float*>(scratch);
-  float* part = act + (size_t)m * f;
+  float* part = act + (size_t)m * ldf;
   err = gemm<true>(static_cast<const float*>(x),
                    static_cast<const float*>(w1t),
-                   static_cast<const float*>(b1), act, part, m, f, h, p.fc1,
-                   s);
+                   static_cast<const float*>(b1), act, part, m, f, h, h, ldf,
+                   p.fc1, s);
   if (err != cudaSuccess) return (int)err;
   return (int)gemm<false>(act, static_cast<const float*>(w2t),
                           static_cast<const float*>(b2),
-                          static_cast<float*>(out), part, m, o, f, p.fc2, s);
+                          static_cast<float*>(out), part, m, o, f, ldf, o,
+                          p.fc2, s);
 }
 
 int launch_bf16(const void* x, const void* w1t, const void* b1,
                 const void* w2t, const void* b2, void* scratch, void* out,
                 int m, int h, int f, int o, void* stream) {
-  if (m <= 0 || h <= 0 || f <= 0 || o <= 0 || h % 16 || f % 16 || o % 8)
+  if (m <= 0 || h <= 0 || f <= 0 || o <= 0 || h % 8 || f % 8 || o % 2)
     return (int)cudaErrorInvalidValue;
   TcPlan p;
   cudaError_t err = plan_bf16(m, h, f, o, &p);
@@ -567,11 +611,11 @@ int launch_bf16(const void* x, const void* w1t, const void* b1,
 }  // namespace
 
 // x [m, h], w1t [f, h], b1 [f], w2t [o, f], b2 [o], out [m, o]; all
-// contiguous and 16-byte aligned.  f32: h and f multiples of 8, and
-// scratch an f32 buffer of mint_mlp_f32_scratch(m, h, f, o) floats (the
-// activation, then split partial sums).  bf16: h and f multiples of 16, o
-// a multiple of 8, and scratch a buffer of mint_mlp_bf16_scratch(m, h, f,
-// o) bytes (the bf16 activation, then f32 split partial sums).
+// contiguous.  f32: any widths, scratch an f32 buffer of
+// mint_mlp_f32_scratch(m, h, f, o) floats (the activation, then split
+// partial sums).  bf16: x and the weights 16-byte aligned, h and f
+// multiples of 8, o even, and scratch a buffer of mint_mlp_bf16_scratch(m,
+// h, f, o) bytes (the bf16 activation, then f32 split partial sums).
 extern "C" long long mint_mlp_f32_scratch(int m, int h, int f, int o) {
   Plan p;
   if (m <= 0 || f <= 0 || o <= 0 || plan_f32(m, h, f, o, &p) != cudaSuccess)

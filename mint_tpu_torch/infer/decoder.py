@@ -45,7 +45,6 @@ from typing import Dict
 
 import torch
 
-from mint_tpu_torch.models import builder
 from mint_tpu_torch.models.fact import FACT
 from mint_tpu_torch.utils import graphs
 
@@ -171,8 +170,6 @@ def _decode(model: FACT, inputs: Dict[str, torch.Tensor], steps: int,
     if dispatch_chunk is not None and dispatch_chunk < 0:
         raise ValueError(f"dispatch_chunk must be positive or None/0 (= one "
                          f"dispatch); got {dispatch_chunk}")
-    if model.device.type == "cuda":
-        builder.check_batch(model, b)
     chunk = dispatch_chunk or steps
 
     # Hoist the position-independent embeddings out of the loop.

@@ -163,9 +163,13 @@ class Attention(nn.Module):
     """Unmasked multi-head self-attention (``layers.py:61-96``).  With a
     model axis in `mesh`, this rank's run of the heads only
     (``mesh_lib.head_split``: ``heads / model`` rounded up on the first
-    ``heads % model`` ranks, down on the rest).  ``qkv_bias`` gives
-    ``to_qkv`` a bias, which carries the folded LayerNorm bias of a
-    model with ``ln_affine_folded`` (``models/fold.py``)."""
+    ``heads % model`` ranks, down on the rest); with more model ranks
+    than heads, this rank's run of one head's columns
+    (``mesh_lib.head_columns``), the head gathered whole from its group
+    before the kernel, which runs the whole head, and this rank's columns
+    of the output kept for ``to_out``.  ``qkv_bias`` gives ``to_qkv`` a
+    bias, which carries the folded LayerNorm bias of a model with
+    ``ln_affine_folded`` (``models/fold.py``)."""
 
     def __init__(self, dim: int, heads: int = 8,
                  compute_dtype: torch.dtype | None = None, mesh=None,
@@ -174,12 +178,24 @@ class Attention(nn.Module):
         self.dim = dim
         self.mesh = mesh if _tensor_parallel(mesh) else None
         self.total_heads = heads
-        self.head_start, self.heads = (  # this rank's
-            mesh_lib.head_split(heads, self.mesh.model,
-                                self.mesh.model_index)
-            if self.mesh else (0, heads))
         self.head_dim = dim // heads
-        local = self.heads * self.head_dim
+        self.group = None  # the ranks that share this rank's head
+        parts = self.mesh.model if self.mesh else 1
+        if parts > heads:  # a run of one head's columns
+            index = self.mesh.model_index
+            start, stop = mesh_lib.head_columns(heads, self.head_dim,
+                                                parts, index)
+            self.head_start, self.heads = start // self.head_dim, 1
+            self.columns = start % self.head_dim, stop - start
+            # Every rank asks (it makes every group); a rank alone on its
+            # head gets None and holds the whole head.
+            self.group = self.mesh.head_group(heads)
+        else:  # this rank's run of whole heads
+            self.head_start, self.heads = (
+                mesh_lib.head_split(heads, parts, self.mesh.model_index)
+                if self.mesh else (0, heads))
+            self.columns = 0, self.heads * self.head_dim
+        local = self.columns[1]
         self.to_qkv = Dense(dim, 3 * local, bias=qkv_bias,
                             compute_dtype=compute_dtype)
         self.to_out = Dense(local, dim, compute_dtype=compute_dtype)
@@ -192,13 +208,20 @@ class Attention(nn.Module):
         scale = self.dim ** -0.5  # full model dim, reference parity
         if self.mesh:
             x = mesh_lib.copy_to_model(x, self.mesh)
-        qkv = self.to_qkv(x).reshape(b, n, 3, self.heads, self.head_dim)
+        qkv = self.to_qkv(x)
+        start, cols = self.columns
+        if cols < self.head_dim:  # this rank's columns of its head
+            qkv = mesh_lib.gather_head(qkv.reshape(b, n, 3, cols),
+                                       self.group, start, self.head_dim)
+        qkv = qkv.reshape(b, n, 3, self.heads, self.head_dim)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
         nq = n if n_queries is None else min(n_queries, n)
         if nq != n:
             q = q[:, :, :nq]
         out = attention_op.attention(q, k, v, scale)
         out = out.transpose(1, 2).reshape(b, nq, self.heads * self.head_dim)
+        if cols < self.head_dim:
+            out = out[..., start:start + cols]
         if not self.mesh:
             return self.to_out(out)
         dense = self.to_out

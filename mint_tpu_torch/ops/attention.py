@@ -60,38 +60,27 @@ _ENTRY = {torch.float32: "mint_attention_f32",
 
 
 def bf16_max_keys(d: int) -> int:
-    """The most keys the bf16 kernel takes at head dim d (a multiple of 16,
-    <= 128): it holds the head's whole K in shared memory.  Mirrors
-    ``tc_smem_bytes`` in csrc/attention.cu: 2 KB of mbarriers and slack,
-    then every 64-key K tile and a ring of 3 V tiles, each 64 * 2 * d bytes,
-    within the 232448 bytes a block may take on an H100, and at most 64
-    tiles.  1216 keys at D = 80, 704 at D = 128."""
-    return 64 * min(64, (232448 - 2048) // (64 * 2 * d) - 3)
+    """Where the bf16 kernel's schedule changes at head dim d: up to this
+    many keys it holds the head's whole K in shared memory (the resident
+    schedule), past it K streams through a ring of 64-key tiles with V;
+    heads over 128 wide always stream (0).  Mirrors ``tc_smem_bytes`` in
+    csrc/attention.cu: 2 KB of mbarriers and slack, then every 64-key K
+    tile and a ring of 3 V tiles, each 64 * 2 * D bytes for D the head dim
+    rounded up to 16, within the 232448 bytes a block may take on an H100,
+    and at most 64 tiles.  1216 keys at D = 80, 704 at D = 128."""
+    if d > 128:
+        return 0
+    width = -(-d // 16) * 16
+    return 64 * min(64, (232448 - 2048) // (64 * 2 * width) - 3)
 
 
-#: Both kernels put the (batch, head) pairs on the grid's y axis.
-MAX_BATCH_HEADS = 65535
-
-
-def limit_broken(dtype: torch.dtype, d: int, nk: int,
-                 batch_heads: int | None = None) -> str | None:
-    """The limit of the `dtype` kernel that heads of dim `d` attending
-    over `nk` keys (`batch_heads` = B*H of them, where known) break, or
-    None if it takes them.  f32 runs on the FMA kernel, bf16 on the
-    tensor-core one, whose head dim steps by 16 and which holds a head's
-    whole K in shared memory (csrc/attention.cu)."""
+def limit_broken(dtype: torch.dtype) -> str | None:
+    """Why no attention kernel takes inputs of `dtype`, or None if one
+    does.  Both kernels take any head dim, key count and batch of heads
+    (csrc/attention.cu): f32 runs on the FMA kernel, bf16 on the
+    tensor-core one."""
     if dtype not in _ENTRY:
         return f"no attention kernel takes {dtype} (float32, bfloat16)"
-    d_step = 1 if dtype == torch.float32 else 16
-    if not 0 < d <= 128 or d % d_step:
-        return (f"the {dtype} kernel takes a head dim 0 < D <= 128 that is "
-                f"a multiple of {d_step}; D={d}")
-    if dtype == torch.bfloat16 and nk > bf16_max_keys(d):
-        return (f"the bf16 kernel holds a head's K in shared memory, at "
-                f"most {bf16_max_keys(d)} keys at D={d}; Nk={nk}")
-    if batch_heads is not None and batch_heads > MAX_BATCH_HEADS:
-        return (f"the kernels take B*H <= {MAX_BATCH_HEADS} (the grid's y "
-                f"axis); B*H={batch_heads}")
     return None
 
 
@@ -143,12 +132,23 @@ class AttentionFunction(torch.autograd.Function):
 
 
 def _tma_ready(t: torch.Tensor) -> bool:
-    """Whether the bf16 kernel's TMA loads can read `t` as it is: a
-    16-byte aligned base and every stride of a dim longer than 1 a whole
-    number of 16-byte steps (D itself contiguous)."""
-    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+    """Whether the bf16 kernel can read `t` as it is: a head dim that is a
+    multiple of 8, a 16-byte aligned base and every stride of a dim longer
+    than 1 a whole number of 16-byte steps (D itself contiguous), as its
+    TMA loads need."""
+    return (t.shape[-1] % 8 == 0 and t.stride(-1) == 1
+            and t.data_ptr() % 16 == 0
             and all(st % 8 == 0 for st, n in zip(t.stride()[:3], t.shape[:3])
                     if n > 1))
+
+
+def _padded(t: torch.Tensor) -> torch.Tensor:
+    """`t` copied into new storage whose rows are its head dim rounded up
+    to 8 columns, zeros after it; returned as a view of `t`'s shape."""
+    d = t.shape[-1]
+    out = t.new_zeros(*t.shape[:-1], -(-d // 8) * 8)
+    out[..., :d] = t
+    return out[..., :d]
 
 
 def _launch(q, k, v, scale):
@@ -171,10 +171,10 @@ def _launch(q, k, v, scale):
 
 
 def _operands(q, k, v):
-    """Checks q, k and v against what the kernel of their dtype takes and
-    returns what it is given: q, k and v as they are (a copy only of a
-    layout the kernel cannot read, never the model's) and the output, a
-    [B, H, Nq, D] view of new [B, Nq, H, D] storage."""
+    """Checks q, k and v and returns what the kernel of their dtype is
+    given: q, k and v as they are (a copy only of a layout the kernel
+    cannot read, never the flagship model's) and the output, a [B, H, Nq,
+    D] view of new [B, Nq, H, D] storage."""
     if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"attention: dtypes {q.dtype}/{k.dtype}/{v.dtype} "
                          "(needs one of float32, bfloat16 for all three)")
@@ -186,13 +186,13 @@ def _operands(q, k, v):
     if k.shape[:2] != (b, h) or k.shape[3] != d:
         raise ValueError(f"attention: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} disagree")
-    broken = limit_broken(q.dtype, d, nk, b * h)
-    if broken or nq == 0 or nk == 0 or b * h == 0:
-        raise ValueError(f"attention: {broken or 'empty input'}; got "
-                         f"{tuple(q.shape)}, Nk={nk}")
+    if nq == 0 or nk == 0 or b * h == 0 or d == 0:
+        raise ValueError(f"attention: empty input; got {tuple(q.shape)}, "
+                         f"Nk={nk}")
     if q.dtype == torch.bfloat16:
-        # Layouts TMA cannot address are copied once (never the model's).
-        q, k, v = (t if _tma_ready(t) else t.contiguous() for t in (q, k, v))
+        # Layouts TMA cannot address, and heads not a multiple of 8 wide,
+        # are copied once into zero-padded rows (never the flagship's).
+        q, k, v = (t if _tma_ready(t) else _padded(t) for t in (q, k, v))
     else:
         q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
                    for t in (q, k, v))

@@ -34,17 +34,6 @@ from mint_tpu_torch.ops import _build
 launches = 0
 affine_free_launches = 0
 
-MAX_COLS = 1024  # csrc/layer_norm.cu holds a row in registers
-
-
-def limit_broken(cols: int) -> str | None:
-    """The kernel's limit that rows of `cols` columns break, or None if it
-    takes them: it holds a row in a warp's registers as bf16 pairs."""
-    if cols % 2 or not 0 < cols <= MAX_COLS:
-        return f"the kernel takes an even C <= {MAX_COLS}; C={cols}"
-    return None
-
-
 def layer_norm_reference(x: torch.Tensor, weight: torch.Tensor | None,
                          bias: torch.Tensor | None, eps: float
                          ) -> torch.Tensor:
@@ -108,9 +97,6 @@ def _launch(x, weight, bias, eps):
         if x.device.type != "cuda" or x.dtype != torch.bfloat16:
             raise ValueError(f"layer_norm: the kernel takes a bfloat16 "
                              f"CUDA input; got {x.dtype} on {x.device}")
-        if limit_broken(cols):
-            raise ValueError(f"layer_norm: x {tuple(x.shape)} (the kernel "
-                             f"takes an even C <= {MAX_COLS})")
         x = x.contiguous()
         px, pw, pb = x.data_ptr(), 0, 0
     else:
@@ -127,22 +113,17 @@ def _launch(x, weight, bias, eps):
             raise ValueError(f"layer_norm: the kernel takes a bfloat16 "
                              f"input with float32 weight and bias; got "
                              f"{x.dtype}, {weight.dtype}, {bias.dtype}")
-        if (weight.shape != (cols,) or bias.shape != (cols,)
-                or limit_broken(cols)):
+        if weight.shape != (cols,) or bias.shape != (cols,):
             raise ValueError(f"layer_norm: x {tuple(x.shape)}, weight "
                              f"{tuple(weight.shape)}, bias "
-                             f"{tuple(bias.shape)} (the kernel takes an "
-                             f"even C <= {MAX_COLS})")
+                             f"{tuple(bias.shape)}")
         x, weight, bias = (x.contiguous(), weight.contiguous(),
                            bias.contiguous())
         px, pw, pb = x.data_ptr(), weight.data_ptr(), bias.data_ptr()
     out = torch.empty_like(x)
-    rows = x.numel() // cols
+    rows = x.numel() // max(cols, 1)
     if rows == 0:
         return out
-    if px % 4 or pw % 8 or pb % 8:  # (null parameters: 0)
-        raise ValueError("layer_norm: the kernel needs a 4-byte aligned x "
-                         "and 8-byte aligned weight and bias")
     err = _build.library().mint_layer_norm_bf16(
         px, pw, pb, out.data_ptr(), rows, cols, eps,
         torch._C._cuda_getCurrentRawStream(x.get_device()))

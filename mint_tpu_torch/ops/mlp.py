@@ -53,17 +53,13 @@ def mlp_formula(x, w1, b1, w2, b2) -> torch.Tensor:
 _ENTRY = {torch.float32: "mint_mlp_f32", torch.bfloat16: "mint_mlp_bf16"}
 
 
-def limit_broken(dtype: torch.dtype, h: int, f: int, o: int) -> str | None:
-    """The limit of the `dtype` kernel that an MLP of widths H -> F -> O
-    breaks, or None if it takes it.  f32 runs two FMA GEMM passes, bf16
-    two tensor-core ones, whose TMA boxes and `wgmma` depth step by 16
-    (mlp.cu)."""
+def limit_broken(dtype: torch.dtype) -> str | None:
+    """Why no fused MLP kernel takes inputs of `dtype`, or None if one
+    does.  Both take any widths (mlp.cu): f32 runs two FMA GEMM passes,
+    bf16 two tensor-core ones, whose TMA loads need rows of whole 16-byte
+    steps; :func:`_launch` pads other bf16 widths with zeros."""
     if dtype not in _ENTRY:
         return f"no fused MLP kernel takes {dtype} (float32, bfloat16)"
-    step, o_step = (8, 1) if dtype == torch.float32 else (16, 8)
-    if h % step or f % step or o % o_step:
-        return (f"the {dtype} kernel takes H and F multiples of {step} and "
-                f"O a multiple of {o_step}; H={h}, F={f}, O={o}")
     return None
 
 
@@ -135,30 +131,53 @@ def _launch(x, w1, b1, w2, b2):
             f"fused_mlp: shapes x {tuple(x.shape)}, w1 {tuple(w1.shape)}, "
             f"b1 {tuple(b1.shape)}, w2 {tuple(w2.shape)}, "
             f"b2 {tuple(b2.shape)}")
-    broken = limit_broken(x.dtype, h, f, o)
-    if broken:
-        raise ValueError(f"fused_mlp: {broken}")
     if m == 0:
         return x.new_empty((0, o))
     x = x.contiguous()
     w1t = w1.t().contiguous()
     w2t = w2.t().contiguous()
     b1, b2 = b1.contiguous(), b2.contiguous()
-    if any(t.data_ptr() % 16 for t in (x, w1t, w2t)):
-        raise ValueError("fused_mlp: kernel needs 16-byte aligned x and "
-                         "weights")
-    out = torch.empty((m, o), dtype=x.dtype, device=x.device)
+    if x.dtype == torch.bfloat16:
+        x, w1t, b1, w2t, b2 = _tma_operands(x, w1t, b1, w2t, b2)
+    hp, fp, op = x.shape[1], w1t.shape[0], w2t.shape[0]
+    out = torch.empty((m, op), dtype=x.dtype, device=x.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     # fc1's GELU'd activation for fc2, then split partial sums.
-    scratch = torch.empty(_scratch_bytes(x.device, x.dtype, m, h, f, o),
+    scratch = torch.empty(_scratch_bytes(x.device, x.dtype, m, hp, fp, op),
                           dtype=torch.uint8, device=x.device)
     err = getattr(lib, _ENTRY[x.dtype])(
         *(t.data_ptr() for t in (x, w1t, b1, w2t, b2, scratch)),
-        out.data_ptr(), m, h, f, o, stream)
+        out.data_ptr(), m, hp, fp, op, stream)
     _build.check(err, "fused MLP kernel launch")
     launches += 1
-    return out
+    return out if op == o else out[:, :o]
+
+
+def _round_up(n: int, step: int) -> int:
+    return -(-n // step) * step
+
+
+def _tma_operands(x, w1t, b1, w2t, b2):
+    """The bf16 kernel's operands: its TMA loads read x, W1^T, the
+    activation and W2^T by rows of whole 16-byte steps from 16-byte aligned
+    bases, and it writes the output in 4-byte pairs.  Widths that do not
+    allow that get zero-padded copies, which leave every output the caller
+    keeps unchanged: H up to a multiple of 8 (zero columns of x and of W1^T),
+    F likewise (zero rows of W1^T and b1, so a GELU of 0, and zero columns
+    of W2^T), O up to even (zero rows of W2^T and b2, cut off the output).
+    A misaligned base is copied."""
+    h, f, o = x.shape[1], w1t.shape[0], w2t.shape[0]
+    hp, fp, op = _round_up(h, 8), _round_up(f, 8), _round_up(o, 2)
+    if hp != h:
+        x, w1t = F.pad(x, (0, hp - h)), F.pad(w1t, (0, hp - h))
+    if fp != f:
+        w1t, b1 = F.pad(w1t, (0, 0, 0, fp - f)), F.pad(b1, (0, fp - f))
+        w2t = F.pad(w2t, (0, fp - f))
+    if op != o:
+        w2t, b2 = F.pad(w2t, (0, 0, 0, op - o)), F.pad(b2, (0, op - o))
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone()
+                 for t in (x, w1t, b1, w2t, b2))
 
 
 @functools.lru_cache(maxsize=None)

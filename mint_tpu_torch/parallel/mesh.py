@@ -31,8 +31,16 @@ GSPMD reshard behind it.  A rank here computes its own heads
 one head more, so 10 heads over 4 ranks are 3, 3, 2 and 2), so its slice
 takes the same heads from q, k and v (rows of ``to_qkv`` and, in a model
 whose LayerNorm affines are folded, of its bias) and their columns of
-``to_out``.  The split of those leaves therefore needs each attention's
-head count (:func:`attention_heads`); every other split is even.
+``to_out``.  Where the model ranks outnumber the heads, each head takes a
+contiguous group of ranks (:func:`head_group`: ``head_split(model, heads,
+h)`` of them, so 16 ranks over 10 heads are groups of 2, 2, 2, 2, 2, 2,
+1, 1, 1, 1), and a rank of a group holds a contiguous run of its head's
+columns of q, k and v and the same rows of ``to_out``'s input; the group
+gathers the head before attention (:func:`gather_head`).  Either way a
+rank's slice is one run of the (head, head dim) columns
+(:func:`head_columns`).  The split of those leaves therefore needs each
+attention's head count (:func:`attention_heads`); every other split is
+even.
 """
 
 from __future__ import annotations
@@ -105,6 +113,32 @@ def head_split(heads: int, parts: int, index: int) -> Tuple[int, int]:
     return index * base + min(index, extra), base + (index < extra)
 
 
+def head_group(heads: int, parts: int, index: int) -> Tuple[int, int, int]:
+    """(head, its first rank, its ranks) of model rank `index` of `parts`
+    where the ranks outnumber the `heads`: head h takes a contiguous group
+    of ``head_split(parts, heads, h)`` ranks."""
+    for head in range(heads):
+        first, size = head_split(parts, heads, head)
+        if first <= index < first + size:
+            return head, first, size
+    raise ValueError(f"model rank {index} of {parts}")
+
+
+def head_columns(heads: int, head_dim: int, parts: int,
+                 index: int) -> Tuple[int, int]:
+    """[start, stop) of model rank `index` of `parts` in the heads x
+    head_dim columns of each of q, k and v (and of ``to_out``'s input): its
+    run of whole heads (:func:`head_split`) where the ranks are no more
+    than the heads, else its contiguous run of its head's columns, split
+    over the head's group as :func:`head_split` splits heads."""
+    if parts <= heads:
+        start, count = head_split(heads, parts, index)
+        return start * head_dim, (start + count) * head_dim
+    head, first, size = head_group(heads, parts, index)
+    start, count = head_split(head_dim, size, index - first)
+    return head * head_dim + start, head * head_dim + start + count
+
+
 def attention_heads(model: torch.nn.Module) -> Dict[str, int]:
     """Each attention's whole head count, by its state_dict prefix (the
     ``heads`` that :func:`shard_state_dict` splits by)."""
@@ -134,6 +168,7 @@ class Mesh:
                  device: torch.device | str = "cpu",
                  backend: Optional[str] = None, model_group=None,
                  data_group=None, host_group=None, host_model_group=None):
+        self._head_groups: Dict[int, object] = {}
         self.data, self.model = int(data), int(model)
         self.rank = int(rank)
         self.data_index, self.model_index = divmod(self.rank, self.model)
@@ -151,6 +186,30 @@ class Mesh:
     @property
     def is_chief(self) -> bool:
         return self.rank == 0
+
+    def head_group(self, heads: int):
+        """The device group of the model ranks that share this rank's head
+        (:func:`head_group`) in an attention of `heads` heads, or None
+        where the rank holds whole heads or the mesh has no groups.  The
+        first call for a head count makes the groups of every data index
+        and every head at once, so every rank must ask for the same head
+        counts in the same order, as building one model does."""
+        if heads not in self._head_groups:
+            own = None
+            if self.model_group is not None and self.model > heads:
+                for d in range(self.data):
+                    for h in range(heads):
+                        first, size = head_split(self.model, heads, h)
+                        if size == 1:
+                            continue
+                        group = dist.new_group(
+                            [d * self.model + first + j for j in range(size)],
+                            backend=self.backend)
+                        if (d == self.data_index
+                                and first <= self.model_index < first + size):
+                            own = group
+            self._head_groups[heads] = own
+        return self._head_groups[heads]
 
     def __repr__(self) -> str:
         return (f"Mesh(data={self.data}, model={self.model}, rank="
@@ -245,13 +304,13 @@ def _split(t: torch.Tensor, key: str, n: int, i: int,
             raise ValueError(f"{key}: splitting it needs the head count of "
                              f"{prefix} (mesh.attention_heads(model))")
         h = heads[prefix]
-        start, count = head_split(h, n, i)
-        if kind == "out":  # [dim, heads x head dim]: the heads' columns
-            hd = t.shape[1] // h
-            return t[:, start * hd:(start + count) * hd]
-        # [3 x heads x head dim, ...]: the heads' rows of q, k and v each
-        thirds = t.reshape(3, h, -1, *t.shape[1:])
-        return thirds[:, start:start + count].reshape(-1, *t.shape[1:])
+        if kind == "out":  # [dim, heads x head dim]: the rank's columns
+            start, stop = head_columns(h, t.shape[1] // h, n, i)
+            return t[:, start:stop]
+        # [3 x heads x head dim, ...]: the rank's rows of q, k and v each
+        start, stop = head_columns(h, t.shape[0] // (3 * h), n, i)
+        thirds = t.reshape(3, -1, *t.shape[1:])
+        return thirds[:, start:stop].reshape(-1, *t.shape[1:])
     if t.shape[dim] % n:
         raise ValueError(f"{key}: dim {dim} of {tuple(t.shape)} does not "
                          f"split over {n} model ranks")
@@ -278,7 +337,8 @@ def unshard_state_dict(shards: Sequence[Mapping[str, torch.Tensor]]
                        ) -> Dict[str, torch.Tensor]:
     """The full state_dict from the slices of model index 0, 1, ... (the
     inverse of :func:`shard_state_dict`); replicated leaves from slice 0.
-    Each slice's heads are as many as its rows say."""
+    The slices of q, k and v (and ``to_out``'s) are runs of the heads'
+    columns in rank order, as long as their rows say."""
     n = len(shards)
     out = {}
     for key, t in shards[0].items():
@@ -382,6 +442,36 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class _GatherHead(torch.autograd.Function):
+    """One head's columns from the ranks that share it: forward puts this
+    rank's run [start, start + n) into zeros `width` wide and sums them
+    over the head's group, exactly (each column comes from one rank);
+    backward sums the gradient over the group (every rank's kept columns
+    of the output reach every column of q, k and v) and keeps this rank's
+    run."""
+
+    @staticmethod
+    def forward(ctx, x, group, start, width):
+        ctx.group, ctx.start, ctx.n = group, start, x.shape[-1]
+        full = x.new_zeros(*x.shape[:-1], width)
+        full[..., start:start + x.shape[-1]] = x
+        dist.all_reduce(full, group=group)
+        return full
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad[..., ctx.start:ctx.start + ctx.n], None, None, None
+
+
+def gather_head(x: torch.Tensor, group, start: int,
+                width: int) -> torch.Tensor:
+    """x [..., n], this rank's columns [start, start + n) of a head
+    `width` wide, gathered whole from the ranks of `group`."""
+    return _GatherHead.apply(x, group, start, width)
 
 
 def copy_to_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -71,7 +71,6 @@ from torch.func import functional_call
 from mint_tpu_torch.data.prefetch import to_device
 import torch.distributed as dist
 
-from mint_tpu_torch.models import builder
 from mint_tpu_torch.models.fact import l2_loss
 from mint_tpu_torch.parallel import mesh as mesh_lib
 from mint_tpu_torch.train.schedules import Schedule
@@ -334,16 +333,12 @@ class Trainer:
     def _static_batch(self, batch: Mapping[str, Any]
                       ) -> Tuple[Any, Dict[str, torch.Tensor]]:
         """The static batch for `batch`'s numeric features (made at the
-        first batch of their shapes; on the card checked against the
-        kernels' batch limit), with `batch` copied into it behind the work
-        already queued."""
+        first batch of their shapes), with `batch` copied into it behind
+        the work already queued."""
         values = to_device(batch, self.device)
         key = tuple((k, tuple(v.shape), v.dtype) for k, v in values.items())
         static = self._batches.get(key)
         if static is None:
-            if self.device.type == "cuda":
-                builder.check_batch(self.model, len(next(iter(
-                    values.values()))))
             static = self._batches[key] = {
                 k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
                 for k, v in values.items()}

@@ -238,9 +238,11 @@ def test_sources_use_no_jax_and_no_stand_in_kernels():
         assert not jax_pkg.search(text), rel
         if rel == "chip_smoke.py":
             # The library call is timed as a yardstick (library_ms) in
-            # time_kernels and nowhere else; the port never calls it.
-            text, yardstick = _without_function(text, "time_kernels")
-            assert SDPA in yardstick
+            # time_kernels and wide_kernels (phase 11a) and nowhere else;
+            # the port never calls it.
+            for timer in ("time_kernels", "wide_kernels"):
+                text, yardstick = _without_function(text, timer)
+                assert SDPA in yardstick
         if rel == os.path.join("mint_tpu_torch", "models", "model_utils.py"):
             # The reference's masked attention helper bears the name; it
             # is the plain formula and calls no library attention.

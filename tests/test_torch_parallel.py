@@ -131,36 +131,110 @@ def test_shard_unshard_round_trip_and_head_split(model_ax):
 
 
 def test_build_refuses_heads_that_do_not_split():
-    """The flagship's 10 heads split over 2, 4 and 8 model ranks, the
+    """The flagship's 10 heads split over 2, 4, 8 and 16 model ranks, the
     sizes that divide the dims the JAX rules split, 800, 2400 and 3072
-    (uneven heads: 3, 3, 2, 2 at 4); a model axis that does not divide a
-    split dim is refused, as is one with more ranks than heads (16: a
-    rank with no head, which JAX would take), each naming the field."""
+    (uneven heads: 3, 3, 2, 2 at 4; at 16, more ranks than heads, each
+    head over a group of 2 or 1 ranks), as JAX takes them; a model axis
+    that does not divide a split dim is refused, naming the field."""
     from mint_tpu_torch.config.schema import load_pipeline_config
 
     cfg = load_pipeline_config(CONFIG).multi_modal_model.fact_model
-    for model in (2, 4, 8):
+    for model in (2, 4, 8, 16):
         builder.check_split(cfg, model)
     builder.check_kernel_limits(cfg, torch.bfloat16, 2)  # F = 1536 fits
     builder.check_kernel_limits(cfg, torch.bfloat16, 4)  # F = 768 fits
     builder.check_kernel_limits(cfg, torch.float32, 8)
+    builder.check_kernel_limits(cfg, torch.float32, 16)
     with pytest.raises(ValueError, match="hidden_size 800 does not split "
                        "over 3 model ranks"):
         builder.check_split(cfg, 3)
     with pytest.raises(ValueError, match="intermediate_size 3072 does not "
                        "split over 5 model ranks"):
         builder.check_split(cfg, 5)
-    with pytest.raises(ValueError, match="modality 'motion' transformer: "
-                       "num_attention_heads 10 do not fill 16 model ranks"):
-        builder.check_split(cfg, 16)
-    with pytest.raises(ValueError, match="16 model ranks"):
-        builder.check_kernel_limits(cfg, torch.float32, 16)
     assert [mesh_lib.head_split(10, 4, r) for r in range(4)] == [
         (0, 3), (3, 3), (6, 2), (8, 2)]
     assert [mesh_lib.head_split(6, 4, r) for r in range(4)] == [
         (0, 2), (2, 2), (4, 1), (5, 1)]
     assert [mesh_lib.head_split(10, 2, r) for r in range(2)] == [
         (0, 5), (5, 5)]
+    # 16 ranks over 10 heads of 80: groups of 2, 2, 2, 2, 2, 2, 1, 1, 1, 1,
+    # a rank of a pair holding 40 of its head's columns.
+    assert [mesh_lib.head_group(10, 16, r)[2] for r in range(16)] == [
+        2] * 12 + [1] * 4
+    assert [mesh_lib.head_columns(10, 80, 16, r) for r in (0, 1, 2, 12, 15)
+            ] == [(0, 40), (40, 80), (80, 120), (480, 560), (720, 800)]
+
+
+# A model axis wider than the heads: 2 heads of 24 at width 48 and MLP 64,
+# over 4 model ranks (groups of 2 a head, 12 of its columns a rank).
+WIDE_AXIS = {"hidden_size": 48, "heads": 2, "intermediate_size": 64}
+
+
+def test_model_axis_wider_than_heads_shards_bit_for_bit():
+    """Over 4 ranks each of the 2 heads takes a group of 2: a rank's model
+    holds 12 of its head's 24 columns of q, k and v (to_qkv's rows) and the
+    same rows of to_out's input, the MLP's even quarter; the slices load
+    into those models and round-trip bit for bit."""
+    cfg = S.MultiModalModelConfig(fact_model=tiny_fact_config(**WIDE_AXIS))
+    whole = builder.build(cfg, is_training=False, device="cpu")
+    gen = torch.Generator().manual_seed(6)
+    full = {k: torch.randn(v.shape, generator=gen)
+            for k, v in whole.state_dict().items()}
+    heads = mesh_lib.attention_heads(whole)
+    shards = []
+    for r in range(4):
+        mesh = mesh_lib.Mesh(1, 4, r)
+        shard = mesh_lib.shard_state_dict(full, mesh, heads)
+        rank_model = builder.build(cfg, is_training=False, device="cpu",
+                                   mesh=mesh)
+        rank_model.load_state_dict(shard)
+        attn = rank_model.cross_modal_layer.transformer.block_0.attn
+        assert (attn.head_start, attn.heads) == (r // 2, 1)
+        assert attn.columns == (12 * (r % 2), 12)
+        prefix = "cross_modal_layer.transformer.block_0.attn."
+        cols = [24 * (r // 2) + 12 * (r % 2) + j for j in range(12)]
+        rows = [s * 48 + c for s in range(3) for c in cols]
+        assert torch.equal(shard[prefix + "to_qkv.weight"],
+                           full[prefix + "to_qkv.weight"][rows])
+        assert torch.equal(shard[prefix + "to_out.weight"],
+                           full[prefix + "to_out.weight"][:, cols])
+        shards.append(shard)
+    back = mesh_lib.unshard_state_dict(shards)
+    assert list(back) == list(full)
+    for key in full:
+        assert torch.equal(back[key], full[key]), key
+
+
+@pytest.mark.parametrize("heads", [2, 3])
+def test_model_axis_wider_than_heads_over_4_ranks_matches_one_rank(
+        tmp_path, heads):
+    """4 gloo ranks over 2 heads (groups of 2, each rank 12 of its head's
+    24 columns, the head gathered before attention), or over 3 (groups of
+    2, 1 and 1: two ranks hold a whole head alone), give the single-rank
+    port's f32 loss within 1e-5 relative and every gradient, gathered
+    whole, within 1e-5 of its leaf's peak."""
+    from mint_tpu_torch.train import Trainer, schedules
+
+    widths = dict(WIDE_AXIS, heads=heads)
+    model = FACT(tiny_fact_config(**widths))
+    init_params(model, torch.Generator().manual_seed(7))
+    rng = np.random.default_rng(10)
+    batch = {"motion_input": rng.standard_normal((3, 8, 9), np.float32),
+             "audio_input": rng.standard_normal((3, 16, 35), np.float32),
+             "target": rng.standard_normal((3, 4, 9), np.float32)}
+    torch.save(model.state_dict(), tmp_path / "full.pt")
+    np.savez(tmp_path / "inputs.npz", **batch)
+    with open(tmp_path / "config.json", "w") as f:
+        json.dump(widths, f)
+    loss, grads = Trainer(model, schedules.constant(1e-3)).loss_and_grads(
+        dict(model.named_parameters()), batch)
+    _run_ranks("grads", 4, tmp_path)
+    got = torch.load(tmp_path / "grads.pt", weights_only=True)
+    assert got["loss"] == pytest.approx(float(loss), rel=1e-5)
+    assert set(got["grads"]) == set(grads)
+    for key, want in grads.items():
+        assert got["grads"][key].shape == want.shape, key
+        _close_to_peak(got["grads"][key].numpy(), want.numpy(), key)
 
 
 # The uneven-head config of the tests below: 6 heads of 8 at width 48 and

@@ -1,0 +1,235 @@
+"""FACT configs the JAX package runs at geometries the port's kernels once
+refused, against the JAX package on the CPU (f32: the kernels' plain
+versions run), and the CPU-side pieces of the kernels that take them.
+
+Each geometry is the flagship's (hidden 800, 10 heads, MLP 3072, motion
+225-dim, audio 35-dim) with one field changed, at 1 + 1 + 1 blocks and
+short windows (but for the 1320-key case, whose windows are the point).
+Tolerances are those of tests/test_torch_model.py (forward: 1e-5
+relative and absolute, summation order only), tests/test_torch_decoder.py
+(decode: 2e-4 relative, 2e-5 absolute) and tests/test_torch_train.py
+(a train step's loss: 1e-5 relative; its gradients: 1e-5 absolute, as
+the kernels' gradient tests there hold them).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from mint_tpu.infer import decoder as jax_decoder
+from mint_tpu.models.fact import FACT as JaxFACT
+from mint_tpu.models.fact import l2_loss as jax_l2_loss
+from mint_tpu_torch.config import schema as S
+from mint_tpu_torch.infer import decoder
+from mint_tpu_torch.models import weights
+from mint_tpu_torch.models.fact import FACT, init_params
+from mint_tpu_torch.ops import attention as att
+from mint_tpu_torch.ops import mlp
+from mint_tpu_torch.train import Trainer, schedules
+from test_torch_weights import numpy_tree
+
+BF16_TOL = 2 * 2.0 ** -7  # 2 bf16 ulps, relative to the output's peak
+DECODE_STEPS = 4
+
+# One geometry field changed from the flagship's (test_torch_ops.py's
+# LIMIT_CASES name the same configs at full depth).
+GEOMETRIES = {
+    "head_dim_130": dict(hidden=1040, heads=8),
+    "head_dim_50": dict(heads=16),
+    "head_dim_256": dict(hidden=1024, heads=4),
+    "keys_1320": dict(motion_seq=120, audio_seq=1200),
+    "keys_720_head_dim_128": dict(hidden=1024, heads=8, motion_seq=120,
+                                  audio_seq=600),
+    "mlp_width_3070": dict(mlp_width=3070),
+    "mlp_width_3080": dict(mlp_width=3080),
+    "layer_norm_1040": dict(hidden=1040, heads=13),
+    "hidden_804_12_heads": dict(hidden=804, heads=12),
+}
+
+
+def _config(hidden=800, heads=10, mlp_width=3072, motion_seq=12,
+            audio_seq=24):
+    def transformer():
+        return S.TransformerConfig(hidden_size=hidden, num_hidden_layers=1,
+                                   num_attention_heads=heads,
+                                   intermediate_size=mlp_width)
+
+    def modality(name, seq, dim):
+        return S.ModalityConfig(
+            feature_name=name, sequence_length=seq, feature_dim=dim,
+            model=[S.ModalityModelConfig(transformer=transformer())])
+
+    return S.FACTModelConfig(
+        modality=[modality("audio", audio_seq, 35),
+                  modality("motion", motion_seq, 225)],
+        cross_modal_model=S.CrossModalModelConfig(
+            modality_a="motion", modality_b="audio",
+            transformer=transformer(),
+            output_layer=S.MLPConfig(out_dim=225)))
+
+
+def _pair(cfg, seed):
+    """(JAX model, its params, the port's f32 model) with the same weights:
+    the port's seeded initialization as a numpy tree, loaded by both sides
+    through the weights bridge."""
+    tree = weights.to_numpy_tree(init_params(
+        FACT(cfg), torch.Generator().manual_seed(seed)))
+    model = FACT(cfg).eval()
+    model.load_state_dict(weights.from_jax_params(tree, model))
+    return JaxFACT(cfg), jax.tree_util.tree_map(jnp.asarray, tree), model
+
+
+def _windows(model, rng, b=1, audio_len=None):
+    return {"motion_input": rng.standard_normal(
+                (b, model.motion_seq_length, 225)).astype(np.float32) * 0.5,
+            "audio_input": rng.standard_normal(
+                (b, audio_len or model.audio_seq_length, 35)
+            ).astype(np.float32) * 0.5}
+
+
+@pytest.mark.parametrize("case", list(GEOMETRIES))
+def test_wide_config_matches_jax(case):
+    """The forward, a 4-step decode, and one train step's loss and
+    gradients of the port equal the JAX package's on the same weights."""
+    jax_model, params, model = _pair(_config(**GEOMETRIES[case]), seed=3)
+    rng = np.random.default_rng(11)
+    jax_in = lambda d: {k: jnp.asarray(v) for k, v in d.items()}  # noqa
+    torch_in = lambda d: {k: torch.from_numpy(v) for k, v in d.items()}  # noqa
+
+    inputs = _windows(model, rng)
+    want = np.asarray(jax.jit(jax_model.apply)(params, jax_in(inputs)))
+    with torch.no_grad():
+        got = model(torch_in(inputs)).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+    inputs = _windows(model, rng, audio_len=DECODE_STEPS
+                      + model.audio_seq_length - 1)
+    want = np.asarray(jax_decoder.infer_auto_regressive(
+        jax_model, params, jax_in(inputs), steps=DECODE_STEPS))
+    got = decoder.infer_auto_regressive(model, inputs, steps=DECODE_STEPS)
+    assert got.shape == (1, DECODE_STEPS, 225)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-5)
+
+    batch = _windows(model, rng)
+    batch["target"] = rng.standard_normal((1, 20, 225)).astype(np.float32)
+
+    def jax_loss(p):
+        out = jax_model.apply(p, jax_in({k: v for k, v in batch.items()
+                                         if k != "target"}))
+        return jnp.mean(jax_l2_loss(jnp.asarray(batch["target"]), out))
+
+    want_loss, want_grads = jax.jit(jax.value_and_grad(jax_loss))(params)
+    want_grads = weights.from_jax_params(numpy_tree(want_grads), model)
+    loss, grads = Trainer(model, schedules.constant(0.0)).loss_and_grads(
+        dict(model.named_parameters()), batch)
+    assert float(loss) == pytest.approx(float(want_loss), rel=1e-5)
+    assert set(grads) == set(want_grads)
+    for key, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), want_grads[key].numpy(),
+                                   rtol=0, atol=1e-5, err_msg=key)
+
+
+def _streamed_bf16_attention(q, k, v, scale, tile=64):
+    """The bf16 kernel's streamed schedule (csrc/attention.cu), in f32
+    PyTorch on bf16-valued inputs: the head dim cut into the kernel's
+    chunks (at most 128 columns, a multiple of 16, zeros past D as TMA
+    fills them), K and V cut into `tile`-key tiles (zeros past Nk); pass 1
+    walks the tiles once, summing each tile's scores over the chunks in
+    order and keeping each row's running max and sum of exp2 with the keys
+    past Nk masked out; pass 2 walks them again, forms P = exp2(s - max) /
+    sum, rounds it to bf16, and accumulates P.V in f32 a tile at a time;
+    the output is rounded to bf16 and cut to D."""
+    *lead, nq, d = q.shape
+    nk = k.shape[-2]
+    chunks = -(-d // 128)
+    width = -(-(-(-d // chunks)) // 16) * 16
+    tiles = -(-nk // tile)
+    pad_d, pad_k = chunks * width - d, tiles * tile - nk
+    q = torch.nn.functional.pad(q.float(), (0, pad_d))
+    k = torch.nn.functional.pad(k.float(), (0, pad_d, 0, pad_k))
+    v = torch.nn.functional.pad(v.float(), (0, pad_d, 0, pad_k))
+    scale_log2 = torch.tensor(scale * 1.4426950408889634, dtype=torch.float32)
+
+    def scores(t):
+        keys = slice(t * tile, (t + 1) * tile)
+        s = torch.zeros(*lead, nq, tile)
+        for c in range(chunks):
+            cols = slice(c * width, (c + 1) * width)
+            s = s + q[..., cols] @ k[..., keys, cols].transpose(-1, -2)
+        valid = torch.arange(tile) < nk - t * tile
+        return torch.where(valid, s * scale_log2, -torch.inf)
+
+    m = torch.full((*lead, nq, 1), -torch.inf)
+    l = torch.zeros(*lead, nq, 1)
+    for t in range(tiles):
+        s = scores(t)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        l = l * torch.exp2(m - m_new) + torch.exp2(s - m_new).sum(
+            -1, keepdim=True)
+        m = m_new
+    out = torch.zeros(*lead, nq, chunks * width)
+    for t in range(tiles):
+        p = (torch.exp2(scores(t) - m) * (1 / l)).bfloat16().float()
+        out = out + p @ v[..., t * tile:(t + 1) * tile, :]
+    return out[..., :d].bfloat16()
+
+
+@pytest.mark.parametrize("d", [50, 80, 130])
+@pytest.mark.parametrize("nk", [1217, 1320, 1440])
+def test_streamed_bf16_schedule_matches_the_reference(nk, d):
+    """Key counts past the resident schedule's limit (1216 at D = 80) and
+    head dims that are not a multiple of 16 or over 128: the streamed
+    schedule's arithmetic against the plain version in bf16, within 2
+    bf16 ulps of the output's peak (both round P and the output)."""
+    rng = np.random.default_rng(nk + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, n, d)).astype(
+        np.float32)).bfloat16() for n in (64, nk, nk))
+    got = _streamed_bf16_attention(q, k, v, 800 ** -0.5)
+    want = att.attention_reference(q, k, v, 800 ** -0.5)
+    assert got.shape == want.shape == (1, 2, 64, d)
+    tol = BF16_TOL * max(1.0, want.float().abs().max().item())
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("d", [50, 67, 130])
+def test_heads_tma_cannot_read_are_padded_with_zeros(d):
+    """A bf16 head dim that is not a multiple of 8 reaches the kernel as a
+    view of zero-padded rows (a multiple of 8 wide, so TMA can step over
+    them, and a zero at column d where d is odd), the values unchanged."""
+    buf = torch.randn(2, 30, 3, 12, d).bfloat16()
+    q, k, v = buf.permute(2, 0, 3, 1, 4).unbind(0)
+    assert not any(att._tma_ready(t) for t in (q, k, v))
+    *given, out = att._operands(q, k, v)
+    for was, got in zip((q, k, v), given):
+        assert got.shape == was.shape and torch.equal(got, was)
+        rows = got._base  # the storage the kernel reads
+        assert rows.shape[-1] == -(-d // 8) * 8 and att._tma_ready(rows)
+        assert torch.all(rows[..., d:] == 0)
+    assert out.shape == q.shape and out.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.parametrize("h,f,o", [(804, 64, 804), (40, 3070, 24),
+                                   (36, 100, 33)])
+def test_bf16_mlp_padding_changes_no_output(h, f, o):
+    """The bf16 kernel's operands at widths its TMA loads cannot address:
+    zero-padded copies (H and F to multiples of 8, O to even) whose plain
+    MLP, cut to O, is the unpadded one's (the zeros add nothing; the
+    sums may run in another order, so within 1 bf16 ulp of the peak)."""
+    rng = np.random.default_rng(h + f + o)
+    x, w1, b1, w2, b2 = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).bfloat16() for s in ((5, h), (h, f), (f,), (f, o),
+                                           (o,)))
+    px, pw1t, pb1, pw2t, pb2 = mlp._tma_operands(
+        x, w1.t().contiguous(), b1, w2.t().contiguous(), b2)
+    assert px.shape[1] % 8 == 0 and pw1t.shape[0] % 8 == 0
+    assert pw2t.shape[0] % 2 == 0
+    got = mlp.mlp_reference(px, pw1t.t(), pb1, pw2t.t(), pb2)[:, :o]
+    want = mlp.mlp_reference(x, w1, b1, w2, b2)
+    assert got.shape == want.shape
+    tol = 2.0 ** -7 * want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
