@@ -2728,13 +2728,18 @@ def last_modules(work, run_dir, rates, card):
 # -- phase 11: configs past the old limits ------------------------------------
 
 # 11a: (dtype names, B, H, Nq, Nk, D) of attention, each at once past a limit
-# the kernels had: bf16 keys past the resident schedule (streamed K), head
-# dims over 128, bf16 head dims no multiple of 16 (and of 8: 67), and more
-# (batch, head) pairs than one grid takes (65540).
+# the kernels had: bf16 keys past the resident schedule (the streamed
+# kernel; 48 queries against 1320 keys, the final block of a streamed
+# decode), head dims over 128 (the f32 wide kernel and the bf16 streamed
+# one; 264 past 256, in two output chunks on the grid's z axis), bf16 head
+# dims no multiple of 16 (and of 8: 67), and more (batch, head) pairs than
+# one grid takes (65540).
 WIDE_ATTENTION = [(("bf16",), 20, 10, 1320, 1320, 80),
+                  (("bf16",), 20, 10, 48, 1320, 80),
                   (("bf16",), 20, 8, 720, 720, 128)] + [
     (("f32", "bf16"), 20, h, 360, 360, d)
-    for h, d in ((8, 130), (4, 256), (16, 50), (12, 67))] + [
+    for h, d in ((8, 130), (4, 192), (4, 256), (4, 264), (16, 50),
+                 (12, 67))] + [
     (("f32", "bf16"), 6554, 10, 48, 120, 80)]
 # (dtype names, M, H, F, O) of the fused MLP: F no multiple of 8 (f32) or
 # 16 (bf16), and H = O = 804, rows TMA cannot address in bf16.
@@ -2756,6 +2761,9 @@ LIMIT_CONFIGS = {
     "hidden_804": dict(hidden=804, heads=12),
 }
 LIMIT_DECODE = (4, 8)  # 11b's decode: batch, steps
+# 11b's configs whose decode reaches the redesigned attention kernels (the
+# f32 wide kernel, the bf16 streamed one): their graphed decode is timed.
+LIMIT_TIMED = ("head_dim_over_128", "bf16_keys", "keys_720_d128")
 LIMIT_TRAIN = 2        # 11b's train batch
 WIDE_AXIS = dict(hidden_size=48, heads=2, intermediate_size=64)  # 11c
 WIDE_AXIS_RANKS = 4
@@ -2887,14 +2895,16 @@ def limit_configs(card):
     leaf's peak; bf16 compute: loss 1e-2 relative as 9b's, gradients 0.1
     relative L2 of all and of each leaf as 6a's), 16 launches of each
     kernel a forward (32 LayerNorms in bf16), and the step through the
-    trainer's graph finite.  Returns {(config, dtype name): launches}."""
+    trainer's graph finite.  The LIMIT_TIMED configs' decode runs again,
+    timed (ms a step, every step a graph replay).  Returns ({(config, dtype
+    name): launches}, {(config, dtype name): ms a step})."""
     from mint_tpu_torch.infer import decoder
     from mint_tpu_torch.models import builder
     from mint_tpu_torch.models.fact import init_params
     from mint_tpu_torch.train import Trainer, schedules
 
     b, steps = LIMIT_DECODE
-    counted = {}
+    counted, timed = {}, {}
     for case, change in LIMIT_CONFIGS.items():
         t0 = time.perf_counter()
         cfg = limit_config(**change)
@@ -2952,6 +2962,14 @@ def limit_configs(card):
                 raise AssertionError(f"limit config {case} {name} decode: "
                                      f"{err}, finite {finite}, {counts}")
             counted[case, name] = counts
+            if case in LIMIT_TIMED:  # again, every step a replay
+                t1 = time.perf_counter()
+                decoder.infer_auto_regressive(model, inputs, steps=steps)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t1) / steps
+                timed[case, name] = ms
+                log(f"limit config {case} {name}: graphed decode batch {b} "
+                    f"{ms:.3f} ms/step ({card})")
             del model
             model = builder.build(cfg, is_training=True, device="cuda",
                                   compute_dtype=dtype if bf16 else None)
@@ -2999,7 +3017,7 @@ def limit_configs(card):
             torch.cuda.empty_cache()
         log(f"limit config {case} in {time.perf_counter() - t0:.1f} s (CPU "
             f"reference {t_cpu:.1f} s)")
-    return counted
+    return counted, timed
 
 
 def wide_axis_rank(rank: int, port: int, work: str) -> None:
@@ -3136,12 +3154,12 @@ def past_old_limits(att, mlp, ln, gen, work, card):
     log(f"phase 11a (kernels past the old limits) in "
         f"{time.perf_counter() - t0:.1f} s")
     t1 = time.perf_counter()
-    launches = limit_configs(card)
+    launches, decode_ms = limit_configs(card)
     log(f"phase 11b (configs past the old limits) in "
         f"{time.perf_counter() - t1:.1f} s")
     axis = wide_model_axis(work, card)
     log(f"phase 11 in {time.perf_counter() - t0:.1f} s")
-    return rows, launches, axis
+    return rows, launches, decode_ms, axis
 
 
 def main():
@@ -3242,7 +3260,7 @@ def main():
             f"{tp['rates']['step_world_of_one']:.3f} steps/s ({card})")
         last = last_modules(work, os.path.join(work, "f32_run"),
                             tp["rates"], card)
-        wide_rows, limit_launches, wide_axis = past_old_limits(
+        wide_rows, limit_launches, limit_ms, wide_axis = past_old_limits(
             att, mlp, ln, gen, work, card)
     # The affine-free LayerNorm runs on the folded decode (10b): its
     # launches there, a step, and in the folded evaluator's pass.
@@ -3310,6 +3328,9 @@ def main():
                     "config_launches": {
                         case: counts[name] for (case, d), counts in
                         limit_launches.items() if d == dt},
+                    "config_decode_ms_per_step": {
+                        case: ms for (case, d), ms in limit_ms.items()
+                        if d == dt} if name == "attention" else None,
                     "model_axis_wider_than_heads":
                         wide_axis["launches_per_forward_per_rank"].get(name)
                         if dt == "f32" else None}}

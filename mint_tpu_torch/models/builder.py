@@ -29,18 +29,25 @@ def check_kernel_limits(config: FACTModelConfig,
                         dtype: torch.dtype, model: int = 1) -> None:
     """Raise ValueError, naming the field, where the model `config` builds
     could not run its hand-written kernels in `dtype`: a dtype no kernel
-    takes, or a transformer whose hidden size its heads do not divide.
-    The kernels take every width, head dim, key count and batch the JAX
-    package's model takes (``ops``: attention streams K past shared memory
-    and chunks wide heads, LayerNorm and the MLP take any width), so a
-    config the JAX package runs passes.  With `model` tensor-parallel ranks
-    the split is held to :func:`check_split` first."""
+    takes, a transformer whose hidden size its heads do not divide, or a
+    head wider than the attention kernel holds in shared memory
+    (``attention.MAX_HEAD_DIM``: 1016 in f32, 1344 in bf16).  The kernels
+    take every other width, and every key count and batch (``ops``: bf16
+    attention streams K past shared memory, LayerNorm and the MLP take any
+    width).  With `model` tensor-parallel ranks the split is held to
+    :func:`check_split` first."""
     check_split(config, model)
     for field, tf in _transformers(config):
         hidden, heads = tf.hidden_size, tf.num_attention_heads
         if heads <= 0 or hidden % heads:
             raise ValueError(f"{field}: hidden_size {hidden} is not a "
                              f"multiple of num_attention_heads {heads}")
+        widest = attention_op.MAX_HEAD_DIM.get(dtype)
+        if widest is not None and hidden // heads > widest:
+            raise ValueError(f"{field}: head dim {hidden // heads} "
+                             f"(hidden_size {hidden} / {heads} heads) over "
+                             f"the {widest} the {dtype} attention kernel "
+                             "takes")
     broken = attention_op.limit_broken(dtype) or mlp_op.limit_broken(dtype)
     if broken:
         raise ValueError(f"kernel limit: {broken}")

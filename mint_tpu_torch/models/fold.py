@@ -52,18 +52,22 @@ def fold_ln_affines(state_dict: Mapping[str, torch.Tensor]
     """A new state_dict with every Block's LayerNorm affines folded into
     its ``to_qkv`` and fc1: the weights of the ``ln_affine_folded`` twin
     of the model `state_dict` belongs to (no ``norm_attn`` or
-    ``norm_mlp`` leaves; a ``to_qkv.bias``).  Raises ValueError on a
-    state_dict that is folded already, as the JAX fold does."""
-    folded = [k for k in state_dict if k.endswith(".attn.to_qkv.bias")]
-    if folded:
-        raise ValueError(f"{folded[0]} exists: the weights look folded "
-                         "already")
+    ``norm_mlp`` leaves; a ``to_qkv.bias``).  As the JAX fold does, only
+    a block that still holds both LayerNorms is folded, so weights that
+    are folded already come back unchanged (as a copy); a block with
+    both LayerNorms and a ``to_qkv.bias`` (a half-folded tree) raises
+    ValueError."""
     out = dict(state_dict)
+    suffix = _NORMS[0][0] + "weight"
     for key in state_dict:
+        block = key[:-len(suffix)]
+        if (not key.endswith(suffix)
+                or block + _NORMS[1][0] + "weight" not in state_dict):
+            continue
+        if block + ".attn.to_qkv.bias" in state_dict:
+            raise ValueError(f"{block}.attn.to_qkv.bias exists beside its "
+                             "LayerNorms: the weights look folded already")
         for norm, dense in _NORMS:
-            if not key.endswith(norm + "weight"):
-                continue
-            block = key[:-len(norm + "weight")]
             g = out.pop(block + norm + "weight").float()
             beta = out.pop(block + norm + "bias").float()
             weight = out[block + dense + "weight"]

@@ -59,15 +59,27 @@ _ENTRY = {torch.float32: "mint_attention_f32",
           torch.bfloat16: "mint_attention_bf16"}
 
 
+# The widest head each kernel takes: Q's rows stay in shared memory for
+# the whole pass over the keys, over every column of the head (the 232448
+# bytes a block may take on an H100).  f32 (attention_wide_kernel): one
+# warp's 16 rows of Q and a 32-key K tile over the whole head dim, rows
+# padded to tile_ld, a 32-key V tile over an output chunk of at most 256
+# columns, and P.  bf16 (attention_tc_stream_kernel): one warpgroup's 64
+# rows of Q over the head dim in chunks of at most 256 columns, and a ring
+# of two 64-key tiles of one chunk.
+MAX_HEAD_DIM = {torch.float32: 1016, torch.bfloat16: 1344}
+
+
 def bf16_max_keys(d: int) -> int:
-    """Where the bf16 kernel's schedule changes at head dim d: up to this
-    many keys it holds the head's whole K in shared memory (the resident
-    schedule), past it K streams through a ring of 64-key tiles with V;
-    heads over 128 wide always stream (0).  Mirrors ``tc_smem_bytes`` in
-    csrc/attention.cu: 2 KB of mbarriers and slack, then every 64-key K
-    tile and a ring of 3 V tiles, each 64 * 2 * D bytes for D the head dim
-    rounded up to 16, within the 232448 bytes a block may take on an H100,
-    and at most 64 tiles.  1216 keys at D = 80, 704 at D = 128."""
+    """Where the bf16 kernels part at head dim d: up to this many keys the
+    resident kernel holds the head's whole K in shared memory, past it the
+    streamed kernel runs (K and V through a ring of 64-key tiles, Q in
+    shared memory); heads over 128 wide always stream (0).  Mirrors
+    ``tc_smem_bytes`` in csrc/attention.cu: 2 KB of mbarriers and slack,
+    then every 64-key K tile and a ring of 3 V tiles, each 64 * 2 * D bytes
+    for D the head dim rounded up to 16, within the 232448 bytes a block
+    may take on an H100, and at most 64 tiles.  1216 keys at D = 80, 704
+    at D = 128."""
     if d > 128:
         return 0
     width = -(-d // 16) * 16
@@ -76,9 +88,9 @@ def bf16_max_keys(d: int) -> int:
 
 def limit_broken(dtype: torch.dtype) -> str | None:
     """Why no attention kernel takes inputs of `dtype`, or None if one
-    does.  Both kernels take any head dim, key count and batch of heads
-    (csrc/attention.cu): f32 runs on the FMA kernel, bf16 on the
-    tensor-core one."""
+    does.  Both kernels take any key count and batch of heads, and head
+    dims up to MAX_HEAD_DIM (csrc/attention.cu): f32 runs on the FMA
+    kernels, bf16 on the tensor-core ones."""
     if dtype not in _ENTRY:
         return f"no attention kernel takes {dtype} (float32, bfloat16)"
     return None
@@ -189,6 +201,10 @@ def _operands(q, k, v):
     if nq == 0 or nk == 0 or b * h == 0 or d == 0:
         raise ValueError(f"attention: empty input; got {tuple(q.shape)}, "
                          f"Nk={nk}")
+    if d > MAX_HEAD_DIM[q.dtype]:
+        raise ValueError(f"attention: head dim {d} over the "
+                         f"{MAX_HEAD_DIM[q.dtype]} the {q.dtype} kernel "
+                         "holds in shared memory")
     if q.dtype == torch.bfloat16:
         # Layouts TMA cannot address, and heads not a multiple of 8 wide,
         # are copied once into zero-padded rows (never the flagship's).

@@ -152,13 +152,28 @@ def test_fold_is_numerically_exact_f32(small_pair):
 
 def test_fold_refuses_double_fold(small_pair):
     """fold_for_decode on a folded model is a no-op; folding folded
-    weights again is refused (a to_qkv bias exists)."""
-    _, _, model = small_pair
+    weights again returns them unchanged, as the JAX fold does with the
+    same folded weights; a half-folded state_dict (LayerNorms beside a
+    to_qkv bias) is refused."""
+    _, params, model = small_pair
     folded_model, folded = fold.fold_for_decode(model, model.state_dict())
     again_model, again = fold.fold_for_decode(folded_model, folded)
     assert again_model is folded_model and again is folded
-    with pytest.raises(ValueError, match="look folded already"):
-        fold.fold_ln_affines(folded)
+    twice = fold.fold_ln_affines(folded)
+    assert twice is not folded and list(twice) == list(folded)
+    for key, leaf in folded.items():
+        assert torch.equal(twice[key], leaf), key
+    jax_folded = jax_fold_ln_affines(params)
+    jax_twice = _flat(jax_fold_ln_affines(jax_folded)["params"])
+    for path, leaf in _flat(jax_folded["params"]).items():
+        np.testing.assert_array_equal(jax_twice[path], leaf, err_msg=path)
+    twin = copy.deepcopy(folded_model)
+    twin.load_state_dict(twice)
+    got = _flat(weights.to_numpy_tree(twin)["params"])
+    assert set(got) == set(jax_twice)
+    for path in jax_twice:
+        np.testing.assert_allclose(got[path], jax_twice[path], rtol=0,
+                                   atol=1e-6, err_msg=path)
     with pytest.raises(ValueError, match="look folded already"):
         fold.fold_ln_affines(dict(model.state_dict(), **{
             "cross_modal_layer.transformer.block_0.attn.to_qkv.bias":

@@ -132,6 +132,53 @@ def test_bf16_kernel_key_limit(d, max_keys):
     assert att._operands(q32, k32, k32)[-1].shape == q.shape
 
 
+def _tile_ld(d):
+    """csrc/attention.cu's tile_ld: a row of d floats rounded up to a
+    float4, padded so that (stride / 4) is odd."""
+    d4 = -(-d // 4)
+    return 4 * (d4 + 2 if d4 % 2 else d4 + 1)
+
+
+def _fits(dtype, d):
+    """Whether a head dim d fits the kernel's shared memory (232448 bytes
+    a block), as csrc/attention.cu reckons it at its smallest block: f32
+    (wide_smem_bytes at one warp) 16 rows of Q and 32 of K over the head
+    dim, 32 of V over an output chunk, and one warp's P; bf16
+    (tc_stream_smem_bytes at one warpgroup) 2 KB of mbarriers and slack,
+    64 rows of Q over every chunk and a ring of two 64-key tiles of one."""
+    chunks = -(-d // 256)
+    if dtype == torch.float32:
+        dc = -(-(-(-d // chunks)) // 4) * 4
+        need = 4 * (48 * _tile_ld(d) + 32 * _tile_ld(dc) + 16 * 38)
+    else:
+        width = -(-(-(-d // chunks)) // 16) * 16
+        need = 2048 + (chunks + 2) * 64 * 2 * width
+    return need <= 232448
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_limit(dtype):
+    """The widest head each kernel takes (attention.MAX_HEAD_DIM: Q stays
+    in shared memory for the whole pass) is where its shared memory runs
+    out: every head dim up to it fits, the next does not.  The wrapper and
+    the build's check refuse a wider one, naming the limit."""
+    from mint_tpu_torch.models import builder
+
+    widest = att.MAX_HEAD_DIM[dtype]
+    assert all(_fits(dtype, d) for d in range(129, widest + 1))
+    assert not _fits(dtype, widest + 1)
+    q = torch.zeros(1, 1, 2, widest, dtype=dtype)
+    assert att._operands(q, q, q)[-1].shape == q.shape
+    q = torch.zeros(1, 1, 2, widest + 1, dtype=dtype)
+    with pytest.raises(ValueError, match=f"head dim {widest + 1} over"):
+        att._operands(q, q, q)
+    builder.check_kernel_limits(
+        _fact_config(hidden=2 * widest, heads=2).fact_model, dtype)
+    with pytest.raises(ValueError, match=f"over the {widest}"):
+        builder.check_kernel_limits(
+            _fact_config(hidden=2 * widest + 2, heads=2).fact_model, dtype)
+
+
 def _fact_config(hidden=800, heads=10, mlp_width=3072, audio_seq=240):
     """The flagship's FACT config with one geometry field changed."""
     from mint_tpu_torch.config.schema import load_pipeline_config

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 from mint_tpu.infer import decoder as jax_decoder
 from mint_tpu.models.fact import FACT as JaxFACT
 from mint_tpu.models.fact import l2_loss as jax_l2_loss
+from mint_tpu.ops import attention as jax_attention
 from mint_tpu_torch.config import schema as S
 from mint_tpu_torch.infer import decoder
 from mint_tpu_torch.models import weights
@@ -134,18 +135,20 @@ def test_wide_config_matches_jax(case):
 
 
 def _streamed_bf16_attention(q, k, v, scale, tile=64):
-    """The bf16 kernel's streamed schedule (csrc/attention.cu), in f32
-    PyTorch on bf16-valued inputs: the head dim cut into the kernel's
-    chunks (at most 128 columns, a multiple of 16, zeros past D as TMA
-    fills them), K and V cut into `tile`-key tiles (zeros past Nk); pass 1
-    walks the tiles once, summing each tile's scores over the chunks in
-    order and keeping each row's running max and sum of exp2 with the keys
-    past Nk masked out; pass 2 walks them again, forms P = exp2(s - max) /
-    sum, rounds it to bf16, and accumulates P.V in f32 a tile at a time;
-    the output is rounded to bf16 and cut to D."""
+    """The bf16 streamed kernel (csrc/attention.cu,
+    attention_tc_stream_kernel), in f32 PyTorch on bf16-valued inputs: the
+    head dim padded with zeros (as TMA fills them) to the kernel's chunks,
+    one up to 256 columns (a multiple of 16), more past it; K and V
+    cut into `tile`-key tiles (zeros past Nk).  Pass 1 walks the tiles
+    once, each tile's scores computed once over the whole head dim (the
+    chunks summed in order), keeping each row's running max and sum of
+    exp2 with the keys past Nk masked out; pass 2 walks them again, forms
+    the exactly normalised P = exp2(s - max) / sum, rounds it to bf16, and
+    accumulates P.V over the whole head dim in f32 a tile at a time; the
+    output is rounded to bf16 and cut to D."""
     *lead, nq, d = q.shape
     nk = k.shape[-2]
-    chunks = -(-d // 128)
+    chunks = -(-d // 256)
     width = -(-(-(-d // chunks)) // 16) * 16
     tiles = -(-nk // tile)
     pad_d, pad_k = chunks * width - d, tiles * tile - nk
@@ -194,6 +197,78 @@ def test_streamed_bf16_schedule_matches_the_reference(nk, d):
     tol = BF16_TOL * max(1.0, want.float().abs().max().item())
     np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
                                rtol=0, atol=tol)
+
+
+def _pallas(q, k, v, scale, dtype):
+    """The JAX package's Pallas kernel on the same values (interpret mode
+    on the CPU, as its own tests run it), as f32 numpy."""
+    out = jax_attention.pallas_attention(
+        *(jnp.asarray(t.float().numpy(), dtype) for t in (q, k, v)), scale)
+    return np.asarray(out.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("n,d", [(64, 130), (64, 256), (1320, 80),
+                                 (64, 264)])
+def test_streamed_bf16_kernel_matches_pallas(n, d):
+    """The streamed kernel's arithmetic against the Pallas kernel in bf16:
+    head dims over 128 (their scores once over the whole head dim; 264
+    past 256, in two chunks) and 1320 keys at FACT's D = 80 (the
+    bf16_keys config's cross-modal blocks); within 2 bf16 ulps of the
+    output's peak, as _close_bf16 in tests/test_torch_ops.py states (both
+    round P and the output to bf16, so one rounding may flip)."""
+    rng = np.random.default_rng(n + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, n, d)).astype(
+        np.float32)).bfloat16() for _ in range(3))
+    got = _streamed_bf16_attention(q, k, v, 800 ** -0.5)
+    want = _pallas(q, k, v, 800 ** -0.5, jnp.bfloat16)
+    assert got.shape == want.shape == (1, 2, n, d)
+    tol = BF16_TOL * max(1.0, np.abs(want).max())
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
+
+
+def _wide_f32_attention(q, k, v, scale, rows=128, tile=32):
+    """The f32 kernel for heads over 128 (csrc/attention.cu,
+    attention_wide_kernel), in f32 PyTorch: blocks of `rows` query rows
+    (16 a warp, 8 warps) and output chunks of at most 256 columns (a
+    multiple of 4); for each, one pass over `tile`-key tiles, each tile's
+    scores computed once over the whole head dim, with the online softmax
+    of attention_kernel (a running row max and sum, the P.V accumulator
+    rescaled by exp(old max - new max) when the max rises, divided by the
+    sum at the end)."""
+    *lead, nq, d = q.shape
+    nk = k.shape[-2]
+    chunks = -(-d // 256)
+    dc = -(-(-(-d // chunks)) // 4) * 4
+    out = torch.empty(*lead, nq, d)
+    for r0 in range(0, nq, rows):
+        qb = q[..., r0:r0 + rows, :]
+        for c0 in range(0, d, dc):
+            m = torch.full((*lead, qb.shape[-2], 1), -torch.inf)
+            l = torch.zeros_like(m)
+            acc = torch.zeros(*lead, qb.shape[-2], min(dc, d - c0))
+            for k0 in range(0, nk, tile):
+                s = qb @ k[..., k0:k0 + tile, :].transpose(-1, -2) * scale
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(s - m_new)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                acc = acc * alpha + p @ v[..., k0:k0 + tile, c0:c0 + dc]
+                m = m_new
+            out[..., r0:r0 + rows, c0:c0 + dc] = acc / l
+    return out
+
+
+@pytest.mark.parametrize("d", [130, 256, 264])
+def test_wide_f32_kernel_matches_pallas(d):
+    """The f32 kernel for heads over 128 against the Pallas kernel in f32,
+    within 1e-5 (summation order only: exact f32 on both sides)."""
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 200, d)).astype(
+        np.float32)) for _ in range(3))
+    got = _wide_f32_attention(q, k, v, 800 ** -0.5)
+    want = _pallas(q, k, v, 800 ** -0.5, jnp.float32)
+    assert got.shape == want.shape == (1, 2, 200, d)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("d", [50, 67, 130])
