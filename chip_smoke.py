@@ -132,6 +132,17 @@ CPU):
    gathered from a group of 2 ranks) against one rank: loss, gradients,
    one train step (``chip_smoke.py --wide-rank R ...``, one process
    each).
+12. the product loop: ``scripts/torch_e2e_run.py --smoke`` as a
+   subprocess, which drives the port's CLIs as a user chains them on the
+   full flagship: a synthetic AIST++ corpus (2 musics, 4 + 2 sequences),
+   preprocessing of both splits, bf16 training SIGKILLed 1 s after its
+   first interval checkpoint (step >= 50) and resumed in a new process to
+   200 steps, the evaluate CLI (120-frame clips) in f32 and bf16,
+   extract_features and calculate_scores of both sets of clips: the kill
+   interrupted a live run, the resumed run restored the killed run's
+   newest whole step and ended at the budget (launching each kernel 16
+   times a step, and 32 LayerNorms), the clips exist and both score sets
+   are finite.
 
 Phase 2 also checks and times both kernels at the training shapes
 (batch 32), and checks them at the eval's (the batches phase 7 dispatches
@@ -149,6 +160,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -3162,7 +3174,73 @@ def past_old_limits(att, mlp, ln, gen, work, card):
     return rows, launches, decode_ms, axis
 
 
+# -- phase 12: the product loop ---------------------------------------------
+
+def product_loop(work, card):
+    """Phase 12: ``scripts/torch_e2e_run.py --smoke`` in `work`, then its
+    summary checked.  Returns the kernel launches each CLI logged: the
+    resumed train run's (bf16) and each evaluate's, by dtype."""
+    t0 = time.perf_counter()
+    root = os.path.join(work, "e2e")
+    # A process group of its own, so a timeout stops the CLI it runs too.
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(REPO, "scripts", "torch_e2e_run.py"),
+         "--smoke", root], cwd=work, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"torch_e2e_run.py --smoke exited "
+                           f"{proc.returncode}:\n{out[-6000:]}")
+    with open(os.path.join(root, "e2e_summary.json")) as f:
+        summary = json.load(f)
+    size, stages = summary["size"], summary["stages"]
+    killed, resumed = stages["train-killed"][-1], stages["train-resume"][-1]
+    at_kill = summary["ckpts_at_kill"]
+    resumed_steps = size["train_steps"] - resumed["restored_step"]
+    launches = {("train", "bf16"): resumed["kernel_launches"],
+                ("evaluate", "f32"): stages["evaluate"][-1]["kernel_launches"],
+                ("evaluate", "bf16"):
+                    stages["evaluate-bf16"][-1]["kernel_launches"]}
+    scores = summary["scores"]
+    log(f"product loop (torch_e2e_run.py --smoke, flagship): stages "
+        f"{ {k: [r['wall_s'] for r in v] for k, v in stages.items()} } s; "
+        f"killed at step {summary['step_at_kill']} with checkpoints "
+        f"{at_kill} (partial writes {summary['partial_checkpoints_at_kill']})"
+        f"; the resumed run restored {resumed['restored_step']} and ended "
+        f"with {summary['ckpts_final']}; start-up of the killed / resumed "
+        f"run {killed.get('startup_s')} / {resumed.get('startup_s')} s "
+        f"(graph captures {killed['capture_s']} / {resumed['capture_s']} s), "
+        f"steps/s {killed.get('steps_per_s')} / {resumed.get('steps_per_s')}"
+        f"; losses {summary['loss_first']} -> {summary['loss_last']}; clips "
+        f"f32 {summary['generated_clips']}, bf16 "
+        f"{summary['generated_clips_bf16']}; scores {scores}, bf16 vs f32 "
+        f"{summary['bf16_vs_f32_rel']}; launches {launches}; phase 12 in "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    finite = all(math.isfinite(v) for d in scores.values()
+                 for k, v in d.items() if k != "beat_clips")
+    if (killed["ok"] != "killed" or not at_kill
+            or max(at_kill) < size["checkpoint_interval"]
+            or resumed["restored_step"] != max(at_kill)
+            or max(summary["ckpts_final"]) != size["train_steps"]
+            or launches["train", "bf16"]
+            != expected_launches(resumed_steps, True)
+            or not summary["generated_clips"]
+            or not summary["generated_clips_bf16"]
+            or set(scores) != {"f32", "bf16"} or not finite
+            or not all(launches["evaluate", dt][k] > 0
+                       for dt in ("f32", "bf16")
+                       for k in ("attention", "fused_mlp"))
+            or not launches["evaluate", "bf16"]["layer_norm"] > 0):
+        raise AssertionError(f"product loop: {json.dumps(summary)[:4000]}")
+    return launches
+
+
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; "
                          "torch.cuda.is_available() is False")
@@ -3262,6 +3340,7 @@ def main():
                             tp["rates"], card)
         wide_rows, limit_launches, limit_ms, wide_axis = past_old_limits(
             att, mlp, ln, gen, work, card)
+        e2e_launches = product_loop(work, card)
     # The affine-free LayerNorm runs on the folded decode (10b): its
     # launches there, a step, and in the folded evaluator's pass.
     free = "layer_norm_affine_free"
@@ -3298,7 +3377,8 @@ def main():
     # rank's shapes (3 or 2 heads; F = 768).  The affine-free LayerNorm's
     # `launches` are the folded bf16 decode's (10b), its graphed and eager
     # launches a step that decode's, its `eval_launches` the folded
-    # evaluator's pass.
+    # evaluator's pass.  `e2e_launches` are phase 12's: its resumed bf16
+    # train run's and its evaluate runs' (f32 and bf16; none folded).
     kernels = [{"name": f"{name}_{dt}", "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name, dt],
                 "launches_per_step": per_step[name, dt],
@@ -3333,8 +3413,13 @@ def main():
                         if d == dt} if name == "attention" else None,
                     "model_axis_wider_than_heads":
                         wide_axis["launches_per_forward_per_rank"].get(name)
-                        if dt == "f32" else None}}
+                        if dt == "f32" else None},
+                "e2e_launches": {
+                    stage: e2e_launches[stage, dt][name]
+                    for stage in ("train", "evaluate")
+                    if (stage, dt) in e2e_launches}}
                for name, (src, rep, dts) in sources.items() for dt in dts]
+    log(f"chip_smoke.py in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -77,6 +77,21 @@ def joints_of(motion: np.ndarray, model: Optional[SMPLModel],
     return smpl_joints(aa[0], transl[0], model, device=device).cpu().numpy()
 
 
+def extract_feature(motion: np.ndarray, model: Optional[SMPLModel],
+                    mode: str, joints: Optional[np.ndarray] = None,
+                    device: torch.device | str = "cuda") -> np.ndarray:
+    """[1, T, 225] -> the `mode` ("kinetic" or "manual") feature vector
+    (the reference's per-mode API, calculate_scores.py:154-170).  Pass
+    precomputed `joints` to share one FK run between both families, as
+    :func:`scores` does.  Any other `mode` gives the manual feature, as
+    in the JAX package."""
+    if joints is None:
+        joints = joints_of(motion, model, device)
+    if mode == "kinetic":
+        return extract_kinetic_features(joints)
+    return extract_manual_features(joints)
+
+
 def scores(result_files: str, feature_dir: str, smpl_model_path: str = "",
            seed_frames: int = 120, audio_cache_dir: str = "",
            device: torch.device | str = "cuda") -> Dict[str, float]:
@@ -107,8 +122,8 @@ def scores(result_files: str, feature_dir: str, smpl_model_path: str = "",
             motion = motion[None]
         motion = motion[:, seed_frames:]
         joints = joints_of(motion, model, device)  # one FK, both families
-        result_features["kinetic"].append(extract_kinetic_features(joints))
-        result_features["manual"].append(extract_manual_features(joints))
+        for mode, feats in result_features.items():
+            feats.append(extract_feature(motion, model, mode, joints))
         if audio_cache_dir:
             # {motion_name}_{audio_name}.npy -> audio_name (last field).
             audio_name = os.path.basename(path)[:-4].split("_")[-1]

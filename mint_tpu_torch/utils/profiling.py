@@ -1,10 +1,20 @@
-"""Step timing (the port's copy of ``StepTimer`` from
-``mint_tpu/utils/profiling.py``, whose module imports JAX)."""
+"""Profiling and step timing (counterpart of
+``mint_tpu/utils/profiling.py``, whose module imports JAX).
+
+- :class:`StepTimer`: wall-clock step rate with warmup skip, for steps/sec
+  and examples/sec reporting in the controller (the port's copy).
+- :func:`trace`: context manager around ``torch.profiler``'s trace
+  capture; view with TensorBoard's profiler plugin or Perfetto.
+- :func:`annotate`: a named range for host-side phases in the trace.
+"""
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, Optional
+
+import torch
 
 
 class StepTimer:
@@ -39,3 +49,22 @@ class StepTimer:
         if batch_size:
             out["examples_per_sec"] = out["steps_per_sec"] * batch_size
         return out
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the body: the CPU, and CUDA where a card is present.  On
+    exit writes a TensorBoard-readable trace (``*.pt.trace.json``) under
+    `log_dir`."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)):
+        yield
+
+
+def annotate(name: str):
+    """A named range that shows up on the host timeline of a trace."""
+    return torch.profiler.record_function(name)
