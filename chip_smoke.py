@@ -117,15 +117,20 @@ CPU):
    its dtype, timed beside its plain version, its bound and, where one
    PyTorch call computes it, that call: bf16 attention streaming K past
    shared memory (q[20,10,1320,80], q[20,8,720,128]), both dtypes at
-   head dims 130, 256, 50 and 67 (q[20,H,360,D]) and at 65540 (batch,
-   head) pairs (q[6554,10,48,80] against 120 keys); the MLP at F = 3070
+   head dims 130, 256, 50, 67 and 64 (q[20,H,360,D], the model's fused
+   QKV views, read in place) and at 65540 (batch, head) pairs
+   (q[6554,10,48,80] against 120 keys), bf16 on views of rows TMA cannot
+   step over (84 elements apart, over 80 columns); one bf16 call on the
+   model's views at D = 50, 67 and 130 making one device kernel, as
+   torch.profiler records it; the MLP at F = 3070
    (f32) and 3080 (bf16) and at H = O = 804; the bf16 LayerNorm at
    x[7200,1040], [7200,1041] and [7200,2048], with parameters and
    affine-free; (b) each config the kernels once refused (the flagship
    with one geometry field changed: tests/test_torch_ops.py's
    LIMIT_CASES, a 720-key D = 128 config and hidden 804 over 12 heads)
    at full width and depth, built on the card in f32 and bf16: a decode
-   of 8 steps at batch 4 through its CUDA graph against the CPU's, one
+   of 8 steps at batch 4 through its CUDA graph against the CPU's (timed
+   again for the configs of LIMIT_TIMED), one
    train step's loss and gradients against the CPU's (bf16 compute for
    training), the launch counts of both; (c) 4 gloo ranks on cuda:0 over
    a 2-head tiny config (a model axis wider than the heads: each head
@@ -137,7 +142,7 @@ CPU):
    full flagship: a synthetic AIST++ corpus (2 musics, 4 + 2 sequences),
    preprocessing of both splits, bf16 training SIGKILLed 1 s after its
    first interval checkpoint (step >= 50) and resumed in a new process to
-   200 steps, the evaluate CLI (120-frame clips) in f32 and bf16,
+   100 steps, the evaluate CLI (120-frame clips) in f32 and bf16,
    extract_features and calculate_scores of both sets of clips: the kill
    interrupted a live run, the resumed run restored the killed run's
    newest whole step and ended at the budget (launching each kernel 16
@@ -146,7 +151,8 @@ CPU):
 
 Phase 2 also checks and times both kernels at the training shapes
 (batch 32), and checks them at the eval's (the batches phase 7 dispatches
-and the evaluator's default).  The last lines are one JSON object describing the kernels,
+and the evaluator's default).  Before the last lines, one line a phase
+gives its seconds.  The last lines are one JSON object describing the kernels,
 the card's ``nvidia-smi`` name and power limit, and ``{"ok": true,
 "device": ...}``.
 """
@@ -176,6 +182,7 @@ CONFIG = os.path.join(REPO, "configs", "fact_v5_deeper_t10_cm12.config")
 SCALE = 800 ** -0.5  # FACT's attention scale: the full model dim
 DISPATCH = 20        # bench.py's decode batch per dispatch
 THROUGHPUT_STEPS = 32
+SWEEP_STEPS = 16     # the decode sweep's steps at each batch
 TRAIN_BATCH = 32     # the flagship config's train batch_size
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -211,12 +218,17 @@ def cuda_ms(fn, iters: int = 20) -> float:
 
 def _qkv(layout, b, h, nq, nk, d, dtype, gen):
     """q [b, h, nq, d], k and v [b, h, nk, d].  "contiguous": three
-    tensors of their own; "fused": the model's layout, strided views of one
+    tensors of their own; "rows<st>": views of the first d columns of rows
+    st wide; "fused": the model's layout, strided views of one
     [b, nk, 3, h, d] buffer (the fused QKV projection's output, as
     models/layers.py makes them), q cut to its first nq rows."""
     if layout == "contiguous":
         return [torch.randn(b, h, n, d, device="cuda", generator=gen)
                 .to(dtype) for n in (nq, nk, nk)]
+    if layout.startswith("rows"):
+        return [torch.randn(b, h, n, int(layout[4:]), device="cuda",
+                            generator=gen).to(dtype)[..., :d]
+                for n in (nq, nk, nk)]
     buf = torch.randn(b, nk, 3, h, d, device="cuda", generator=gen)
     q, k, v = buf.to(dtype).permute(2, 0, 3, 1, 4).unbind(0)
     return q[:, :, :nq], k, v
@@ -229,8 +241,8 @@ def check_attention(att, gen):
              (2, 10, 360, 360, 80), (2, 10, 48, 360, 80),
              (1, 2, 37, 37, 16)] + [
         (TRAIN_BATCH, 10, n, n, 80) for n in (360, 240, 120)]
-    # The f32 kernel takes any D <= 128: one not a multiple of 4 (4-byte
-    # copies) and one over 80 (the wider instance).
+    # The f32 kernel takes any D <= 128 on its instances of D rounded up
+    # to 8: one not a multiple of 4 (4-byte copies) and one over 80.
     f32_cases = [(1, 2, 37, 37, 18), (1, 3, 70, 50, 100)]
     # The model's own layout at FACT's shapes: strided views in.
     fused = [(2, 10, 360, 360, 80), (2, 10, 48, 360, 80),
@@ -736,7 +748,8 @@ def throughput(model, dtype_name, card):
         "audio_input": torch.from_numpy(rng.standard_normal(
             (DISPATCH, audio_len, 35)).astype(np.float32)).cuda(),
     }
-    # Warm-up, and the capture of this key's decode graph.
+    # Warm-up, and the capture of this key's decode graph (the key holds
+    # the audio the steps read: the warm-up takes as many steps).
     decoder.infer_auto_regressive(model, inputs, steps=THROUGHPUT_STEPS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1371,12 +1384,13 @@ def check_eval_launches(counts, dispatches, want_steps, name):
 
 def decode_sweep(model, card):
     """f32 decode frames/s of the flagship at each batch of SWEEP_BATCHES,
-    THROUGHPUT_STEPS steps replaying the decode's graph after a warm-up
-    decode that captures it, inputs from np.random.default_rng(0)."""
+    SWEEP_STEPS steps replaying the decode's graph after a warm-up decode
+    of as many steps that captures it (the key holds the audio the steps
+    read), inputs from np.random.default_rng(0)."""
     from mint_tpu_torch.infer import decoder
 
     rng = np.random.default_rng(0)
-    audio_len = THROUGHPUT_STEPS + model.audio_seq_length - 1
+    audio_len = SWEEP_STEPS + model.audio_seq_length - 1
     rates = {}
     for b in SWEEP_BATCHES:
         inputs = {"motion_input": torch.from_numpy(rng.standard_normal(
@@ -1384,19 +1398,19 @@ def decode_sweep(model, card):
                   "audio_input": torch.from_numpy(rng.standard_normal(
                       (b, audio_len, 35)).astype(np.float32)).cuda()}
         # Warm-up, and the capture of this key's decode graph.
-        decoder.infer_auto_regressive(model, inputs, steps=THROUGHPUT_STEPS)
+        decoder.infer_auto_regressive(model, inputs, steps=SWEEP_STEPS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = decoder.infer_auto_regressive(model, inputs,
-                                            steps=THROUGHPUT_STEPS)
+                                            steps=SWEEP_STEPS)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         if not torch.isfinite(out).all():
             raise AssertionError(f"decode sweep batch {b}: non-finite")
-        rates[b] = b * THROUGHPUT_STEPS / seconds
-        log(f"decode sweep f32 batch {b} x {THROUGHPUT_STEPS} steps: "
+        rates[b] = b * SWEEP_STEPS / seconds
+        log(f"decode sweep f32 batch {b} x {SWEEP_STEPS} steps: "
             f"{seconds:.4f} s, {rates[b]:.2f} frames/s, "
-            f"{1000 * seconds / THROUGHPUT_STEPS:.3f} ms/step ({card})")
+            f"{1000 * seconds / SWEEP_STEPS:.3f} ms/step ({card})")
     best = max(rates, key=rates.get)
     log(f"decode sweep f32: fastest batch per frame {best} "
         f"({rates[best]:.2f} frames/s) ({card})")
@@ -1961,7 +1975,7 @@ def music_path(work, run_dir, card):
 
 TP = 2           # the model axis of phase 9's ranks: 5 heads, F = 1536
 TP_BATCH = 4     # phase 9b's batch (each rank's; one model group)
-WS1_STEPS = 101  # phase 9c's CLI steps: the first, then ten windows of 10
+WS1_STEPS = 61   # phase 9c's CLI steps: the first, then six windows of 10
 WS1_FROM = 21    # 9c's synchronized rates run from this step's record
 UNEVEN_HEADS = (3, 2)  # a model = 4 rank's heads of the flagship's 10
 
@@ -2197,7 +2211,7 @@ def distributed_world_of_one(work, card):
     a world of one: every gradient and the loss all-reduced, and the
     collectives captured in the step's graph) against the CLI without it,
     bf16 at batch 32 with the card-resident corpus (the same windows
-    both ways) and a clip, 101 steps (the first, then ten fused windows
+    both ways) and a clip, 61 steps (the first, then six fused windows
     of 10): the final checkpoints equal bit for bit.  Both runs' steps/s,
     and the host pipeline's over the same steps (the native loader's
     question), two ways: the CLI's own timer by step (it times the host's
@@ -2745,14 +2759,18 @@ def last_modules(work, run_dir, rates, card):
 # decode), head dims over 128 (the f32 wide kernel and the bf16 streamed
 # one; 264 past 256, in two output chunks on the grid's z axis), bf16 head
 # dims no multiple of 16 (and of 8: 67), and more (batch, head) pairs than
-# one grid takes (65540).
+# one grid takes (65540); q[20,12,360,64], the width hidden 804's heads
+# would have at a multiple of 8; and views of rows TMA cannot step over
+# (84 elements apart, over 80 columns: the block's copies).  Each the
+# model's fused QKV views but the last, layout "rows84".
 WIDE_ATTENTION = [(("bf16",), 20, 10, 1320, 1320, 80),
                   (("bf16",), 20, 10, 48, 1320, 80),
                   (("bf16",), 20, 8, 720, 720, 128)] + [
     (("f32", "bf16"), 20, h, 360, 360, d)
     for h, d in ((8, 130), (4, 192), (4, 256), (4, 264), (16, 50),
-                 (12, 67))] + [
-    (("f32", "bf16"), 6554, 10, 48, 120, 80)]
+                 (12, 67), (12, 64))] + [
+    (("f32", "bf16"), 6554, 10, 48, 120, 80),
+    (("bf16",), 20, 10, 360, 360, 80, "rows84")]
 # (dtype names, M, H, F, O) of the fused MLP: F no multiple of 8 (f32) or
 # 16 (bf16), and H = O = 804, rows TMA cannot address in bf16.
 WIDE_MLP = [(("f32",), 7200, 800, 3070, 800),
@@ -2774,8 +2792,10 @@ LIMIT_CONFIGS = {
 }
 LIMIT_DECODE = (4, 8)  # 11b's decode: batch, steps
 # 11b's configs whose decode reaches the redesigned attention kernels (the
-# f32 wide kernel, the bf16 streamed one): their graphed decode is timed.
-LIMIT_TIMED = ("head_dim_over_128", "bf16_keys", "keys_720_d128")
+# f32 wide kernel, the bf16 streamed one, heads read in place at D = 50
+# and 67): their graphed decode is timed.
+LIMIT_TIMED = ("head_dim_over_128", "bf16_keys", "keys_720_d128",
+               "bf16_head_dim_step", "hidden_804")
 LIMIT_TRAIN = 2        # 11b's train batch
 WIDE_AXIS = dict(hidden_size=48, heads=2, intermediate_size=64)  # 11c
 WIDE_AXIS_RANKS = 4
@@ -2808,10 +2828,11 @@ def wide_kernels(att, mlp, ln, gen, card):
     import torch.nn.functional as F
 
     rows = {}
-    for names, b, h, nq, nk, d in WIDE_ATTENTION:
+    for names, b, h, nq, nk, d, *layout in WIDE_ATTENTION:
         for name in names:
             dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[name]
-            q, k, v = _qkv("fused", b, h, nq, nk, d, dtype, gen)
+            q, k, v = _qkv(*(layout or ["fused"]), b, h, nq, nk, d, dtype,
+                           gen)
             got = att.attention(q, k, v, SCALE)
             torch.cuda.synchronize()
             want = att.attention_reference(q, k, v, SCALE)
@@ -2819,7 +2840,8 @@ def wide_kernels(att, mlp, ln, gen, card):
             tol = (1e-5 if name == "f32"
                    else 2 * bf16_ulp(want.float().abs().max().item()))
             del got, want
-            shape = f"q[{b},{h},{nq},{d}] k[{b},{h},{nk},{d}]"
+            shape = (f"q[{b},{h},{nq},{d}] k[{b},{h},{nk},{d}]"
+                     + "".join(f" {x}" for x in layout))
             rows.setdefault(("attention", name), {})[shape] = _wide_row(
                 f"attention {name}", shape, err, err <= tol, f"{tol:.3e}",
                 cuda_ms(lambda: att.attention(q, k, v, SCALE), 5),
@@ -2873,6 +2895,38 @@ def wide_kernels(att, mlp, ln, gen, card):
                 (8.0 * m * c, 2 * 2 * m * c + (8 * c if affine else 0)),
                 "f32", card, None if affine else "layer_norm")
     return rows
+
+
+def one_kernel_a_call(att, gen, card):
+    """11a: one bf16 attention call on the model's fused QKV views at head
+    dims 50, 67 and 130 (hidden 800 over 16 heads, 804 over 12, 1040 over
+    8; batch 20, 360 queries) runs exactly one device kernel, as
+    torch.profiler records it: the kernel reads the heads where they lie
+    (a route that copied them into zero-padded rows ran seven: a fill and
+    a copy of each of q, k and v, then the kernel).  Returns {D: kernels}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = {}
+    for h, d in ((16, 50), (12, 67), (8, 130)):
+        q, k, v = _qkv("fused", DISPATCH, h, 360, 360, d, torch.bfloat16,
+                       gen)
+        att.attention(q, k, v, SCALE)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            att.attention(q, k, v, SCALE)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        counts[d] = len(names)
+        log(f"attention bf16 q[{DISPATCH},{h},360,{d}] on the model's views "
+            f"({', '.join(att.bf16_route(t) for t in (q, k, v))}): "
+            f"{len(names)} device kernel(s) a call, want 1: "
+            f"{[n[:60] for n in names]} ({card})")
+        if len(names) != 1:
+            raise AssertionError(f"bf16 attention at D = {d} ran "
+                                 f"{len(names)} device kernels: {names}")
+    return counts
 
 
 def limit_config(hidden=800, heads=10, mlp_width=3072, audio_seq=240):
@@ -3163,6 +3217,7 @@ def past_old_limits(att, mlp, ln, gen, work, card):
     wider than the heads (c)."""
     t0 = time.perf_counter()
     rows = wide_kernels(att, mlp, ln, gen, card)
+    rows["one_kernel_a_call"] = one_kernel_a_call(att, gen, card)
     log(f"phase 11a (kernels past the old limits) in "
         f"{time.perf_counter() - t0:.1f} s")
     t1 = time.perf_counter()
@@ -3241,6 +3296,14 @@ def product_loop(work, card):
 
 def main():
     t_start = time.perf_counter()
+    seconds, last_mark = {}, [t_start]
+
+    def done(name):
+        """The seconds since the last phase ended, as phase `name`'s."""
+        now = time.perf_counter()
+        seconds[name] = now - last_mark[0]
+        last_mark[0] = now
+
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; "
                          "torch.cuda.is_available() is False")
@@ -3275,6 +3338,7 @@ def main():
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
+    done("1 (card and build)")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {"attention": check_attention(att, gen),
@@ -3291,6 +3355,7 @@ def main():
     train_times = time_kernels(att, mlp, ln, gen, card, TRAIN_BATCH,
                                ((360, 360), (240, 240), (120, 120)),
                                (360, 240, 120), host=False)
+    done("2 (kernels against their plain versions)")
 
     # Each dtype has its own kernel; its launches are those of its server,
     # and its launches a step those over that server's decode steps.
@@ -3302,11 +3367,15 @@ def main():
         for k, n in counts.items():
             launches[k, name] = n
             per_step[k, name] = n / steps
+    done("3 (the server)")
     card_vs_cpu(model32)
+    done("4 (card against CPU)")
     throughput(model16, "bf16", card)
     throughput(model32, "f32", card)
+    done("5 (decode frames/s)")
     graph_launches = decode_graphs(
         ((model32, "f32"), (model16, "bf16")), card)[1]
+    done("5b (decode graphs)")
     del model16, model32
     torch.cuda.empty_cache()
 
@@ -3328,19 +3397,26 @@ def main():
                 shutil.rmtree(run)
         rate_bf16 = train_rate("bf16", card, steps=10)
         train_rate("f32", card, steps=5)
+        done("6 (training)")
         eval_launches, eval_times = scoring_path(
             att, mlp, ln, gen, work, os.path.join(work, "f32_run"), card)
+        done("7 (scoring)")
         music_path(work, os.path.join(work, "f32_run"), card)
+        done("8 (music in)")
         shard_errs, shard_times, tp = across_ranks(att, mlp, ln, gen, work,
                                                    card)
+        done("9 (ranks and replicas, checkpoints in)")
         log(f"train bf16 batch {TRAIN_BATCH} Trainer.train_step: one device "
             f"(6c) {rate_bf16:.3f} steps/s, a world of one NCCL rank (9c) "
             f"{tp['rates']['step_world_of_one']:.3f} steps/s ({card})")
         last = last_modules(work, os.path.join(work, "f32_run"),
                             tp["rates"], card)
+        done("10 (the last modules)")
         wide_rows, limit_launches, limit_ms, wide_axis = past_old_limits(
             att, mlp, ln, gen, work, card)
+        done("11 (configs past the old limits)")
         e2e_launches = product_loop(work, card)
+        done("12 (the product loop)")
     # The affine-free LayerNorm runs on the folded decode (10b): its
     # launches there, a step, and in the folded evaluator's pass.
     free = "layer_norm_affine_free"
@@ -3353,8 +3429,9 @@ def main():
     # LayerNorm(dtype=bf16) with f32 parameters, which XLA fuses there;
     # its affine-free form is the same LayerNorm with use_scale=False and
     # use_bias=False, the folded model's (ln_affine_folded).
-    sources = {"attention": ("mint_tpu_torch/csrc/attention.cu",
-                             "mint_tpu/ops/attention.py:43", ("f32", "bf16")),
+    sources = {"attention": ({"f32": "mint_tpu_torch/csrc/attention_f32.cu",
+                               "bf16": "mint_tpu_torch/csrc/attention.cu"},
+                              "mint_tpu/ops/attention.py:43", ("f32", "bf16")),
                "fused_mlp": ("mint_tpu_torch/csrc/mlp.cu",
                              "mint_tpu/ops/mlp.py:44", ("f32", "bf16")),
                "layer_norm": ("mint_tpu_torch/csrc/layer_norm.cu",
@@ -3379,7 +3456,8 @@ def main():
     # launches a step that decode's, its `eval_launches` the folded
     # evaluator's pass.  `e2e_launches` are phase 12's: its resumed bf16
     # train run's and its evaluate runs' (f32 and bf16; none folded).
-    kernels = [{"name": f"{name}_{dt}", "route": "cuda", "source": src,
+    kernels = [{"name": f"{name}_{dt}", "route": "cuda",
+                "source": src if isinstance(src, str) else src[dt],
                 "replaces": rep, "launches": launches[name, dt],
                 "launches_per_step": per_step[name, dt],
                 "graphed_launches_per_step": graph_launches[name, dt],
@@ -3413,12 +3491,17 @@ def main():
                         if d == dt} if name == "attention" else None,
                     "model_axis_wider_than_heads":
                         wide_axis["launches_per_forward_per_rank"].get(name)
-                        if dt == "f32" else None},
+                        if dt == "f32" else None,
+                    "device_kernels_a_call_on_model_views":
+                        wide_rows["one_kernel_a_call"]
+                        if (name, dt) == ("attention", "bf16") else None},
                 "e2e_launches": {
                     stage: e2e_launches[stage, dt][name]
                     for stage in ("train", "evaluate")
                     if (stage, dt) in e2e_launches}}
                for name, (src, rep, dts) in sources.items() for dt in dts]
+    for name, secs in seconds.items():
+        log(f"phase {name}: {secs:.1f} s")
     log(f"chip_smoke.py in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -59,6 +59,15 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                : "memory");
 }
 
+// The same for 8 bytes (both addresses 8-byte aligned).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
 // Closes the group of copies issued since the last commit.
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -103,6 +112,19 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
                    smem_addr(bar))
                : "memory");
+}
+
+// Orders this thread's shared-memory writes by ordinary stores (the
+// generic proxy) before the async proxy's reads (wgmma, TMA) that follow
+// it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Block barrier `id` (1-15; 0 is __syncthreads) over `threads` threads, a
+// multiple of 32.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Waits until the phase of parity `parity` has completed.

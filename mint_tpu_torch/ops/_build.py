@@ -32,11 +32,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _S = ctypes.POINTER(ctypes.c_longlong)
+_R = ctypes.POINTER(ctypes.c_int)
 # C entry points: name -> argtypes.  Each returns cudaError_t as int.
 _SIGNATURES = {
     # q, k, v, out, strides (b, h, n of each), B, H, nq, nk, d, scale, stream
     "mint_attention_f32": [_P, _P, _P, _P, _S, _I, _I, _I, _I, _I, _F, _P],
-    "mint_attention_bf16": [_P, _P, _P, _P, _S, _I, _I, _I, _I, _I, _F, _P],
+    # the same with the routes of q, k and v (ops.attention.ROUTES) after
+    # the strides
+    "mint_attention_bf16": [_P, _P, _P, _P, _S, _R, _I, _I, _I, _I, _I, _F,
+                            _P],
     # x, w1, b1, w2, b2, scratch, out, m, h, f, o, stream
     "mint_mlp_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mint_mlp_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -2,7 +2,9 @@
 
 Counterpart of ``mint_tpu/ops/attention.py``.  :func:`attention` is the
 port of the Pallas kernel ``pallas_attention`` (its source is
-``mint_tpu_torch/csrc/attention.cu``); :func:`attention_reference` is the
+``mint_tpu_torch/csrc/attention_f32.cu`` and ``attention.cu``, with
+``attention_pairs.cu`` and ``attention_stream.cu``);
+:func:`attention_reference` is the
 plain PyTorch version with the kernel's cast points.  The scale is always
 passed in: FACT scales by the full model dim, ``800 ** -0.5``, not the
 head dim (``mint_tpu/models/layers.py:84``).
@@ -18,6 +20,7 @@ either.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -75,7 +78,7 @@ def bf16_max_keys(d: int) -> int:
     resident kernel holds the head's whole K in shared memory, past it the
     streamed kernel runs (K and V through a ring of 64-key tiles, Q in
     shared memory); heads over 128 wide always stream (0).  Mirrors
-    ``tc_smem_bytes`` in csrc/attention.cu: 2 KB of mbarriers and slack,
+    ``tc_smem_bytes`` in csrc/attention_tc.cuh: 2 KB of mbarriers and slack,
     then every 64-key K tile and a ring of 3 V tiles, each 64 * 2 * D bytes
     for D the head dim rounded up to 16, within the 232448 bytes a block
     may take on an H100, and at most 64 tiles.  1216 keys at D = 80, 704
@@ -89,7 +92,7 @@ def bf16_max_keys(d: int) -> int:
 def limit_broken(dtype: torch.dtype) -> str | None:
     """Why no attention kernel takes inputs of `dtype`, or None if one
     does.  Both kernels take any key count and batch of heads, and head
-    dims up to MAX_HEAD_DIM (csrc/attention.cu): f32 runs on the FMA
+    dims up to MAX_HEAD_DIM (csrc/attention*.cu): f32 runs on the FMA
     kernels, bf16 on the tensor-core ones."""
     if dtype not in _ENTRY:
         return f"no attention kernel takes {dtype} (float32, bfloat16)"
@@ -143,20 +146,123 @@ class AttentionFunction(torch.autograd.Function):
                   zip(grads, ctx.needs_input_grad)), None, None)
 
 
+# How the bf16 kernel loads a view (csrc/attention_tc.cuh's Route), by
+# code.
+ROUTES = ("tma_view", "tma_columns", "copies", "tma_pairs")
+
+
 def _tma_ready(t: torch.Tensor) -> bool:
-    """Whether the bf16 kernel can read `t` as it is: a head dim that is a
-    multiple of 8, a 16-byte aligned base and every stride of a dim longer
-    than 1 a whole number of 16-byte steps (D itself contiguous), as its
-    TMA loads need."""
-    return (t.shape[-1] % 8 == 0 and t.stride(-1) == 1
-            and t.data_ptr() % 16 == 0
+    """Whether TMA can address `t` as a [B, H, N, D] tensor: a 16-byte
+    aligned base and every stride of a dim longer than 1 a whole number of
+    16-byte steps (D itself contiguous).  Any D: its loads read zeros past
+    it."""
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(st % 8 == 0 for st, n in zip(t.stride()[:3], t.shape[:3])
                     if n > 1))
 
 
-def _padded(t: torch.Tensor) -> torch.Tensor:
+def bf16_route(t: torch.Tensor) -> str:
+    """How the bf16 kernel loads the view `t` (D contiguous), as it lies:
+    "tma_view", TMA over [B, H, N, D] (see _tma_ready); else "tma_columns",
+    TMA over a token row's head columns, [B, N, (H - 1) * st_h + D], where
+    the base and the B and N strides are whole 16-byte steps, whatever the
+    head stride (the model's fused QKV views at head dims no multiple of 8,
+    where the token stride 3 * H * D * 2 bytes is a multiple of 16: hidden
+    800 over 16 heads, 1040 over 8; a head's boxes start on the 16-byte step
+    at or before it, see _col_shift); else "tma_pairs", TMA over its even
+    token rows and over its odd ones, where the token stride is 8 bytes
+    past a 16-byte step (hidden 804 over 12 heads: 4824-byte rows; the
+    resident kernel only); else "copies", the block's threads copying rows
+    into the layout TMA writes (any view; the resident kernel only)."""
+    if _tma_ready(t):
+        return "tma_view"
+    b, h, n, d = t.shape
+    columns = (h - 1) * t.stride(1) + d + 4 < 2 ** 31
+    if (t.data_ptr() % 16 == 0 and (b == 1 or t.stride(0) % 8 == 0)
+            and (n == 1 or t.stride(2) % 8 == 0) and columns):
+        return "tma_columns"
+    if (t.data_ptr() % 8 == 0 and (b == 1 or t.stride(0) % 8 == 0)
+            and n > 1 and t.stride(2) % 8 == 4 and columns):
+        return "tma_pairs"
+    return "copies"
+
+
+def _col_shift(t: torch.Tensor, route: str) -> int:
+    """The most columns a head of `t` lies into its tiles on `route`: TMA
+    takes no box whose first column is off a 16-byte step, so over a token
+    row's head columns a head's boxes start at the step at or before it,
+    h * st_h % 8 columns early (8 - gcd(st_h, 8) at most; at most 7 over
+    the token rows of one parity; csrc/attention_tc.cuh's col_shift)."""
+    if route == "tma_pairs":
+        return 7
+    if route != "tma_columns" or t.shape[1] == 1:
+        return 0
+    return 8 - math.gcd(8, t.stride(1) % 8)
+
+
+def _resident_route(k_route: str, v_route: str) -> str:
+    """The one route the resident kernel loads K and V by
+    (csrc/attention.cu's load_route)."""
+    pairs = (k_route == "tma_pairs", v_route == "tma_pairs")
+    if "copies" in (k_route, v_route) or pairs[0] != pairs[1]:
+        return "copies"
+    if pairs[0]:
+        return "tma_pairs"
+    return ("tma_columns" if "tma_columns" in (k_route, v_route)
+            else "tma_view")
+
+
+def bf16_resident(frame: int, nk: int, pairs: bool = False) -> bool:
+    """Whether the bf16 attention over nk keys of heads whose tiles hold
+    `frame` columns (the head dim and its _col_shift) runs on the resident
+    kernel (any view), rather than the streamed one (TMA's views only).
+    `pairs`: K and V on "tma_pairs" (csrc/attention.cu's launch_bf16):
+    the even rows' tiles then the odd rows', two more tiles of staging,
+    and 4 of the 128 mbarriers kept for them."""
+    if not pairs:
+        return frame <= 128 and nk <= bf16_max_keys(frame)
+    width = -(-frame // 16) * 16
+    tiles = -(-((nk + 1) // 2) // 64) + -(-(nk // 2) // 64)
+    smem = 2048 + (tiles + min(tiles, 3) + 2) * 64 * 2 * width
+    return frame <= 128 and tiles <= 62 and smem <= 232448
+
+
+def _stream_fits(frame: int) -> bool:
+    """Whether the streamed kernel holds one warpgroup's Q over `frame`
+    columns and a ring of two tiles in shared memory (its chunks of at most
+    256 columns, a multiple of 16 each; csrc/attention_tc.cuh's
+    tc_stream_smem_bytes)."""
+    chunks = -(-frame // 256)
+    width = -(-(-(-frame // chunks)) // 16) * 16
+    return 2048 + (chunks + 2) * 64 * 2 * width <= 232448
+
+
+def _streamable(q, k, v):
+    """q, k and v as the streamed kernel takes them: by TMA over the view
+    or its head columns, q's heads as many columns into their tiles as k's
+    (their head strides alike modulo 8), within shared memory.  A view
+    that is not is copied once into zero-padded rows (_tma_copy; never one
+    of the model's)."""
+    views = (q, k, v)
+    routes = [bf16_route(t) for t in views]
+    copy = [r in ("copies", "tma_pairs") for r in routes]
+    steps = [t.stride(1) % 8 if r == "tma_columns" and t.shape[1] > 1 else 0
+             for t, r in zip(views, routes)]
+    if steps[0] != steps[1]:
+        copy[0] = copy[0] or routes[0] == "tma_columns"
+        copy[1] = copy[1] or routes[1] == "tma_columns"
+    frame = q.shape[-1] + max([0] + [_col_shift(t, r) for t, r, c in
+                                     zip(views, routes, copy) if not c])
+    if not _stream_fits(frame):
+        copy = [c or r == "tma_columns" for c, r in zip(copy, routes)]
+    return tuple(_tma_copy(t) if c else t for t, c in zip(views, copy))
+
+
+def _tma_copy(t: torch.Tensor) -> torch.Tensor:
     """`t` copied into new storage whose rows are its head dim rounded up
-    to 8 columns, zeros after it; returned as a view of `t`'s shape."""
+    to 8 columns, zeros after it, returned as a view of `t`'s shape: a view
+    the streamed kernel's TMA loads read (a layout the model never hands
+    it)."""
     d = t.shape[-1]
     out = t.new_zeros(*t.shape[:-1], -(-d // 8) * 8)
     out[..., :d] = t
@@ -165,28 +271,41 @@ def _padded(t: torch.Tensor) -> torch.Tensor:
 
 def _launch(q, k, v, scale):
     global launches
+    out = _call(q, k, v, scale)
+    launches += 1
+    return out
+
+
+def _call(q, k, v, scale, lib=None, routes=None):
+    """One launch of the kernel of q's dtype in the library `lib` (by
+    default the package's); bf16 loads q, k and v by `routes` (names in
+    ROUTES), by default each view's bf16_route."""
     if q.device.type != "cuda":
         raise ValueError(f"attention: unsupported device {q.device}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("attention: q, k and v must share one device")
+    lib = lib or _build.library()
     q, k, v, out = _operands(q, k, v)
     strides = (ctypes.c_longlong * 12)(
         *(st for t in (q, k, v, out) for st in t.stride()[:3]))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     b, h, nq, d = q.shape
-    err = getattr(_build.library(), _ENTRY[q.dtype])(
+    codes = ()
+    if q.dtype == torch.bfloat16:
+        codes = ((ctypes.c_int * 3)(*(ROUTES.index(r) for r in (
+            routes or [bf16_route(t) for t in (q, k, v)]))),)
+    err = getattr(lib, _ENTRY[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-        b, h, nq, k.shape[2], d, float(scale), stream)
+        *codes, b, h, nq, k.shape[2], d, float(scale), stream)
     _build.check(err, "attention kernel launch")
-    launches += 1
     return out
 
 
 def _operands(q, k, v):
     """Checks q, k and v and returns what the kernel of their dtype is
     given: q, k and v as they are (a copy only of a layout the kernel
-    cannot read, never the flagship model's) and the output, a [B, H, Nq,
-    D] view of new [B, Nq, H, D] storage."""
+    cannot read, never the model's) and the output, a [B, H, Nq, D] view
+    of new [B, Nq, H, D] storage."""
     if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"attention: dtypes {q.dtype}/{k.dtype}/{v.dtype} "
                          "(needs one of float32, bfloat16 for all three)")
@@ -205,13 +324,14 @@ def _operands(q, k, v):
         raise ValueError(f"attention: head dim {d} over the "
                          f"{MAX_HEAD_DIM[q.dtype]} the {q.dtype} kernel "
                          "holds in shared memory")
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     if q.dtype == torch.bfloat16:
-        # Layouts TMA cannot address, and heads not a multiple of 8 wide,
-        # are copied once into zero-padded rows (never the flagship's).
-        q, k, v = (t if _tma_ready(t) else _padded(t) for t in (q, k, v))
-    else:
-        q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
-                   for t in (q, k, v))
+        routes = [bf16_route(t) for t in (k, v)]
+        route = _resident_route(*routes)
+        frame = d + (0 if route == "copies" else max(
+            _col_shift(t, r) for t, r in zip((k, v), routes)))
+        if not bf16_resident(frame, nk, route == "tma_pairs"):
+            q, k, v = _streamable(q, k, v)
     out = torch.empty((b, nq, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     return q, k, v, out

@@ -1,27 +1,39 @@
 """The attention kernels on the card: what ptxas made of them, whether
 they agree with the plain version, and how fast they run beside the
-design alternatives they were chosen over.
+design alternatives they were chosen over and the parent commit's.
 
 1. Builds ``mint_tpu_torch/csrc`` and prints, for each attention kernel
    instance, ptxas's registers and spills, and every note that ptxas
-   serialised its ``wgmma`` products.
-2. Builds each entry of ``VARIANTS`` (``csrc/attention.cu`` with a few
-   lines changed: the alternatives the redesigned kernels were measured
-   against) into a library of its own, all nvcc processes at once.
+   serialised its ``wgmma`` products; the build's seconds.
+2. Builds each entry of ``VARIANTS`` (``csrc/attention_f32.cu`` or
+   ``csrc/attention.cu`` with a few lines changed: the alternatives the
+   kernels were measured against) into a library of its own, and, given
+   ``--parent DIR`` (a checkout of another commit, e.g. ``git archive HEAD``
+   unpacked), that tree's ``attention.cu``, all nvcc processes at once.
 3. Checks the repo's kernels against ``attention_reference`` at shapes
-   that reach every schedule (the f32 and bf16 kernels for heads over
-   128, the bf16 streamed kernel at long keys, heads over 256 in output
-   chunks, the widest heads ``ops.attention.MAX_HEAD_DIM`` allows), and
-   each variant at the 360-query shapes: f32 within 1e-5, bf16 within 2
-   bf16 ulps of the output's peak (phase 2's tolerances in
-   ``chip_smoke.py``).
-4. Times the repo's kernels and each variant at ``chip_smoke.py`` phase
-   11a's shapes for the redesigned kernels, in turns (repo, variants,
-   then again in reverse order), beside the plain version and the bound,
-   by CUDA events (``chip_smoke.cuda_ms``); ``chip_smoke.py`` phase 11a
-   times the library's call beside them.
+   that reach every schedule and every way the bf16 kernels load a view
+   (``ops.attention.bf16_route``: the model's fused QKV views at head dims
+   36-250 with the head counts that make each route, Nq = 360 and 48, and
+   views of padded rows, 84 over 80 and 69 over 67; the f32 kernel's
+   widths 8-128 and its wide heads), and each variant at the 360-query
+   shapes: f32 within 1e-5, bf16 within 2 bf16 ulps of the output's peak
+   (phase 2's tolerances in ``chip_smoke.py``).
+4. Times, at the model's fused views, in turns (then again in reverse
+   order), by CUDA events (``chip_smoke.cuda_ms``) beside the plain
+   version and the bound (``chip_smoke.py`` phase 11a times the library's
+   call beside the kernel): bf16 on each view's route, on the parent's
+   route (zero-padded copies of q, k and v, then the kernel on them: six
+   launches of their own) or, on views TMA reads as they lie, the parent's
+   kernel itself, and, on the resident kernel, by the block's copies; f32
+   against each variant and the parent's library.
 
-    python scripts/torch_attention_bringup.py [f32|bf16]
+5. With ``--decode`` (and ``--parent DIR``), only the flagship's bf16
+   batch-20 decode frames/s through its CUDA graph (``chip_smoke.py``
+   phase 5's ``throughput``), each tree's own code in a process of its
+   own: parent, this tree, this tree, parent.
+
+    python scripts/torch_attention_bringup.py [all|f32|bf16] [--check-only]
+        [--parent DIR] [--decode]
 
 Needs a CUDA card and nvcc; prints the card's name and power limit.
 """
@@ -44,68 +56,74 @@ import chip_smoke as cs  # noqa: E402
 from mint_tpu_torch.ops import _build  # noqa: E402
 from mint_tpu_torch.ops import attention as att  # noqa: E402
 
-# name -> [(text in csrc/attention.cu, its replacement)]
+# name (its dtype's name first) -> (source in csrc/, [(text in it, its
+# replacement)])
 VARIANTS = {
-    # The f32 wide kernel testing each P.V column against the chunk.
-    "f32_tested_columns": [(
-        "pv_fma<NQ, false>(acc, ps, alpha_s, vs, ldv",
-        "pv_fma<NQ, true>(acc, ps, alpha_s, vs, ldv")],
-    # The bf16 streamed kernel with two consumer warpgroups at every
-    # chunk width (three up to 96 columns in the repo).
-    "bf16_two_consumers": [(
-        "constexpr int kStreamWideW = 96;",
-        "constexpr int kStreamWideW = 0;")],
-    # Heads of 129-256 columns in whole 64-column slabs (D = 130 as 192,
-    # TMA's zeros past 130) instead of 16-column steps (144: two
-    # 64-column slabs and one of 16).
-    "bf16_whole_slabs": [(
-        "  switch (((d + chunks - 1) / chunks + 15) / 16 * 16) {",
-        "  switch (((d + chunks - 1) / chunks + (d > kMaxD && chunks == 1\n"
-        "                                           ? 63 : 15))\n"
-        "          / (d > kMaxD && chunks == 1 ? 64 : 16)\n"
-        "          * (d > kMaxD && chunks == 1 ? 64 : 16)) {")],
-    # A producer warpgroup that gives its registers to the two consumer
-    # warpgroups by setmaxnreg (40 / 232 a thread) instead of one producer
-    # warp.
-    "bf16_setmaxnreg": [
-        ("constexpr int kStreamWideW = 96;",
-         "constexpr int kStreamWideW = 0;"),
-        ("constexpr int kStreamProducer = 32;",
-         "constexpr int kStreamProducer = 128;"),
-        ("    if (threadIdx.x != 128 * wgs) return;\n",
-         '    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\\n");\n'
-         "    if (threadIdx.x != 128 * wgs) return;\n"),
-        ("  const uint8_t* qt = qs + wg * chunks * T::kBytes;\n",
-         '  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\\n");\n'
-         "  const uint8_t* qt = qs + wg * chunks * T::kBytes;\n")],
+    # The f32 kernel's widths rounded up to 16 columns instead of 8 (half
+    # the instances: D = 50 as 64, 67 as 80).
+    "f32_width16": ("attention_f32.cu", [(
+        "    width = (d + 7) / 8 * 8;",
+        "    width = (d + 15) / 16 * 16;")]),
+    # Its instances at W = 72 and 80 free to take the registers ptxas
+    # gives them (144 a thread: three blocks an SM, not four).
+    "f32_any_registers": ("attention_f32.cu", [
+        ("#define MINT_PAD\n", "#define MINT_PAD , true\n")] + [
+        (f"MINT_CASE({w8}, attention_kernel_4)",
+         f"MINT_CASE({w8}, attention_kernel)") for w8 in (9, 10)]),
 }
 
-# (dtype name, B, H, Nq, Nk, D): phase 11a's shapes of the redesigned
-# kernels, and the flagship's for reference.
-TIMED = [("bf16", 20, 4, 360, 360, 256), ("bf16", 20, 8, 360, 360, 130),
-         ("bf16", 20, 4, 360, 360, 192), ("bf16", 20, 4, 360, 360, 264),
-         ("bf16", 20, 8, 720, 720, 128), ("bf16", 20, 10, 1320, 1320, 80),
-         ("bf16", 20, 10, 48, 1320, 80), ("bf16", 20, 10, 360, 360, 80),
-         ("f32", 20, 4, 360, 360, 256), ("f32", 20, 8, 360, 360, 130),
-         ("f32", 20, 4, 360, 360, 192), ("f32", 20, 4, 360, 360, 264),
-         ("f32", 20, 10, 360, 360, 80)]
+# (dtype name, B, H, Nq, Nk, D): chip_smoke.py phase 11a's shapes of the
+# heads read in place (hidden 800 over 16 heads, 804 over 12, 1040 over
+# 8), the same widths rounded to 8 (what the parent's general f32 instance
+# cost at a width its 16-byte copies read), hidden 800 over 8 heads, and
+# the flagship's.
+TIMED = [(name, 20, h, 360, 360, d) for name in ("bf16", "f32")
+         for h, d in ((16, 50), (12, 67), (12, 64), (16, 48), (10, 80),
+                      (8, 100))] + [("bf16", 20, 8, 360, 360, 130)]
+if os.environ.get("BRINGUP_TIMED"):  # e.g. "bf16:12:67,f32:16:50"
+    TIMED = [(n, 20, int(h), 360, 360, int(d)) for n, h, d in (
+        x.split(":") for x in os.environ["BRINGUP_TIMED"].split(","))]
 
 
 def checked_shapes(only):
-    """(dtype name, B, H, Nq, Nk, D) that reach every schedule."""
+    """(dtype name, layout, B, H, Nq, Nk, D) that reach every schedule and
+    route."""
     cases = []
     if only in ("all", "bf16"):
         for d, nk in ((16, 4160), (80, 1320), (64, 1500), (96, 1300),
                       (112, 800), (128, 720)):
-            cases += [("bf16", 2, 3, nq, nk, d) for nq in (48, 130, 200, 360)]
+            cases += [("bf16", "contiguous", 2, 3, nq, nk, d)
+                      for nq in (48, 130, 200, 360)]
         for d in (130, 144, 192, 200, 256, 264, 520, 1344):
-            cases += [("bf16", 2, 3, nq, nk, d)
+            cases += [("bf16", "contiguous", 2, 3, nq, nk, d)
                       for nq, nk in ((48, 360), (100, 100), (360, 65),
                                      (360, 360))]
+        # The model's views: the first head count makes a token row TMA
+        # can step over (tma_columns; 67 over 12 heads: copies, the odd
+        # heads' rows on 2-byte boundaries), 3 heads one it cannot.
+        for d, heads in ((36, (2, 3)), (50, (16, 3)), (67, (12,)),
+                         (100, (2, 3)), (130, (8, 3)), (250, (4, 3))):
+            cases += [("bf16", "fused", 2, h, nq, 360, d)
+                      for h in heads for nq in (360, 48)]
+        cases += [("bf16", f"rows{st}", 2, 3, nq, 360, d)
+                  for st, d in ((84, 80), (69, 67)) for nq in (360, 48)]
+        # The last key count the resident kernel takes by its block's
+        # copies, and the first past it (the streamed kernel on a
+        # zero-padded copy).
+        cases += [("bf16", "rows84", 2, 3, 48, nk, 80)
+                  for nk in (att.bf16_max_keys(80),
+                             att.bf16_max_keys(80) + 1)]
     if only in ("all", "f32"):
         for d in (130, 192, 200, 256, 264, 600, 1016):
-            cases += [("f32", 2, 3, nq, nk, d)
+            cases += [("f32", "contiguous", 2, 3, nq, nk, d)
                       for nq, nk in ((48, 37), (200, 360), (360, 360))]
+        for d in (8, 18, 36, 48, 50, 64, 67, 80, 100, 120, 127, 128):
+            cases += [("f32", layout, 2, h, nq, 360, d)
+                      for layout, h in (("fused", 3), ("fused", 16),
+                                        ("contiguous", 3))
+                      for nq in (360, 48)]
+        cases += [("f32", f"rows{st}", 2, 3, 360, 360, d)
+                  for st, d in ((84, 80), (69, 67))]
     return cases
 
 
@@ -133,29 +151,101 @@ def ptxas_report(log, tag):
 def load(path):
     lib = ctypes.CDLL(path)
     for entry in ("mint_attention_f32", "mint_attention_bf16"):
-        fn = getattr(lib, entry)
-        fn.argtypes = _build._SIGNATURES[entry]
-        fn.restype = ctypes.c_int
+        if hasattr(lib, entry):  # a variant's library has one of them
+            fn = getattr(lib, entry)
+            fn.argtypes = _build._SIGNATURES[entry]
+            fn.restype = ctypes.c_int
     return lib
 
 
-def launch(lib, q, k, v, scale):
-    """ops.attention's launch through the library `lib`."""
+def build(sources, work):
+    """{name: (attention.cu text, include dir)} -> {name: library}, one
+    nvcc each, all at once."""
+    procs = {}
+    for name, (text, include) in sources.items():
+        path = os.path.join(work, f"{name}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        # The bf16 resident source calls the launches of the other two.
+        extra = ([os.path.join(include, f"attention_{part}.cu")
+                  for part in ("stream", "pairs")]
+                 if "return launch_bf16_stream(" in text else [])
+        procs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", include, "-shared",
+             "-o", path[:-3] + ".so", path, *extra],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(f"{name} failed to build:\n{log}")
+        ptxas_report(log, name)
+        libs[name] = load(os.path.join(work, f"{name}.so"))
+    return libs
+
+
+def parent_kernel(lib, q, k, v, scale):
+    """The parent commit's bf16 kernel (its C entry: no routes) on views it
+    reads as they are (TMA's, a head dim a multiple of 8)."""
     q, k, v, out = att._operands(q, k, v)
+    fn = lib.mint_attention_bf16
+    fn.argtypes = (_build._SIGNATURES["mint_attention_bf16"][:5]
+                   + _build._SIGNATURES["mint_attention_bf16"][6:])
     strides = (ctypes.c_longlong * 12)(
         *(st for t in (q, k, v, out) for st in t.stride()[:3]))
     b, h, nq, d = q.shape
-    err = getattr(lib, att._ENTRY[q.dtype])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-        b, h, nq, k.shape[2], d, float(scale),
-        torch.cuda.current_stream().cuda_stream)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             strides, b, h, nq, k.shape[2], d, float(scale),
+             torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"launch: CUDA error {err}")
+        raise RuntimeError(f"parent bf16 kernel: CUDA error {err}")
     return out
 
 
+def parent_route(lib, q, k, v, scale):
+    """The parent commit's bf16 route for a view TMA could not address:
+    each of q, k and v copied into zero-padded rows (a multiple of 8
+    wide), then the kernel on the copies."""
+    return att._call(*(t if att._tma_ready(t) and t.shape[-1] % 8 == 0
+                       else att._tma_copy(t) for t in (q, k, v)), scale, lib)
+
+
+# Run in a process of its own, sys.argv[1] a tree: that tree's flagship
+# bf16 decode frames/s at batch 20 (its chip_smoke.throughput).
+DECODE = """
+import subprocess, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                       "--format=csv,noheader"], capture_output=True,
+                      text=True).stdout.strip().splitlines()[0]
+print("rate", cs.throughput(cs.flagship(torch.bfloat16, "cuda"), "bf16",
+                            card))
+"""
+
+
+def decode_turns(parent):
+    """The flagship's bf16 batch-20 decode frames/s of the parent tree and
+    of this one, in turns (parent, this, this, parent)."""
+    rates = {"parent": [], "repo": []}
+    for name in ("parent", "repo", "repo", "parent"):
+        tree = os.path.abspath(parent) if name == "parent" else REPO
+        out = subprocess.run([sys.executable, "-c", DECODE, tree],
+                             capture_output=True, text=True, cwd=tree)
+        lines = [x for x in out.stdout.splitlines() if x.startswith("rate ")]
+        if out.returncode or not lines:
+            raise SystemExit(f"decode in {tree} failed:\n{out.stderr[-3000:]}")
+        rates[name].append(float(lines[-1].split()[1]))
+        print(f"decode bf16 batch 20 {name}: {rates[name][-1]:.2f} frames/s",
+              flush=True)
+    return rates
+
+
 def main():
-    only = sys.argv[1] if len(sys.argv) > 1 else "all"
+    args = sys.argv[1:]
+    only = next((a for a in args if a in ("all", "f32", "bf16")), "all")
+    parent = args[args.index("--parent") + 1] if "--parent" in args else None
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     card = subprocess.run(
@@ -163,78 +253,105 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
+    if "--decode" in args:
+        rates = decode_turns(parent)
+        print(f"decode bf16 batch 20 frames/s: repo {rates['repo']}, parent "
+              f"{rates['parent']} ({card})", flush=True)
+        return
     t0 = time.perf_counter()
     libs = {"repo": _build.library()}
-    print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"built in {time.perf_counter() - t0:.1f} s (one nvcc a source, "
+          f"all at once)", flush=True)
     ptxas_report(_build.build_log, "repo")
 
     work = os.path.join(_build.BUILD_DIR, "variants")
     os.makedirs(work, exist_ok=True)
-    source = open(os.path.join(_build.CSRC, "attention.cu")).read()
-    procs = {}
-    for name, edits in VARIANTS.items():
-        text = source
+    sources = {}
+    for name, (source, edits) in VARIANTS.items():
+        text = open(os.path.join(_build.CSRC, source)).read()
         for old, new in edits:
             if old not in text:
                 raise SystemExit(f"variant {name}: {old!r} not in the source")
             text = text.replace(old, new)
-        path = os.path.join(work, f"{name}.cu")
-        with open(path, "w") as f:
-            f.write(text)
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC,
-             "-shared", "-o", path[:-3] + ".so", path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise SystemExit(f"variant {name} failed to build:\n{log}")
-        ptxas_report(log, name)
-        libs[name] = load(os.path.join(work, f"{name}.so"))
+        sources[name] = (text, _build.CSRC)
+    if parent:
+        csrc = os.path.join(os.path.abspath(parent), "mint_tpu_torch", "csrc")
+        sources["parent"] = (open(os.path.join(csrc, "attention.cu")).read(),
+                             csrc)
+    t0 = time.perf_counter()
+    others = build(sources, work)
+    print(f"variants built in {time.perf_counter() - t0:.1f} s", flush=True)
+    libs.update((n, lib) for n, lib in others.items() if n != "parent")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     bad = 0
-    for name, b, h, nq, nk, d in checked_shapes(only):
+    for name, layout, b, h, nq, nk, d in checked_shapes(only):
         dtype = torch.bfloat16 if name == "bf16" else torch.float32
-        for layout in ("fused", "contiguous") if nq <= nk else ("contiguous",):
-            q, k, v = cs._qkv(layout, b, h, nq, nk, d, dtype, gen)
-            want = att.attention_reference(q, k, v, cs.SCALE)
-            tol = 1e-5 if name == "f32" else 2 * cs.bf16_ulp(
-                want.float().abs().max().item())
-            for lname, lib in libs.items():
-                if lname != "repo" and nq != 360:
-                    continue
-                got = launch(lib, q, k, v, cs.SCALE)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                ok = err <= tol and bool(torch.isfinite(got).all())
-                bad += not ok
-                print(f"{'ok  ' if ok else 'FAIL'} {lname} {name} {layout} "
-                      f"q[{b},{h},{nq},{d}] k[..,{nk},{d}]: max_abs_err "
-                      f"{err:.3e} tol {tol:.3e}", flush=True)
+        q, k, v = cs._qkv(layout, b, h, nq, nk, d, dtype, gen)
+        want = att.attention_reference(q, k, v, cs.SCALE)
+        tol = 1e-5 if name == "f32" else 2 * cs.bf16_ulp(
+            want.float().abs().max().item())
+        routes = ("/".join(att.bf16_route(t) for t in (q, k, v))
+                  if name == "bf16" else "")
+        for lname, lib in libs.items():
+            if lname != "repo" and (nq != 360 or "~" in lname
+                                    or not lname.startswith(name)):
+                continue
+            got = att._call(q, k, v, cs.SCALE, lib)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ok = err <= tol and bool(torch.isfinite(got).all())
+            bad += not ok
+            print(f"{'ok  ' if ok else 'FAIL'} {lname} {name} {layout} "
+                  f"q[{b},{h},{nq},{d}] k[..,{nk},{d}] {routes}: max_abs_err "
+                  f"{err:.3e} tol {tol:.3e}", flush=True)
     print(f"disagreeing: {bad}", flush=True)
+    if bad:
+        raise SystemExit(f"{bad} kernel results disagree")
+    if "--check-only" in args:
+        return
 
     for name, b, h, nq, nk, d in TIMED:
         if only not in ("all", name):
             continue
         dtype = torch.bfloat16 if name == "bf16" else torch.float32
         q, k, v = cs._qkv("fused", b, h, nq, nk, d, dtype, gen)
-        order = list(libs.items())
-        first = {n: cs.cuda_ms(lambda: launch(lib, q, k, v, cs.SCALE))
-                 for n, lib in order}
-        second = {n: cs.cuda_ms(lambda: launch(lib, q, k, v, cs.SCALE))
-                  for n, lib in reversed(order)}
+        repo = libs["repo"]
+        runs = {"repo": lambda: att._call(q, k, v, cs.SCALE, repo)}
+        if name == "bf16":
+            routes = [att.bf16_route(t) for t in (q, k, v)]
+            if set(routes) != {"tma_view"}:
+                runs["parent_route"] = lambda: parent_route(repo, q, k, v,
+                                                            cs.SCALE)
+            elif "parent" in others:
+                runs["parent"] = lambda: parent_kernel(others["parent"], q,
+                                                       k, v, cs.SCALE)
+            if att.bf16_resident(d, nk) and "copies" not in routes:
+                runs["copies_route"] = lambda: att._call(
+                    q, k, v, cs.SCALE, repo, ["copies"] * 3)
+            for lname, lib in libs.items():
+                if lname.startswith("bf16"):
+                    runs[lname] = (lambda lib=lib: att._call(
+                        q, k, v, cs.SCALE, lib))
+        else:
+            routes = ""
+            for lname, lib in list(libs.items()) + [
+                    ("parent", others.get("parent"))]:
+                if lib is not None and lname.startswith(("f32", "parent")):
+                    runs[lname] = (lambda lib=lib: att._call(
+                        q, k, v, cs.SCALE, lib))
+        order = list(runs.items())
+        first = {n: cs.cuda_ms(fn) for n, fn in order}
+        second = {n: cs.cuda_ms(fn) for n, fn in reversed(order)}
         t_p = cs.cuda_ms(lambda: att.attention_reference(q, k, v, cs.SCALE),
                          3)
         b_ms, b_by = cs.bound(*cs.attention_work(b, h, nq, nk, d,
                                                  dtype.itemsize), name)
         kernels = ", ".join(f"{n} {first[n]:.4f} / {second[n]:.4f}"
                             for n, _ in order)
-        print(f"time {name} q[{b},{h},{nq},{d}] k[..,{nk},{d}] ms: "
-              f"{kernels}; plain {t_p:.4f}; bound "
+        print(f"time {name} q[{b},{h},{nq},{d}] k[..,{nk},{d}] "
+              f"{'/'.join(routes)} ms: {kernels}; plain {t_p:.4f}; bound "
               f"{b_ms:.4f} ({b_by}) ({card})", flush=True)
-    if bad:
-        raise SystemExit(f"{bad} kernel results disagree")
 
 
 if __name__ == "__main__":

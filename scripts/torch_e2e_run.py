@@ -37,7 +37,7 @@ default 10 s after their pass.
 
 ``extra_train_args`` is one string of train-CLI flags, e.g.
 ``"--input_backend=device"``.  ``--smoke`` only shrinks the sizes (the
-``SMOKE`` dict below): 2 musics, 4 + 2 sequences, 200 steps with a
+``SMOKE`` dict below): 2 musics, 4 + 2 sequences, 100 steps with a
 checkpoint every 50, the kill 1 s after the first interval checkpoint, and
 120-frame clips.
 """
@@ -66,7 +66,7 @@ CONFIG = os.path.join(REPO, "configs", "fact_v5_deeper_t10_cm12.config")
 FULL = {"musics": 10, "train_seqs": 40, "val_seqs": 8, "train_steps": 5000,
         "checkpoint_interval": 500, "kill_delay_s": 20.0,
         "eval_steps": 1200}
-SMOKE = {"musics": 2, "train_seqs": 4, "val_seqs": 2, "train_steps": 200,
+SMOKE = {"musics": 2, "train_seqs": 4, "val_seqs": 2, "train_steps": 100,
          "checkpoint_interval": 50, "kill_delay_s": 1.0, "eval_steps": 120}
 
 MUSICS = {  # name -> BPM by the AIST++ naming rule

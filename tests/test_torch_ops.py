@@ -283,6 +283,60 @@ def test_model_layout_needs_no_copy_for_tma():
                                               -1, -2))
 
 
+@pytest.mark.parametrize("hidden,heads,route", [
+    (800, 10, "tma_view"),      # the flagship: D = 80
+    (800, 16, "tma_columns"),   # D = 50: 4800-byte token rows
+    (1040, 8, "tma_columns"),   # D = 130: 6240-byte token rows
+    (804, 12, "tma_pairs"),     # D = 67: 4824-byte rows, 8 past a step
+])
+def test_bf16_route_of_the_models_views(hidden, heads, route):
+    """How the bf16 kernel loads each of the model's fused QKV views
+    (csrc/attention_tc.cuh's Route): TMA over the [B, H, N, D] view where
+    every stride is a whole 16-byte step, else TMA over a token row's head
+    columns where the row is, else TMA over every other token row where
+    two rows are.  Each reaches the kernel as it is, on the resident
+    schedule (up to 128 columns and bf16_max_keys keys) and the streamed
+    one (D = 130)."""
+    d = hidden // heads
+    buf = torch.zeros(20, 360, 3, heads, d, dtype=torch.bfloat16)
+    q, k, v = buf.permute(2, 0, 3, 1, 4).unbind(0)
+    for views in ((q, k, v), (q[:, :, :48], k, v)):
+        assert [att.bf16_route(t) for t in views] == [route] * 3
+        *given, out = att._operands(*views)
+        assert all(g is t for g, t in zip(given, views))
+        assert out.shape == views[0].shape
+    frame = d + att._col_shift(k, route)  # the columns of a head's tiles
+    assert frame == {"tma_view": d, "tma_pairs": d + 7,
+                     "tma_columns": d + 6}[route]
+    assert att._resident_route(route, route) == route
+    assert att.bf16_resident(frame, 360, route == "tma_pairs") == (d <= 128)
+
+
+def test_bf16_streamed_kernel_copies_only_what_tma_cannot_address():
+    """The resident kernel takes any view by its block's copies, the
+    streamed one only TMA's over a view or its head columns: a view of rows
+    TMA cannot step over (81 elements apart, over 80 columns) reaches the
+    resident kernel as it is, and the streamed one (past bf16_max_keys
+    keys) as a copy whose rows are zero-padded to a multiple of 8, the
+    values unchanged.  Rows 84 elements apart, every other one on a
+    16-byte step, reach the resident kernel by TMA over each parity's."""
+    assert att.bf16_route(torch.zeros(1, 2, 9, 84).bfloat16()[..., :80]) \
+        == "tma_pairs"
+    rows = torch.randn(1, 2, 1300, 81).bfloat16()
+    view = rows[..., :80]
+    assert att.bf16_route(view) == "copies"
+    q = view[:, :, :48]
+    *given, _ = att._operands(q, view[:, :, :360], view[:, :, :360])
+    assert all(g is t for g, t in zip(given, (q,)))
+    assert given[1].data_ptr() == view.data_ptr()
+    assert not att.bf16_resident(80, 1300)
+    *given, out = att._operands(q, view, view)
+    for was, got in zip((q, view, view), given):
+        assert att.bf16_route(got) == "tma_view" and torch.equal(got, was)
+        assert torch.all(got._base[..., 80:] == 0)
+    assert out.shape == q.shape
+
+
 def _two_pass_bf16_attention(q, k, v, scale, tile=64):
     """The bf16 CUDA kernel's arithmetic (csrc/attention.cu), in f32 numpy
     on bf16-valued inputs: pass 1 keeps each row's running max and sum of
@@ -325,6 +379,52 @@ def test_two_pass_bf16_attention_matches_jax(nq):
     _close_bf16(got, np.asarray(want.astype(jnp.float32)))
 
 
+def _heads_in_place(d, width, zeroed, offset=0, b=1, h=4, n=360):
+    """q, k and v [b, h, n, d] (bf16-valued f32), and the same in tiles
+    `width` columns wide as the kernels hold a head read in place: the head
+    from column `offset`, the columns around it zeros in the operands named
+    in `zeroed` ("q", "k"), as the kernels write them, and other heads'
+    values (random here) in the rest and in V."""
+    q, k, v = (torch.from_numpy(a).bfloat16().float().numpy()
+               for a in _qkv(b, h, n, n, d))
+
+    def pad(t, zeros):
+        fill = np.zeros if zeros else RNG.standard_normal
+        return np.concatenate(
+            [fill(t.shape[:-1] + (offset,)).astype(np.float32), t,
+             fill(t.shape[:-1] + (width - d - offset,)).astype(np.float32)],
+            axis=-1)
+
+    return (q, k, v), (pad(q, "q" in zeroed), pad(k, "k" in zeroed),
+                       pad(v, False))
+
+
+@pytest.mark.parametrize("d,offset,zeroed", [
+    (50, 6, "q"), (67, 5, "q"), (67, 0, "qk"),  # the kernels' routes
+    (50, 6, "qk"),                              # and zeros on both sides
+])
+def test_two_pass_bf16_attention_at_padded_widths_matches_jax(d, offset,
+                                                              zeroed):
+    """The bf16 kernels' two passes over a head read where it lies, in
+    tiles of its frame's width rounded up to 16: D = 50 over 16 heads by
+    TMA over the token rows' head columns (a box from the 16-byte step at
+    or before the head: up to 6 columns early, 64 wide), D = 67 over 12 by
+    TMA over each parity's token rows (up to 7 columns early, 80 wide); Q's
+    columns around the head zero, K's and V's other heads' values.  By the
+    block's copies the head starts at column 0, zeros past d in K (V's
+    there reach only output columns never stored).  The output's columns
+    of the head are the Pallas kernel's on the d-wide head, within 2 bf16
+    ulps of its peak."""
+    width = -(-(d + offset) // 16) * 16
+    (q, k, v), padded = _heads_in_place(d, width, zeroed, offset)
+    want = jax_attention.pallas_attention(
+        *_jax(q, k, v, dtype=jnp.bfloat16), 800 ** -0.5)
+    got = _two_pass_bf16_attention(*padded, 800 ** -0.5)[
+        ..., offset:offset + d]
+    assert got.shape == want.shape
+    _close_bf16(got, np.asarray(want.astype(jnp.float32)))
+
+
 def _online_softmax_attention(q, k, v, scale, tile):
     """The f32 CUDA kernel's arithmetic (csrc/attention.cu), in f32 numpy:
     one pass over tiles of `tile` keys (the kernel's are 32) with a running
@@ -363,6 +463,22 @@ def test_online_softmax_tiles_match_jax_f32(b, h, nq, nk, d, scale, tile):
         want = np.asarray(jax_attention.xla_attention(
             *_jax(full_q, k, v), scale))[:, :, :nq]
     got = _online_softmax_attention(q, k, v, scale, tile)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=2e-6)
+
+
+@pytest.mark.parametrize("d,zeroed", [(50, "qk"), (67, "qk"),  # the kernel
+                                      (50, "k"), (67, "q")])
+def test_online_softmax_at_padded_widths_matches_jax_f32(d, zeroed):
+    """The f32 kernel's general instances: every loop at the width W = d
+    rounded up to 8 (56, 72), Q's and K's columns past d zero in shared
+    memory (one of them is enough for finite values), V's there another
+    head's, 32-key tiles; the output cut to d is the Pallas kernel's on the
+    d-wide head, to 2e-6."""
+    (q, k, v), padded = _heads_in_place(d, -(-d // 8) * 8, zeroed)
+    want = np.asarray(jax_attention.pallas_attention(*_jax(q, k, v),
+                                                     800 ** -0.5))
+    got = _online_softmax_attention(*padded, 800 ** -0.5, 32)[..., :d]
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=2e-6)
 

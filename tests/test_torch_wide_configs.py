@@ -273,19 +273,23 @@ def test_wide_f32_kernel_matches_pallas(d):
 
 @pytest.mark.parametrize("d", [50, 67, 130])
 def test_heads_tma_cannot_read_are_padded_with_zeros(d):
-    """A bf16 head dim that is not a multiple of 8 reaches the kernel as a
-    view of zero-padded rows (a multiple of 8 wide, so TMA can step over
-    them, and a zero at column d where d is odd), the values unchanged."""
-    buf = torch.randn(2, 30, 3, 12, d).bfloat16()
+    """A bf16 head dim that is not a multiple of 8 (hidden 800 over 16
+    heads, 804 over 12, 1040 over 8) reaches the kernel as the model's own
+    fused QKV views, copied nowhere: the same storage and strides.  The
+    kernels read each head where it lies and zero, in shared memory, the
+    columns past d that a load brings with it (csrc/attention.cu; held to
+    the plain version on the card by chip_smoke.py).  The output is a
+    [B, H, Nq, D] view of new [B, Nq, H, D] storage, as before."""
+    heads = {50: 16, 67: 12, 130: 8}[d]
+    buf = torch.randn(2, 30, 3, heads, d).bfloat16()
     q, k, v = buf.permute(2, 0, 3, 1, 4).unbind(0)
     assert not any(att._tma_ready(t) for t in (q, k, v))
     *given, out = att._operands(q, k, v)
     for was, got in zip((q, k, v), given):
-        assert got.shape == was.shape and torch.equal(got, was)
-        rows = got._base  # the storage the kernel reads
-        assert rows.shape[-1] == -(-d // 8) * 8 and att._tma_ready(rows)
-        assert torch.all(rows[..., d:] == 0)
-    assert out.shape == q.shape and out.transpose(1, 2).is_contiguous()
+        assert got.data_ptr() == was.data_ptr()
+        assert got.stride() == was.stride() and got.shape == was.shape
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert out.transpose(1, 2).is_contiguous()
 
 
 @pytest.mark.parametrize("h,f,o", [(804, 64, 804), (40, 3070, 24),
