@@ -25,8 +25,9 @@ CPU):
    replays, must equal 16 blocks x decode steps (the bf16 LayerNorm
    kernel: 32 LayerNorms x decode steps in bf16, none in f32);
 4. the same f32 weights on the card (kernels, graphed) and on the CPU
-   (plain versions): one forward and a 60-step decode, compared (the
-   first 3 frames held to a tolerance, the drift over 60 recorded);
+   (plain versions, computed in a thread during phase 3): one forward and
+   a 60-step decode, compared (the first 3 frames held to a tolerance, the
+   drift over 60 recorded);
 5. batch-20 decode frames/s in bf16 and f32, for the record; (b) the
    decode's CUDA graph against the same step body uncaptured, at batch 4
    and 20 over 60 steps in f32 and bf16: the frames equal bit for bit,
@@ -42,9 +43,10 @@ CPU):
    ``--use_bfloat16``, on a synthetic AIST-shaped corpus it reads from
    ``<tmp>/data`` through the config's own ``data_files``, with the host
    pipeline and, in bf16, once more with ``--input_backend=device`` (the
-   corpus resident on the card, windows drawn there): it trains,
-   checkpoints and writes finite, falling losses, and a second invocation
-   resumes from its checkpoint; (c) train steps/s at batch 32 in bf16 and
+   corpus resident on the card, windows drawn there), the three runs at
+   once, each in a directory of its own: it trains, checkpoints and
+   writes finite, falling losses, and a second invocation resumes from
+   its checkpoint; (c) train steps/s at batch 32 in bf16 and
    f32, each step a replay of the train step's graph; (d) training
    through the graph against the same step body uncaptured, at batch 32
    in f32 and bf16 compute, two fused windows with a checkpoint restore
@@ -59,8 +61,9 @@ CPU):
    against a direct decode of the restored weights on the card; (c) the
    same CLI with ``--use_bfloat16`` on the 384-step bucket;
    (d) the extract_features CLI on a synthetic AIST++ annotation
-   directory; (e) the calculate_scores CLI on (b)'s clips (FID_k, FID_g,
-   Beat Alignment, finite); (f) the same scores on the card and on the CPU;
+   directory (beside (c)); (e) the calculate_scores CLI on (b)'s clips
+   (FID_k, FID_g, Beat Alignment, finite); (f) the same scores on the card
+   and on the CPU;
    then the f32 decode batch sweep and the protocol's generated frames/s
    it gives at each cap, which set the evaluator's default, and the
    kernels timed at the eval's shapes.
@@ -100,7 +103,8 @@ CPU):
 10. the last modules, in phase 7's directory: (a) the train CLI with
    ``--input_backend=native`` (the C++ loader, built with g++ from
    ``mint_tpu_torch/csrc/mint_loader.cc``) in bf16 at batch 32 on phase
-   6's corpus: trains, checkpoints and resumes, 16 launches a step; with
+   6's corpus (run among phase 6's train CLIs): trains, checkpoints and
+   resumes, 16 launches a step; with
    ``--input_backend=auto`` over 9c's steps: it picks the native loader,
    and its synchronized steps/s stand beside 9c's host pipeline and
    card-resident corpus; one batch of each host loader timed on the host;
@@ -123,14 +127,20 @@ CPU):
    step over (84 elements apart, over 80 columns); one bf16 call on the
    model's views at D = 50, 67 and 130 making one device kernel, as
    torch.profiler records it; the MLP at F = 3070
-   (f32) and 3080 (bf16) and at H = O = 804; the bf16 LayerNorm at
+   (f32) and 3080 (bf16) and at H = O = 804, and in bf16 at F = 3070, O =
+   801, x on a base 2 bytes past 16 and H = O = 804 at M = 960 (split
+   K): every operand read where it lies, one bf16 call at H = 804 and F
+   = 3080 making its two GEMM kernels (and the reduce of a split pass)
+   and no copy, as torch.profiler records it; the bf16 LayerNorm at
    x[7200,1040], [7200,1041] and [7200,2048], with parameters and
    affine-free; (b) each config the kernels once refused (the flagship
    with one geometry field changed: tests/test_torch_ops.py's
    LIMIT_CASES, a 720-key D = 128 config and hidden 804 over 12 heads)
-   at full width and depth, built on the card in f32 and bf16: a decode
-   of 8 steps at batch 4 through its CUDA graph against the CPU's (timed
-   again for the configs of LIMIT_TIMED), one
+   at full width and depth, built on the card in f32 and bf16 (the CPU's
+   side of each, computed from phase 11's start in a thread beside the
+   card's work): a decode of 8 steps at batch 4 through its CUDA graph
+   against the CPU's (timed again for the configs of LIMIT_TIMED once
+   the CPU is done), one
    train step's loss and gradients against the CPU's (bf16 compute for
    training), the launch counts of both; (c) 4 gloo ranks on cuda:0 over
    a 2-head tiny config (a model axis wider than the heads: each head
@@ -173,6 +183,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -291,6 +302,18 @@ def mlp_weights(gen, dtype, h=800, f=3072, o=800):
     b1 = torch.randn(f, device="cuda", generator=gen) * 0.02
     b2 = torch.randn(o, device="cuda", generator=gen) * 0.02
     return w1, b1.to(dtype), w2, b2.to(dtype)
+
+
+def mlp_input(gen, m, h, dtype, layout="contiguous"):
+    """x [m, h] on the card: contiguous, or ("x_off2") on a base 2 bytes
+    past a 16-byte step, or ("x_rows") a view of rows h + 1 apart."""
+    if layout == "x_off2":
+        flat = torch.randn(m * h + 8, device="cuda", generator=gen)
+        return flat.to(dtype)[1:1 + m * h].view(m, h)
+    if layout == "x_rows":
+        return torch.randn(m, h + 1, device="cuda",
+                           generator=gen).to(dtype)[:, :h]
+    return torch.randn(m, h, device="cuda", generator=gen).to(dtype)
 
 
 def check_mlp(mlp, gen):
@@ -689,19 +712,46 @@ def serve_requests(model, dtype_name):
 
 # -- phase 4: card against CPU --------------------------------------------
 
-def card_vs_cpu(model_cuda):
-    from mint_tpu_torch.infer import decoder
+CARD_VS_CPU_STEPS = 60  # phase 4's decode, card against CPU
 
-    model_cpu = flagship(torch.float32, "cpu")
-    model_cpu.load_state_dict(model_cuda.state_dict())
+
+def _card_vs_cpu_inputs():
     rng = np.random.default_rng(2)
     motion = rng.standard_normal((1, 120, 225)).astype(np.float32) * 0.1
     audio = rng.standard_normal((1, 240, 35)).astype(np.float32) * 0.5
+    decode_audio = rng.standard_normal(
+        (1, CARD_VS_CPU_STEPS + 239, 35)).astype(np.float32) * .5
+    return motion, audio, decode_audio
+
+
+def cpu_reference(state):
+    """Phase 4's CPU side, from the card model's weights `state` (on the
+    host): the flagship's f32 forward and 60-step decode on the CPU.  It
+    touches no CUDA, so it runs in a thread beside phase 3's server."""
+    from mint_tpu_torch.infer import decoder
+
+    model_cpu = flagship(torch.float32, "cpu")
+    model_cpu.load_state_dict(state)
+    motion, audio, decode_audio = _card_vs_cpu_inputs()
+    with torch.inference_mode():
+        forward = model_cpu({"motion_input": torch.from_numpy(motion),
+                             "audio_input": torch.from_numpy(audio)})
+    decode = decoder.infer_auto_regressive(
+        model_cpu, {"motion_input": motion, "audio_input": decode_audio},
+        steps=CARD_VS_CPU_STEPS)
+    return forward, decode
+
+
+def card_vs_cpu(model_cuda, reference):
+    """Phase 4: the card's forward and decode against the CPU's
+    (`reference`, a Future of cpu_reference)."""
+    from mint_tpu_torch.infer import decoder
+
+    motion, audio, decode_audio = _card_vs_cpu_inputs()
     with torch.inference_mode():
         got = model_cuda({"motion_input": torch.from_numpy(motion).cuda(),
                           "audio_input": torch.from_numpy(audio).cuda()})
-        want = model_cpu({"motion_input": torch.from_numpy(motion),
-                          "audio_input": torch.from_numpy(audio)})
+    want, want_decode = reference.result()
     err = (got.cpu() - want).abs().max().item()
     tol = 1e-4
     log(f"forward f32 batch 1 card vs CPU: out {tuple(got.shape)}, max_abs_err"
@@ -715,11 +765,10 @@ def card_vs_cpu(model_cuda):
     # the drift over all 60 is recorded.  The f32 attention and MLP kernels
     # stay exact f32 on the FMA pipes (no TF32), so the drift comes from
     # summation order only: every sum runs in another order than the CPU's.
-    steps, held = 60, 3
-    audio = rng.standard_normal((1, steps + 239, 35)).astype(np.float32) * .5
-    inputs = {"motion_input": motion, "audio_input": audio}
+    steps, held = CARD_VS_CPU_STEPS, 3
+    inputs = {"motion_input": motion, "audio_input": decode_audio}
     got = decoder.infer_auto_regressive(model_cuda, inputs, steps=steps)
-    want = decoder.infer_auto_regressive(model_cpu, inputs, steps=steps)
+    want = want_decode
     per_step = (got.cpu() - want).abs().amax(dim=(0, 2))
     err = per_step[:held].max().item()
     tol = 1e-3
@@ -1096,15 +1145,16 @@ BACKEND_LOG = {"python": "input: the Python pipeline",
                "device": "device-resident dataset"}
 
 
-def train_cli(work, name, backend):
+def train_cli(work, name, backend, run="run"):
     """The train CLI on the full flagship at batch 32 with input from
     `backend` ("python": the host pipeline; "native": the C++ loader;
     "device": the corpus resident on the card, windows drawn there): 4
-    steps, then a second invocation that resumes at 4 and runs to 6.
-    Returns the first invocation's launch counts."""
+    steps, then a second invocation that resumes at 4 and runs to 6, in
+    the model_dir `work`/`run`.  Returns the first invocation's launch
+    counts."""
     bf16 = name == "bf16"
     name = f"{name}, {backend} input"
-    model_dir = os.path.join(work, "run")
+    model_dir = os.path.join(work, run)
 
     def rows():
         with open(os.path.join(model_dir, "train", "metrics.jsonl")) as f:
@@ -1509,9 +1559,20 @@ def scoring_path(att, mlp, ln, gen, work, run_dir, card):
                              "aist_tfrecord-testval-00001-of-00002"),
                 os.path.join(short_dir, "data",
                              "aist_tfrecord-testval-00000-of-00001"))
-    out16 = os.path.join(work, "out_bf16")
-    counts16, disp16, _, pass16, wall16 = run_eval_cli(
-        short_dir, run_dir, out16, bf16=True)
+    # (d)'s extract_features CLI runs beside this one (its rate is logged,
+    # not held to anything).
+    anno = os.path.join(work, "anno")
+    names = write_annotations(anno)
+    feat = os.path.join(work, "features")
+    with ThreadPoolExecutor(1) as pool:
+        features = pool.submit(run_module,
+                               "mint_tpu_torch.tools.extract_features",
+                               [f"--anno_dir={anno}", f"--save_dir={feat}"],
+                               work)
+        out16 = os.path.join(work, "out_bf16")
+        counts16, disp16, _, pass16, wall16 = run_eval_cli(
+            short_dir, run_dir, out16, bf16=True)
+        _, _, wall_feat = features.result()
     check_clips(out16, short, "evaluate CLI bf16")
     plan16 = dispatch_plan(short, ev_lib.DECODE_BATCH)
     check_eval_launches(counts16, disp16, sum(s for _, _, s in plan16),
@@ -1524,13 +1585,7 @@ def scoring_path(att, mlp, ln, gen, work, run_dir, card):
         f"(the CLI's whole run {wall16:.1f} s); largest difference from the "
         f"f32 clips {gap:.3e} ({card})")
 
-    # (d) ground-truth features.
-    anno = os.path.join(work, "anno")
-    names = write_annotations(anno)
-    feat = os.path.join(work, "features")
-    _, _, wall_feat = run_module("mint_tpu_torch.tools.extract_features",
-                                 [f"--anno_dir={anno}",
-                                  f"--save_dir={feat}"], work)
+    # (d) ground-truth features (run beside (c)'s bf16 CLI).
     made = sorted(os.listdir(feat))
     if made != sorted(f"{n}_{k}.npy" for n in names
                       for k in ("kinetic", "manual")):
@@ -2490,13 +2545,14 @@ FOLD_STEPS = 60  # 10b's decode, folded against unfolded
 HELD = 3         # its first frames, held to a tolerance (the rest recorded)
 
 
-def native_input(work, rates, card):
+def native_input(work, counts, rates, card):
     """10a: the train CLI with the C++ loader: ``--input_backend=native``
-    trains, checkpoints and resumes (bf16, batch 32); ``auto`` picks the
-    native loader (its log line) in a run over 9c's steps, whose
-    synchronized steps/s stand beside 9c's host pipeline and card-resident
-    corpus; and one batch of each host loader timed on the host.
-    Returns the train CLI's launch counts and the rates."""
+    trains, checkpoints and resumes (bf16, batch 32: run in phase 6's pool
+    of train CLIs, its launch `counts`); ``auto`` picks the native loader
+    (its log line) in a run over 9c's steps, whose synchronized steps/s
+    stand beside 9c's host pipeline and card-resident corpus; and one batch
+    of each host loader timed on the host.  Returns the train CLI's launch
+    counts and the rates."""
     import copy
 
     from mint_tpu_torch.config.schema import load_pipeline_config
@@ -2505,8 +2561,6 @@ def native_input(work, rates, card):
     from mint_tpu_torch.data import tfrecord
 
     t0 = time.perf_counter()
-    counts = train_cli(work, "bf16", "native")
-    shutil.rmtree(os.path.join(work, "run"))
     model_dir = os.path.join(work, "ws1_auto")
     _, err, seconds = run_module("mint_tpu_torch.tools.train", [
         f"--config_path={CONFIG}", f"--model_dir={model_dir}",
@@ -2740,10 +2794,10 @@ def fold_on_card(work, run_dir, card):
         k: float(np.mean(v)) for k, v in rates.items()}
 
 
-def last_modules(work, run_dir, rates, card):
+def last_modules(work, run_dir, native_counts, rates, card):
     """Phase 10: the native loader (a), the fold (b); (c), the kernels at
     a model = 4 rank's uneven heads, runs in phase 9a."""
-    counts, loader = native_input(work, rates, card)
+    counts, loader = native_input(work, native_counts, rates, card)
     fold_launches, eval_counts, fold_rates = fold_on_card(work, run_dir,
                                                           card)
     return {"train_launches": counts, "loader": loader,
@@ -2771,11 +2825,22 @@ WIDE_ATTENTION = [(("bf16",), 20, 10, 1320, 1320, 80),
                  (12, 67), (12, 64))] + [
     (("f32", "bf16"), 6554, 10, 48, 120, 80),
     (("bf16",), 20, 10, 360, 360, 80, "rows84")]
-# (dtype names, M, H, F, O) of the fused MLP: F no multiple of 8 (f32) or
-# 16 (bf16), and H = O = 804, rows TMA cannot address in bf16.
+# (dtype names, M, H, F, O[, x's layout]) of the fused MLP: F no multiple
+# of 8 (f32) or of fc1's 192-column tile (bf16: 16 tiles of 200), H = O =
+# 804 (bf16: rows 8 bytes past a 16-byte step every other row, fc1 on
+# tma_pairs, fc2 in 4 tiles of 208) at the decode's M and at M = 960 (fc2
+# split over K), and in bf16 F = 3070 (W2's
+# rows 4 bytes past a 16-byte step: staged), an odd O (single stores), x on
+# a base 2 bytes past 16 (staged), and hidden 804 at M = 192 (batch 4's
+# last block: fc1 on tma_pairs split over K).
 WIDE_MLP = [(("f32",), 7200, 800, 3070, 800),
             (("bf16",), 7200, 800, 3080, 800),
-            (("f32", "bf16"), 7200, 804, 3072, 804)]
+            (("f32", "bf16"), 7200, 804, 3072, 804),
+            (("bf16",), 7200, 800, 3070, 800),
+            (("bf16",), 7200, 800, 3072, 801),
+            (("bf16",), 7200, 800, 3072, 800, "x_off2"),
+            (("bf16",), 960, 804, 3072, 804),
+            (("bf16",), 192, 804, 3072, 804)]
 WIDE_LN = [(7200, 1040), (7200, 1041), (7200, 2048)]  # bf16 LayerNorm rows
 # 11b: the flagship with one geometry field changed, each a config the
 # kernels once refused (tests/test_torch_ops.py's LIMIT_CASES), then a
@@ -2791,11 +2856,13 @@ LIMIT_CONFIGS = {
     "hidden_804": dict(hidden=804, heads=12),
 }
 LIMIT_DECODE = (4, 8)  # 11b's decode: batch, steps
-# 11b's configs whose decode reaches the redesigned attention kernels (the
-# f32 wide kernel, the bf16 streamed one, heads read in place at D = 50
-# and 67): their graphed decode is timed.
+# 11b's configs whose decode reaches the redesigned kernels (the f32 wide
+# attention kernel, the bf16 streamed one, heads read in place at D = 50
+# and 67; the bf16 MLP's 200- and 208-column tiles and 8-byte cp.async at
+# hidden 804, and its 200-column fc1 at F = 3080): their graphed decode is
+# timed.
 LIMIT_TIMED = ("head_dim_over_128", "bf16_keys", "keys_720_d128",
-               "bf16_head_dim_step", "hidden_804")
+               "bf16_head_dim_step", "hidden_804", "bf16_mlp_width")
 LIMIT_TRAIN = 2        # 11b's train batch
 WIDE_AXIS = dict(hidden_size=48, heads=2, intermediate_size=64)  # 11c
 WIDE_AXIS_RANKS = 4
@@ -2852,11 +2919,11 @@ def wide_kernels(att, mlp, ln, gen, card):
                 "scaled_dot_product_attention")
             del q, k, v
             torch.cuda.empty_cache()
-    for names, m, hid, f, o in WIDE_MLP:
+    for names, m, hid, f, o, *layout in WIDE_MLP:
         for name in names:
             dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[name]
             w1, b1, w2, b2 = mlp_weights(gen, dtype, h=hid, f=f, o=o)
-            x = torch.randn(m, hid, device="cuda", generator=gen).to(dtype)
+            x = mlp_input(gen, m, hid, dtype, *layout)
             got = mlp.fused_mlp(x, w1, b1, w2, b2)
             torch.cuda.synchronize()
             want = mlp.mlp_reference(x, w1, b1, w2, b2)
@@ -2864,7 +2931,8 @@ def wide_kernels(att, mlp, ln, gen, card):
             peak = want.float().abs().max().item()
             tol = 1e-5 * max(1.0, peak) if name == "f32" else 2 * bf16_ulp(
                 peak)
-            shape = f"x[{m},{hid}] W1[{hid},{f}] W2[{f},{o}]"
+            shape = (f"x[{m},{hid}] W1[{hid},{f}] W2[{f},{o}]"
+                     + "".join(f" {x}" for x in layout))
             rows.setdefault(("fused_mlp", name), {})[shape] = _wide_row(
                 f"fused_mlp {name}", shape, err, err <= tol, f"{tol:.3e}",
                 cuda_ms(lambda: mlp.fused_mlp(x, w1, b1, w2, b2), 5),
@@ -2929,6 +2997,44 @@ def one_kernel_a_call(att, gen, card):
     return counts
 
 
+def mlp_kernels_a_call(mlp, gen, card):
+    """11a: one bf16 fused MLP call at hidden 804 (M = 7200 and the split
+    M = 960) and at F = 3080 on the model's operands (nn.Linear's weights
+    as .t() views) runs its two GEMM passes and, where K is split, their
+    reduce, and no other device kernel, as torch.profiler records it: the
+    kernel reads every operand where it lies (the parent's route padded
+    x and W1 first: six or seven kernels).  Returns {shape: kernels}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = {}
+    for m, h, f, o in ((7200, 804, 3072, 804), (960, 804, 3072, 804),
+                       (7200, 800, 3080, 800)):
+        w1, b1, w2, b2 = mlp_weights(gen, torch.bfloat16, h=h, f=f, o=o)
+        x = mlp_input(gen, m, h, torch.bfloat16)
+        mlp.fused_mlp(x, w1, b1, w2, b2)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            mlp.fused_mlp(x, w1, b1, w2, b2)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        gemms = sum("gemm_tc" in n for n in names)
+        others = [n for n in names if "gemm_tc" not in n
+                  and "reduce_tc" not in n]
+        shape = f"x[{m},{h}] W1[{h},{f}] W2[{f},{o}]"
+        counts[shape] = len(names)
+        xo, w1t, _, w2t, _ = mlp._operands(x, w1, b1, w2, b2)
+        plan = mlp.bf16_plan(xo, w1t, w2t)
+        log(f"fused_mlp bf16 {shape} on the model's operands (tiles "
+            f"{plan.tiles}, loads {'/'.join(plan.loads)}): {len(names)} "
+            f"device kernel(s) a call, want 2 GEMMs and a reduce a split "
+            f"pass: {[n[:50] for n in names]} ({card})")
+        if gemms != 2 or others or len(names) > 4:
+            raise AssertionError(f"bf16 fused MLP at {shape} ran {names}")
+    return counts
+
+
 def limit_config(hidden=800, heads=10, mlp_width=3072, audio_seq=240):
     """The flagship's config with one geometry field changed."""
     from mint_tpu_torch.config.schema import load_pipeline_config
@@ -2947,60 +3053,89 @@ def _rel_l2(got, want):
     return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
 
 
-def limit_configs(card):
-    """11b: each LIMIT_CONFIGS config at full width and depth, built on the
-    card in f32 and in bf16 (the whole-model cast, and bf16 compute for
-    training), its weights a CPU generator's (seed 0): a decode of
-    LIMIT_DECODE (batch, steps) through the decode's CUDA graph, its
-    first row against the same decode on the CPU (f32: 1e-3, phase 4's;
-    bf16: 0.1 relative L2 over every frame against the CPU's f32, phase
-    6a's bf16 rule: bf16 rounding through 16 blocks, where a wrong kernel
-    gives an error of order 1), and the launches counted through capture
-    and replays; one train step's loss and gradients at batch LIMIT_TRAIN
-    against the CPU's (f32: loss 1e-5 relative, gradients 1e-4 of each
-    leaf's peak; bf16 compute: loss 1e-2 relative as 9b's, gradients 0.1
-    relative L2 of all and of each leaf as 6a's), 16 launches of each
-    kernel a forward (32 LayerNorms in bf16), and the step through the
-    trainer's graph finite.  The LIMIT_TIMED configs' decode runs again,
-    timed (ms a step, every step a graph replay).  Returns ({(config, dtype
-    name): launches}, {(config, dtype name): ms a step})."""
+def limit_reference(cfg):
+    """11b's CPU side of one config: its weights (a CPU generator's, seed
+    0), the inputs of its decode (LIMIT_DECODE) and of its train step
+    (LIMIT_TRAIN), the CPU's decode of the first row, and the CPU's loss
+    and gradients.  It touches no CUDA, so it runs in a thread beside the
+    card's work (limit_references), graph captures included."""
     from mint_tpu_torch.infer import decoder
     from mint_tpu_torch.models import builder
     from mint_tpu_torch.models.fact import init_params
     from mint_tpu_torch.train import Trainer, schedules
 
+    t0 = time.perf_counter()
     b, steps = LIMIT_DECODE
-    counted, timed = {}, {}
+    cpu = init_params(builder.build(cfg, is_training=True, device="cpu"),
+                      torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(11)
+    audio_seq = cpu.audio_seq_length
+    inputs = {"motion_input": rng.standard_normal(
+                  (b, 120, 225)).astype(np.float32) * 0.5,
+              "audio_input": rng.standard_normal(
+                  (b, steps + audio_seq - 1, 35)).astype(np.float32) * 0.5}
+    batch = {"motion_input": rng.standard_normal(
+                 (LIMIT_TRAIN, 120, 225)).astype(np.float32) * 0.5,
+             "audio_input": rng.standard_normal(
+                 (LIMIT_TRAIN, audio_seq, 35)).astype(np.float32) * 0.5,
+             "target": rng.standard_normal(
+                 (LIMIT_TRAIN, 20, 225)).astype(np.float32) * 0.5}
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    cpu.eval()
+    want = decoder.infer_auto_regressive(
+        cpu, {k: v[:1] for k, v in inputs.items()}, steps=steps)
+    cpu.train()
+    want_loss, want_grads = Trainer(cpu, schedules.constant(0.0)
+                                    ).loss_and_grads(
+        dict(cpu.named_parameters()), batch)
+    return {"weights": cpu.state_dict(), "inputs": inputs, "batch": batch,
+            "want": want, "want_loss": float(want_loss),
+            "want_grads": want_grads, "seconds": time.perf_counter() - t0}
+
+
+def limit_references():
+    """Starts 11b's CPU references, the LIMIT_CONFIGS one after another in
+    a thread of their own: {config: Future of limit_reference}."""
+    pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="cpu-11b")
+    futures = {case: pool.submit(limit_reference, limit_config(**change))
+               for case, change in LIMIT_CONFIGS.items()}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def limit_configs(card, references):
+    """11b: each LIMIT_CONFIGS config at full width and depth, built on the
+    card in f32 and in bf16 (the whole-model cast, and bf16 compute for
+    training), its weights and CPU results `references`' (computed in a
+    thread beside this work, limit_references): a decode of LIMIT_DECODE
+    (batch, steps) through the decode's CUDA graph, its first row against
+    the same decode on the CPU (f32: 1e-3, phase 4's; bf16: 0.1 relative L2
+    over every frame against the CPU's f32, phase 6a's bf16 rule: bf16
+    rounding through 16 blocks, where a wrong kernel gives an error of
+    order 1), and the launches counted through capture and replays; one
+    train step's loss and gradients at batch LIMIT_TRAIN against the CPU's
+    (f32: loss 1e-5 relative, gradients 1e-4 of each leaf's peak; bf16
+    compute: loss 1e-2 relative as 9b's, gradients 0.1 relative L2 of all
+    and of each leaf as 6a's), 16 launches of each kernel a forward (32
+    LayerNorms in bf16), and the step through the trainer's graph finite.
+    The LIMIT_TIMED configs' decode runs again, timed (ms a step, every
+    step a graph replay), once every CPU reference is done, so that the
+    thread's work is not in the reading.  Returns ({(config, dtype name):
+    launches}, {(config, dtype name): ms a step})."""
+    from mint_tpu_torch.infer import decoder
+    from mint_tpu_torch.models import builder
+    from mint_tpu_torch.train import Trainer, schedules
+
+    b, steps = LIMIT_DECODE
+    counted, timed, to_time = {}, {}, []
     for case, change in LIMIT_CONFIGS.items():
         t0 = time.perf_counter()
         cfg = limit_config(**change)
-        cpu = init_params(builder.build(cfg, is_training=True, device="cpu"),
-                          torch.Generator().manual_seed(0))
-        weights = cpu.state_dict()
-        rng = np.random.default_rng(11)
-        audio_seq = cpu.audio_seq_length
-        inputs = {"motion_input": rng.standard_normal(
-                      (b, 120, 225)).astype(np.float32) * 0.5,
-                  "audio_input": rng.standard_normal(
-                      (b, steps + audio_seq - 1, 35)).astype(np.float32)
-                  * 0.5}
-        batch = {"motion_input": rng.standard_normal(
-                     (LIMIT_TRAIN, 120, 225)).astype(np.float32) * 0.5,
-                 "audio_input": rng.standard_normal(
-                     (LIMIT_TRAIN, audio_seq, 35)).astype(np.float32) * 0.5,
-                 "target": rng.standard_normal(
-                     (LIMIT_TRAIN, 20, 225)).astype(np.float32) * 0.5}
-        batch = {k: torch.from_numpy(v) for k, v in batch.items()}
-        cpu.eval()
-        want = decoder.infer_auto_regressive(
-            cpu, {k: v[:1] for k, v in inputs.items()}, steps=steps)
-        cpu.train()
-        want_loss, want_grads = Trainer(cpu, schedules.constant(0.0)
-                                        ).loss_and_grads(
-            dict(cpu.named_parameters()), batch)
-        want_loss = float(want_loss)
-        t_cpu = time.perf_counter() - t0
-        del cpu
+        ref = references[case].result()
+        t_wait = time.perf_counter() - t0
+        weights, inputs, batch = ref["weights"], ref["inputs"], ref["batch"]
+        want, want_loss, want_grads = (ref["want"], ref["want_loss"],
+                                       ref["want_grads"])
         for name in ("f32", "bf16"):
             bf16 = name == "bf16"
             dtype = torch.bfloat16 if bf16 else torch.float32
@@ -3028,14 +3163,8 @@ def limit_configs(card):
                 raise AssertionError(f"limit config {case} {name} decode: "
                                      f"{err}, finite {finite}, {counts}")
             counted[case, name] = counts
-            if case in LIMIT_TIMED:  # again, every step a replay
-                t1 = time.perf_counter()
-                decoder.infer_auto_regressive(model, inputs, steps=steps)
-                torch.cuda.synchronize()
-                ms = 1e3 * (time.perf_counter() - t1) / steps
-                timed[case, name] = ms
-                log(f"limit config {case} {name}: graphed decode batch {b} "
-                    f"{ms:.3f} ms/step ({card})")
+            if case in LIMIT_TIMED:
+                to_time.append((case, name, model))
             del model
             model = builder.build(cfg, is_training=True, device="cuda",
                                   compute_dtype=dtype if bf16 else None)
@@ -3081,8 +3210,22 @@ def limit_configs(card):
                                      f"{overall}, {counts}, {stepped}")
             del model, trainer, state, grads
             torch.cuda.empty_cache()
-        log(f"limit config {case} in {time.perf_counter() - t0:.1f} s (CPU "
-            f"reference {t_cpu:.1f} s)")
+        log(f"limit config {case} in {time.perf_counter() - t0:.1f} s "
+            f"(waited {t_wait:.1f} s for its CPU reference, which took "
+            f"{ref['seconds']:.1f} s in its thread)")
+        del ref, weights, want_grads
+    # Again, every step a replay, with the CPU references done.
+    for case, name, model in to_time:
+        inputs = references[case].result()["inputs"]
+        t1 = time.perf_counter()
+        decoder.infer_auto_regressive(model, inputs, steps=steps)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t1) / steps
+        timed[case, name] = ms
+        log(f"limit config {case} {name}: graphed decode batch {b} "
+            f"{ms:.3f} ms/step ({card})")
+    to_time.clear()
+    torch.cuda.empty_cache()
     return counted, timed
 
 
@@ -3216,12 +3359,14 @@ def past_old_limits(att, mlp, ln, gen, work, card):
     kernels once refused at full width and depth (b), and a model axis
     wider than the heads (c)."""
     t0 = time.perf_counter()
+    references = limit_references()  # 11b's, on the CPU meanwhile
     rows = wide_kernels(att, mlp, ln, gen, card)
     rows["one_kernel_a_call"] = one_kernel_a_call(att, gen, card)
+    rows["mlp_kernels_a_call"] = mlp_kernels_a_call(mlp, gen, card)
     log(f"phase 11a (kernels past the old limits) in "
         f"{time.perf_counter() - t0:.1f} s")
     t1 = time.perf_counter()
-    launches, decode_ms = limit_configs(card)
+    launches, decode_ms = limit_configs(card, references)
     log(f"phase 11b (configs past the old limits) in "
         f"{time.perf_counter() - t1:.1f} s")
     axis = wide_model_axis(work, card)
@@ -3362,13 +3507,18 @@ def main():
     launches, per_step = {}, {}
     model32 = flagship(torch.float32, "cuda")
     model16 = flagship(torch.bfloat16, "cuda")
+    # Phase 4's CPU side, in a thread from here on.
+    pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="cpu-4")
+    reference = pool.submit(cpu_reference, {
+        k: v.cpu() for k, v in model32.state_dict().items()})
+    pool.shutdown(wait=False)
     for model, name in ((model32, "f32"), (model16, "bf16")):
         counts, steps = serve_requests(model, name)
         for k, n in counts.items():
             launches[k, name] = n
             per_step[k, name] = n / steps
     done("3 (the server)")
-    card_vs_cpu(model32)
+    card_vs_cpu(model32, reference)
     done("4 (card against CPU)")
     throughput(model16, "bf16", card)
     throughput(model32, "f32", card)
@@ -3384,13 +3534,21 @@ def main():
     train_launches = {}
     with tempfile.TemporaryDirectory() as work:
         write_corpus(os.path.join(work, "data"))
-        for name, backend in (("f32", "python"), ("bf16", "python"),
-                              ("bf16", "device")):
-            counts = train_cli(work, name, backend)
+        # The runs at once, each in a model_dir of its own, 10a's with the
+        # C++ loader among them: their processes' start-ups overlap (their
+        # steps/s are logged, not held to anything; 6c, 9c and 10a time
+        # the train step alone).
+        runs = (("f32", "python"), ("bf16", "python"), ("bf16", "device"),
+                ("bf16", "native"))
+        with ThreadPoolExecutor(len(runs)) as pool:
+            counted = dict(zip(runs, pool.map(
+                lambda run: train_cli(work, *run, run=f"run_{'_'.join(run)}"),
+                runs)))
+        for (name, backend), counts in counted.items():
             if backend == "python":
                 for k, n in counts.items():
                     train_launches[k, name] = n
-            run = os.path.join(work, "run")
+            run = os.path.join(work, f"run_{name}_{backend}")
             if name == "f32":  # phase 7 scores this run's checkpoint
                 os.rename(run, os.path.join(work, "f32_run"))
             else:
@@ -3410,7 +3568,7 @@ def main():
             f"(6c) {rate_bf16:.3f} steps/s, a world of one NCCL rank (9c) "
             f"{tp['rates']['step_world_of_one']:.3f} steps/s ({card})")
         last = last_modules(work, os.path.join(work, "f32_run"),
-                            tp["rates"], card)
+                            counted["bf16", "native"], tp["rates"], card)
         done("10 (the last modules)")
         wide_rows, limit_launches, limit_ms, wide_axis = past_old_limits(
             att, mlp, ln, gen, work, card)
@@ -3488,13 +3646,15 @@ def main():
                         limit_launches.items() if d == dt},
                     "config_decode_ms_per_step": {
                         case: ms for (case, d), ms in limit_ms.items()
-                        if d == dt} if name == "attention" else None,
+                        if d == dt} if name in ("attention", "fused_mlp")
+                    else None,
                     "model_axis_wider_than_heads":
                         wide_axis["launches_per_forward_per_rank"].get(name)
                         if dt == "f32" else None,
                     "device_kernels_a_call_on_model_views":
-                        wide_rows["one_kernel_a_call"]
-                        if (name, dt) == ("attention", "bf16") else None},
+                        {"attention": wide_rows["one_kernel_a_call"],
+                         "fused_mlp": wide_rows["mlp_kernels_a_call"]}.get(
+                            name) if dt == "bf16" else None},
                 "e2e_launches": {
                     stage: e2e_launches[stage, dt][name]
                     for stage in ("train", "evaluate")

@@ -64,11 +64,28 @@
 //   Any widths: rows and a K range that 16-byte copies cannot address (K
 //   or a row stride not a multiple of 4 floats) take 4-byte copies, each
 //   zero-filled past K (the kVec = false instance).
-// - bf16 takes any widths whose rows TMA can address (H and F multiples of
-//   8, O even); TMA's zero fill covers the ragged last k-tile and the
-//   weights' rows past N.  The wrapper (ops/mlp.py) pads other widths with
-//   zero columns of x and W1's rows, zero columns of W1 and b1 and rows of
-//   W2, and zero columns of W2 and b2, which change no output it keeps.
+// - bf16 at any widths, every operand read where it lies (no padded copy):
+//   the wrapper (ops/mlp.py's bf16_plan) picks each pass's column tile and
+//   how each operand is loaded, and passes them here.  Column tiles: the
+//   fewest of the pass's instances, the flagship's on a tie (fc1 192 or
+//   200: F = 3080 makes 16 of 200, not 17 of 192; fc2 200 or 208: O = 804
+//   makes 4 of 208, not 5 of 200, whose fifth tile 4 wide made 2.16 waves
+//   on 132 SMs at M = 7200 instead of 1.73).  Loads: TMA where the base
+//   and the row stride are whole 16-byte steps (the flagship's operands;
+//   TMA zero-fills the ragged last k-tile and rows past N); fc1 at hidden
+//   widths 4 columns past a step (804), x's and W1^T's rows 8 bytes past a
+//   16-byte step every other row, by TMA over their even rows and over
+//   their odd rows (gemm_tc_pairs_kernel, mlp_routes.cu); else
+//   gemm_tc_any_kernel (mlp_routes.cu), whose producer warpgroup stages
+//   the operand (W2^T at F = 3070, any element-aligned base or stride):
+//   the aligned 16-byte words around each row's k-tile by cp.async,
+//   zero-filled past K and past the last row, then moved in shared memory
+//   into the swizzled stage by each row's byte phase (correct, but about
+//   twice the time of a TMA-fed pass).  The activation is the kernel's
+//   own, its rows F rounded up to 64 apart (bf16_plan's), so fc2's A is
+//   always TMA's (the map's columns stop at F: zeros past it).  An odd O
+//   or F is stored a column at a time where a pair would straddle 4
+//   bytes.
 
 #include <math.h>
 
@@ -76,17 +93,13 @@
 #include <atomic>
 
 #include "common.cuh"
+#include "mlp_tc.cuh"
 #include "wgmma.cuh"
 
+namespace mint_mlp {
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float gelu_tanh(float v) {
-  // jax.nn.gelu(approximate=True): 0.5 v (1 + tanh(sqrt(2/pi) (v + 0.044715 v^3)))
-  const float k = 0.7978845608028654f;
-  return 0.5f * v * (1.f + tanhf(k * (v + 0.044715f * v * v * v)));
-}
 
 // ---- f32 on the FMA pipes ------------------------------------------------
 
@@ -100,7 +113,6 @@ constexpr int kLd = kBK + 4;     // padded row: 16-byte aligned, and eight
 constexpr int kStages = 3;       // cp.async ring depth
 constexpr int kChunks = kBK / 4;            // 16-byte copies per tile row
 constexpr int kCopyRows = kThreads / kChunks;  // tile rows per copy pass
-constexpr int kMaxSplit = 8;
 
 template <int TM>
 constexpr size_t gemm_smem() {
@@ -359,13 +371,7 @@ cudaError_t gemm(const float* a, const float* b, const float* bias, float* c,
 }
 
 // ---- bf16 on tensor cores: two wgmma GEMM passes ------------------------
-
-constexpr int kTcBM = 128;      // rows of c per block: 2 consumer warpgroups
-constexpr int kTcBK = 64;       // K per stage: one 128-byte swizzled row
-constexpr int kTcStages = 4;    // TMA ring depth
-constexpr int kTcThreads = 2 * 128 + 32;  // + one producer warp
-constexpr int kTcBN1 = 192;     // fc1 columns per block (F = 3072: 16)
-constexpr int kTcBN2 = 200;     // fc2 columns per block (O = 800: 4)
+// (the tiles: mlp_tc.cuh; the other layouts' kernels: mlp_routes.cu)
 
 template <int BN>
 constexpr size_t tc_smem() {
@@ -481,18 +487,21 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 
 // c = bf16(epilogue(part[0] + ... + part[split - 1] + bias)), summed in
 // that order in f32, so the result does not depend on the schedule.
-template <bool kGelu>
+// kStrided: c's rows ldc apart (the activation at F no multiple of 8),
+// else n.
+template <bool kGelu, bool kStrided = false>
 __global__ void reduce_tc_kernel(const float* __restrict__ part,
                                  const __nv_bfloat16* __restrict__ bias,
                                  __nv_bfloat16* __restrict__ c, int m, int n,
-                                 int split) {
+                                 int ldc, int split) {
   const size_t mn = (size_t)m * n;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < mn;
        i += (size_t)gridDim.x * blockDim.x) {
     float v = part[i];
     for (int s = 1; s < split; ++s) v += part[s * mn + i];
     v += __bfloat162float(bias[i % n]);
-    c[i] = __float2bfloat16_rn(kGelu ? gelu_tanh(v) : v);
+    c[kStrided ? i / n * ldc + i % n : i] =
+        __float2bfloat16_rn(kGelu ? gelu_tanh(v) : v);
   }
 }
 
@@ -507,42 +516,61 @@ int tc_split(int m, int n, int k, int bn, int sms) {
                          std::min(kMaxSplit, ktiles / 4), sms / tiles));
 }
 
+// The column tiles each pass has an instance for (ops/mlp.py's TILES).
+bool tc_tile_ok(int pass, int bn) {
+  return pass == 1 ? bn == kTcBN1 || bn == 200 : bn == kTcBN2 || bn == 208;
+}
+
 struct TcPlan {
   int split1, split2;
   size_t act_bytes, bytes;  // the bf16 activation, then f32 split sums
 };
 
-cudaError_t plan_bf16(int m, int h, int f, int o, TcPlan* p) {
+// ld_act: the bf16 activation's row stride (bf16_plan's: F rounded up to
+// 64, rows on 128-byte lines for fc2's TMA loads).
+cudaError_t plan_bf16(int m, int h, int f, int o, int bn1, int bn2,
+                      long long ld_act, TcPlan* p) {
+  if (!tc_tile_ok(1, bn1) || !tc_tile_ok(2, bn2) || ld_act < f ||
+      ld_act % 8)
+    return cudaErrorInvalidValue;
   int sms = 0;
   const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
-  p->split1 = tc_split(m, f, h, kTcBN1, sms);
-  p->split2 = tc_split(m, o, f, kTcBN2, sms);
-  p->act_bytes = ((size_t)m * f * 2 + 255) / 256 * 256;
+  p->split1 = tc_split(m, f, h, bn1, sms);
+  p->split2 = tc_split(m, o, f, bn2, sms);
+  p->act_bytes = ((size_t)m * ld_act * 2 + 255) / 256 * 256;
   const size_t part1 = p->split1 > 1 ? (size_t)p->split1 * m * f : 0;
   const size_t part2 = p->split2 > 1 ? (size_t)p->split2 * m * o : 0;
   p->bytes = p->act_bytes + 4 * std::max(part1, part2);
   return cudaSuccess;
 }
 
-// TMA map of a row-major [rows, cols] bf16 matrix, boxes of 64 columns
-// (128 bytes, swizzled) x box_rows rows.
-bool tc_map(CUtensorMap* map, const void* p, int rows, int cols,
-            int box_rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {2ull * cols};
-  const cuuint32_t box[2] = {kTcBK, (cuuint32_t)box_rows};
-  return mint::make_map(map, p, 2, dims, strides, box,
-                        CU_TENSOR_MAP_SWIZZLE_128B);
+// Whether `o` ([rows, k]) lies where its route can load it: TMA wants the
+// base and the row stride on 16-byte steps, tma_pairs the base on one and
+// the stride 8 bytes past one, staged an element-aligned base; rows
+// overlap nowhere.
+bool load_ok(const Operand& o, int rows, int k) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(o.p);
+  if (rows > 1 && o.ld < k) return false;
+  switch (o.load) {
+    case kTma: return p % 16 == 0 && o.ld % 8 == 0;
+    case kTmaPairs: return p % 16 == 0 && o.ld % 8 == 4 && rows > 1;
+    case kStaged: return p % 2 == 0;
+  }
+  return false;
 }
 
-// c [m, n] = epilogue(a [m, k] b[n, k]^T + bias), split `split` ways.
+// c [m, n] = epilogue(a [m, k] b[n, k]^T + bias), split `split` ways, on
+// the flagship's kernel: a and b on TMA (rows lda and ldb apart), c's rows
+// n apart, n even.
 template <int BN, bool kGelu>
-cudaError_t gemm_tc(const __nv_bfloat16* a, const __nv_bfloat16* b,
+cudaError_t gemm_tc(const __nv_bfloat16* a, long long lda,
+                    const __nv_bfloat16* b, long long ldb,
                     const __nv_bfloat16* bias, __nv_bfloat16* c, float* part,
                     int m, int n, int k, int split, cudaStream_t stream) {
   CUtensorMap amap, bmap;
-  if (!tc_map(&amap, a, m, k, kTcBM) || !tc_map(&bmap, b, n, k, BN))
+  if (!tc_map(&amap, a, m, k, lda, kTcBM) ||
+      !tc_map(&bmap, b, n, k, ldb, BN))
     return cudaErrorInvalidValue;
   constexpr size_t smem = tc_smem<BN>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -554,11 +582,28 @@ cudaError_t gemm_tc(const __nv_bfloat16* a, const __nv_bfloat16* b,
       amap, bmap, bias, c, part, m, n, k, split);
   err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return err;
-  const int blocks =
-      (int)std::min<long long>(1024, ((long long)m * n + 255) / 256);
-  reduce_tc_kernel<kGelu><<<blocks, 256, 0, stream>>>(part, bias, c, m, n,
-                                                      split);
-  return cudaGetLastError();
+  return reduce_tc(kGelu, part, bias, c, m, n, n, split, stream);
+}
+
+// One pass on the instance of its column tile bn: fc1 on tma_pairs where
+// both operands are; the flagship's kernel where the pass is laid out as
+// the flagship's (bn its width, both operands on TMA, c's rows n apart, n
+// even); else gemm_tc_any_kernel.
+template <bool kGelu>
+cudaError_t tc_pass(int bn, const Operand& a, const Operand& b,
+                    const __nv_bfloat16* bias, __nv_bfloat16* c, int ldc,
+                    float* part, int m, int n, int k, int split,
+                    cudaStream_t s) {
+  constexpr int kFlagship = kGelu ? kTcBN1 : kTcBN2;
+  if (a.load == kTmaPairs || b.load == kTmaPairs) {  // fc1's, both or none
+    if (!kGelu || a.load != b.load) return cudaErrorInvalidValue;
+    return tc_pairs_pass(bn, a, b, bias, c, ldc, part, m, n, k, split, s);
+  }
+  if (bn == kFlagship && a.load == kTma && b.load == kTma && ldc == n &&
+      n % 2 == 0)
+    return gemm_tc<kFlagship, kGelu>(a.p, a.ld, b.p, b.ld, bias, c, part, m,
+                                     n, k, split, s);
+  return tc_any_pass(kGelu, bn, a, b, bias, c, ldc, part, m, n, k, split, s);
 }
 
 int launch_f32(const void* x, const void* w1t, const void* b1,
@@ -584,38 +629,86 @@ int launch_f32(const void* x, const void* w1t, const void* b1,
                           p.fc2, s);
 }
 
+// lds: the row strides of x, w1t, w2t and the activation (elements);
+// plan: fc1's and fc2's column tiles, then the loads of x, w1t, the
+// activation and w2t (ops/mlp.py's bf16_plan).  An instance or a route the
+// operands do not allow is refused (cudaErrorInvalidValue).
 int launch_bf16(const void* x, const void* w1t, const void* b1,
                 const void* w2t, const void* b2, void* scratch, void* out,
-                int m, int h, int f, int o, void* stream) {
-  if (m <= 0 || h <= 0 || f <= 0 || o <= 0 || h % 8 || f % 8 || o % 2)
+                const long long* lds, const int* plan, int m, int h, int f,
+                int o, void* stream) {
+  using bf16 = __nv_bfloat16;
+  if (m <= 0 || h <= 0 || f <= 0 || o <= 0 || plan[4] != kTma)
+    return (int)cudaErrorInvalidValue;
+  const Operand xa{static_cast<const bf16*>(x), lds[0], plan[2]};
+  const Operand w1a{static_cast<const bf16*>(w1t), lds[1], plan[3]};
+  const int ldf = (int)lds[3];
+  auto* act = static_cast<bf16*>(scratch);
+  const Operand acta{act, ldf, kTma};
+  const Operand w2a{static_cast<const bf16*>(w2t), lds[2], plan[5]};
+  if (!load_ok(xa, m, h) || !load_ok(w1a, f, h) || !load_ok(acta, m, f) ||
+      !load_ok(w2a, o, f))
     return (int)cudaErrorInvalidValue;
   TcPlan p;
-  cudaError_t err = plan_bf16(m, h, f, o, &p);
+  cudaError_t err = plan_bf16(m, h, f, o, plan[0], plan[1], ldf, &p);
   if (err != cudaSuccess) return (int)err;
-  using bf16 = __nv_bfloat16;
   const cudaStream_t s = (cudaStream_t)stream;
-  auto* act = static_cast<bf16*>(scratch);
   auto* part =
       reinterpret_cast<float*>(static_cast<uint8_t*>(scratch) + p.act_bytes);
-  err = gemm_tc<kTcBN1, true>(static_cast<const bf16*>(x),
-                              static_cast<const bf16*>(w1t),
-                              static_cast<const bf16*>(b1), act, part, m, f,
-                              h, p.split1, s);
+  err = tc_pass<true>(plan[0], xa, w1a, static_cast<const bf16*>(b1), act,
+                      ldf, part, m, f, h, p.split1, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)gemm_tc<kTcBN2, false>(act, static_cast<const bf16*>(w2t),
-                                     static_cast<const bf16*>(b2),
-                                     static_cast<bf16*>(out), part, m, o, f,
-                                     p.split2, s);
+  return (int)tc_pass<false>(plan[1], acta, w2a,
+                             static_cast<const bf16*>(b2),
+                             static_cast<bf16*>(out), o, part, m, o, f,
+                             p.split2, s);
 }
 
 }  // namespace
 
-// x [m, h], w1t [f, h], b1 [f], w2t [o, f], b2 [o], out [m, o]; all
-// contiguous.  f32: any widths, scratch an f32 buffer of
-// mint_mlp_f32_scratch(m, h, f, o) floats (the activation, then split
-// partial sums).  bf16: x and the weights 16-byte aligned, h and f
-// multiples of 8, o even, and scratch a buffer of mint_mlp_bf16_scratch(m,
-// h, f, o) bytes (the bf16 activation, then f32 split partial sums).
+// TMA map of a row-major [rows, cols] bf16 matrix whose rows are ld
+// elements apart, boxes of 64 columns (128 bytes, swizzled) x box_rows
+// rows; zeros past cols and rows.
+bool tc_map(CUtensorMap* map, const void* p, int rows, int cols, long long ld,
+            int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {2ull * ld};
+  const cuuint32_t box[2] = {kTcBK, (cuuint32_t)box_rows};
+  return mint::make_map(map, p, 2, dims, strides, box,
+                        CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+cudaError_t reduce_tc(bool gelu, const float* part, const bf16* bias, bf16* c,
+                      int m, int n, int ldc, int split, cudaStream_t stream) {
+  const int blocks =
+      (int)std::min<long long>(1024, ((long long)m * n + 255) / 256);
+  if (gelu && ldc == n)
+    reduce_tc_kernel<true><<<blocks, 256, 0, stream>>>(part, bias, c, m, n,
+                                                       ldc, split);
+  else if (gelu)
+    reduce_tc_kernel<true, true><<<blocks, 256, 0, stream>>>(
+        part, bias, c, m, n, ldc, split);
+  else if (ldc == n)
+    reduce_tc_kernel<false><<<blocks, 256, 0, stream>>>(part, bias, c, m, n,
+                                                        ldc, split);
+  else
+    reduce_tc_kernel<false, true><<<blocks, 256, 0, stream>>>(
+        part, bias, c, m, n, ldc, split);
+  return cudaGetLastError();
+}
+
+}  // namespace mint_mlp
+
+using namespace mint_mlp;
+
+// x [m, h], w1t [f, h], b1 [f], w2t [o, f], b2 [o], out [m, o].  f32: all
+// contiguous, any widths, scratch an f32 buffer of mint_mlp_f32_scratch(m,
+// h, f, o) floats (the activation, then split partial sums).  bf16: any
+// widths, x's and the weights' rows lds[0..2] elements apart (each row
+// contiguous), the activation's lds[3], loaded and tiled as `plan` says
+// (launch_bf16), biases and out contiguous, and scratch a 256-byte aligned
+// buffer of mint_mlp_bf16_scratch(m, h, f, o, plan[0], plan[1], lds[3])
+// bytes (the bf16 activation, then f32 split partial sums).
 extern "C" long long mint_mlp_f32_scratch(int m, int h, int f, int o) {
   Plan p;
   if (m <= 0 || f <= 0 || o <= 0 || plan_f32(m, h, f, o, &p) != cudaSuccess)
@@ -623,9 +716,11 @@ extern "C" long long mint_mlp_f32_scratch(int m, int h, int f, int o) {
   return (long long)p.scratch;
 }
 
-extern "C" long long mint_mlp_bf16_scratch(int m, int h, int f, int o) {
+extern "C" long long mint_mlp_bf16_scratch(int m, int h, int f, int o,
+                                           int bn1, int bn2, int ld_act) {
   TcPlan p;
-  if (m <= 0 || f <= 0 || o <= 0 || plan_bf16(m, h, f, o, &p) != cudaSuccess)
+  if (m <= 0 || f <= 0 || o <= 0 ||
+      plan_bf16(m, h, f, o, bn1, bn2, ld_act, &p) != cudaSuccess)
     return -1;
   return (long long)p.bytes;
 }
@@ -639,7 +734,8 @@ extern "C" int mint_mlp_f32(const void* x, const void* w1t, const void* b1,
 
 extern "C" int mint_mlp_bf16(const void* x, const void* w1t, const void* b1,
                              const void* w2t, const void* b2, void* scratch,
-                             void* out, int m, int h, int f, int o,
-                             void* stream) {
-  return launch_bf16(x, w1t, b1, w2t, b2, scratch, out, m, h, f, o, stream);
+                             void* out, const long long* lds, const int* plan,
+                             int m, int h, int f, int o, void* stream) {
+  return launch_bf16(x, w1t, b1, w2t, b2, scratch, out, lds, plan, m, h, f, o,
+                     stream);
 }

@@ -43,7 +43,10 @@ _SIGNATURES = {
                             _P],
     # x, w1, b1, w2, b2, scratch, out, m, h, f, o, stream
     "mint_mlp_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "mint_mlp_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # the same with the row strides of x, w1, w2 and the activation and the
+    # plan (column tiles and loads, ops.mlp.bf16_plan) after out
+    "mint_mlp_bf16": [_P, _P, _P, _P, _P, _P, _P, _S, _R, _I, _I, _I, _I,
+                      _P],
     # x, gamma, beta (both null: no affine), out, rows, cols, eps, stream
     "mint_layer_norm_bf16": [_P, _P, _P, _P, _I, _I, _F, _P],
 }
@@ -121,10 +124,12 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.mint_error_string.argtypes = [ctypes.c_int]
         lib.mint_error_string.restype = ctypes.c_char_p
-        # m, h, f, o -> scratch that mint_mlp_f32 (floats) and
-        # mint_mlp_bf16 (bytes) need; -1 on error
-        for name in ("mint_mlp_f32_scratch", "mint_mlp_bf16_scratch"):
-            getattr(lib, name).argtypes = [_I, _I, _I, _I]
+        # m, h, f, o (and bf16's column tiles and activation stride) ->
+        # scratch that mint_mlp_f32 (floats) and mint_mlp_bf16 (bytes)
+        # need; -1 on error
+        for name, n in (("mint_mlp_f32_scratch", 4),
+                        ("mint_mlp_bf16_scratch", 7)):
+            getattr(lib, name).argtypes = [_I] * n
             getattr(lib, name).restype = ctypes.c_longlong
         _lib = lib
         return lib

@@ -7,7 +7,10 @@ the Pallas kernel ``_fused_mlp_fwd_2d`` (its source is
 PyTorch version with the kernel's cast points.  Weights are taken in the
 JAX layout, W1 [H, F] and W2 [F, O].  The kernel reads them transposed
 (nn.Linear's [out, in] layout), so passing ``linear.weight.t()`` costs no
-copy, while a contiguous JAX-layout tensor is copied once per call.
+copy, while a contiguous JAX-layout tensor is copied once per call.  The
+bf16 kernel reads x and the weights where they lie at any widths and any
+element-aligned base (:func:`bf16_plan` says how); the f32 kernel takes
+contiguous copies.
 
 Gradients: where one is wanted, the kernel's launch runs inside
 :class:`MLPFunction`, whose backward is the VJP of :func:`mlp_formula`
@@ -17,7 +20,9 @@ plain formula ``_reference_mlp`` (``mint_tpu/ops/mlp.py:111-121``).
 
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -56,8 +61,8 @@ _ENTRY = {torch.float32: "mint_mlp_f32", torch.bfloat16: "mint_mlp_bf16"}
 def limit_broken(dtype: torch.dtype) -> str | None:
     """Why no fused MLP kernel takes inputs of `dtype`, or None if one
     does.  Both take any widths (mlp.cu): f32 runs two FMA GEMM passes,
-    bf16 two tensor-core ones, whose TMA loads need rows of whole 16-byte
-    steps; :func:`_launch` pads other bf16 widths with zeros."""
+    bf16 two tensor-core ones, loading each operand by the route its
+    layout allows (:func:`bf16_plan`)."""
     if dtype not in _ENTRY:
         return f"no fused MLP kernel takes {dtype} (float32, bfloat16)"
     return None
@@ -112,6 +117,88 @@ class MLPFunction(torch.autograd.Function):
                   zip(grads, ctx.needs_input_grad)), None)
 
 
+# The bf16 kernel's column tiles (csrc/mlp.cu's instances): fc1's and
+# fc2's, the flagship's first (F = 3072 in 16 tiles of 192, O = 800 in 4
+# of 200); fc1 on tma_pairs takes 192 alone (two halves of 96 columns).
+TILES = ((192, 200), (200, 208))
+PAIRS_TILES = (192,)
+# The activation's row stride is F rounded up to this: rows on 128-byte
+# lines for fc2's TMA loads (rows on 16-byte steps alone, F = 3080's 6160
+# bytes, ran fc2 at 0.0957 ms against 0.0790 on an H100).
+ACT_STEP = 64
+# How the bf16 kernel loads an operand [rows, K] (csrc/mlp.cu's Load): TMA;
+# staged (16-byte words copied as they lie, then moved in shared memory:
+# any layout); or, for fc1's x and W1^T both with rows 8 bytes past a
+# 16-byte step (hidden 804), TMA over their even rows and their odd rows.
+LOADS = ("tma", "staged", "tma_pairs")
+
+
+class Bf16Plan(NamedTuple):
+    """How the bf16 kernel runs one call."""
+    tiles: tuple[int, int]  # fc1's and fc2's column tiles
+    loads: tuple[str, str, str, str]  # x, W1^T, the activation, W2^T
+    act_ld: int  # the activation's row stride (elements)
+
+
+def _round_up(n: int, step: int) -> int:
+    return -(-n // step) * step
+
+
+def _row_stride(t: torch.Tensor) -> int:
+    """The elements between rows of the [rows, K] operand t (one row: K
+    rounded up to 8, a stride every route takes)."""
+    return t.stride(0) if t.shape[0] > 1 else _round_up(t.shape[1], 8)
+
+
+def _load(t: torch.Tensor) -> str:
+    """The route that loads `t` as it lies: TMA where its base and row
+    stride are whole 16-byte steps, else staged."""
+    tma = t.data_ptr() % 16 == 0 and _row_stride(t) % 8 == 0
+    return "tma" if tma else "staged"
+
+
+def _tile(n: int, widths: tuple[int, ...]) -> int:
+    """The width of `widths` that covers n columns in the fewest tiles,
+    the first on a tie."""
+    return min(widths, key=lambda w: -(-n // w))
+
+
+def _pairs(t: torch.Tensor) -> bool:
+    """Whether `t`'s rows alternate between two 16-byte phases, 8 bytes
+    apart, from a base on a step: two TMA maps read it, every other row."""
+    return (t.shape[0] > 1 and t.data_ptr() % 16 == 0
+            and t.stride(0) % 8 == 4)
+
+
+def bf16_plan(x: torch.Tensor, w1t: torch.Tensor,
+              w2t: torch.Tensor) -> Bf16Plan:
+    """The bf16 kernel's plan for x [M, H], W1^T [F, H] and W2^T [O, F]
+    (each K-contiguous, as :func:`_operands` hands them): each pass's
+    column tile (the fewest tiles its instances allow: F = 3080 in 16 of
+    200, O = 804 in 4 of 208), each operand's load (fc1 on tma_pairs where
+    x and W1^T both allow it), and the activation's row stride, F rounded
+    up to ACT_STEP."""
+    f, o = w1t.shape[0], w2t.shape[0]
+    pairs = _pairs(x) and _pairs(w1t)
+    fc1 = ("tma_pairs",) * 2 if pairs else (_load(x), _load(w1t))
+    return Bf16Plan((_tile(f, PAIRS_TILES if pairs else TILES[0]),
+                     _tile(o, TILES[1])),
+                    (*fc1, "tma", _load(w2t)), _round_up(f, ACT_STEP))
+
+
+def _operands(x, w1, b1, w2, b2):
+    """x [M, H], W1^T [F, H], b1, W2^T [O, F], b2 as the bf16 kernel reads
+    them: the caller's own tensors wherever each row is contiguous and rows
+    do not overlap (the model's activations and nn.Linear's weights as
+    ``.t()`` views: no copy), else contiguous copies."""
+    def rows(t):
+        ok = t.stride(1) == 1 and (t.shape[0] == 1
+                                   or t.stride(0) >= t.shape[1])
+        return t if ok or t.shape[1] == 1 else t.contiguous()
+    return rows(x), rows(w1.t()), b1.contiguous(), rows(w2.t()), \
+        b2.contiguous()
+
+
 def _launch(x, w1, b1, w2, b2):
     global launches
     if x.device.type != "cuda":
@@ -133,63 +220,45 @@ def _launch(x, w1, b1, w2, b2):
             f"b2 {tuple(b2.shape)}")
     if m == 0:
         return x.new_empty((0, o))
-    x = x.contiguous()
-    w1t = w1.t().contiguous()
-    w2t = w2.t().contiguous()
-    b1, b2 = b1.contiguous(), b2.contiguous()
-    if x.dtype == torch.bfloat16:
-        x, w1t, b1, w2t, b2 = _tma_operands(x, w1t, b1, w2t, b2)
-    hp, fp, op = x.shape[1], w1t.shape[0], w2t.shape[0]
-    out = torch.empty((m, op), dtype=x.dtype, device=x.device)
+    out = torch.empty((m, o), dtype=x.dtype, device=x.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    if x.dtype == torch.bfloat16:
+        x, w1t, b1, w2t, b2 = _operands(x, w1, b1, w2, b2)
+        plan = bf16_plan(x, w1t, w2t)
+        lds = (ctypes.c_longlong * 4)(*map(_row_stride, (x, w1t, w2t)),
+                                      plan.act_ld)
+        codes = (ctypes.c_int * 6)(*plan.tiles,
+                                   *map(LOADS.index, plan.loads))
+        extra = (lds, codes)
+    else:
+        x, w1t, b1 = x.contiguous(), w1.t().contiguous(), b1.contiguous()
+        w2t, b2 = w2.t().contiguous(), b2.contiguous()
+        plan, extra = None, ()
     # fc1's GELU'd activation for fc2, then split partial sums.
-    scratch = torch.empty(_scratch_bytes(x.device, x.dtype, m, hp, fp, op),
-                          dtype=torch.uint8, device=x.device)
+    scratch = torch.empty(
+        _scratch_bytes(x.device, x.dtype, m, h, f, o,
+                       (*plan.tiles, plan.act_ld) if plan else ()),
+        dtype=torch.uint8, device=x.device)
     err = getattr(lib, _ENTRY[x.dtype])(
         *(t.data_ptr() for t in (x, w1t, b1, w2t, b2, scratch)),
-        out.data_ptr(), m, hp, fp, op, stream)
+        out.data_ptr(), *extra, m, h, f, o, stream)
     _build.check(err, "fused MLP kernel launch")
     launches += 1
-    return out if op == o else out[:, :o]
-
-
-def _round_up(n: int, step: int) -> int:
-    return -(-n // step) * step
-
-
-def _tma_operands(x, w1t, b1, w2t, b2):
-    """The bf16 kernel's operands: its TMA loads read x, W1^T, the
-    activation and W2^T by rows of whole 16-byte steps from 16-byte aligned
-    bases, and it writes the output in 4-byte pairs.  Widths that do not
-    allow that get zero-padded copies, which leave every output the caller
-    keeps unchanged: H up to a multiple of 8 (zero columns of x and of W1^T),
-    F likewise (zero rows of W1^T and b1, so a GELU of 0, and zero columns
-    of W2^T), O up to even (zero rows of W2^T and b2, cut off the output).
-    A misaligned base is copied."""
-    h, f, o = x.shape[1], w1t.shape[0], w2t.shape[0]
-    hp, fp, op = _round_up(h, 8), _round_up(f, 8), _round_up(o, 2)
-    if hp != h:
-        x, w1t = F.pad(x, (0, hp - h)), F.pad(w1t, (0, hp - h))
-    if fp != f:
-        w1t, b1 = F.pad(w1t, (0, 0, 0, fp - f)), F.pad(b1, (0, fp - f))
-        w2t = F.pad(w2t, (0, fp - f))
-    if op != o:
-        w2t, b2 = F.pad(w2t, (0, 0, 0, op - o)), F.pad(b2, (0, op - o))
-    return tuple(t if t.data_ptr() % 16 == 0 else t.clone()
-                 for t in (x, w1t, b1, w2t, b2))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
-def _scratch_bytes(device, dtype, m, h, f, o) -> int:
+def _scratch_bytes(device, dtype, m, h, f, o, layout) -> int:
     """Bytes of scratch the kernel needs on ``device`` (its plan depends
-    on the card's SM count), asked once per shape."""
+    on the card's SM count and, in bf16, the column tiles and the
+    activation's stride: `layout`), asked once per shape."""
     lib = _build.library()
     with torch.cuda.device(device):
         if dtype == torch.float32:
             n = lib.mint_mlp_f32_scratch(m, h, f, o) * 4
         else:
-            n = lib.mint_mlp_bf16_scratch(m, h, f, o)
+            n = lib.mint_mlp_bf16_scratch(m, h, f, o, *layout)
     if n < 0:
         raise RuntimeError(f"fused_mlp: cannot plan on {device}")
     return n

@@ -543,17 +543,21 @@ def test_two_pass_mlp_matches_pallas_f32(shape, split):
     np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("h,f,o", [(256, 512, 64), (36, 100, 33),
+                                   (100, 70, 17)])
 @pytest.mark.parametrize("split", [1, 4])
 @pytest.mark.parametrize("m", [40, 257])
-def test_two_pass_bf16_mlp_matches_pallas(m, split):
+def test_two_pass_bf16_mlp_matches_pallas(m, split, h, f, o):
     """The bf16 CUDA path (csrc/mlp.cu): fc1 + b1 + GELU in f32 rounded to
     a bf16 scratch (the TPU kernel's own rounding point), then fc2 + b2 in
     f32 rounded to bf16; with split > 1 each pass sums 64-wide k-tiles in
     parts added in a fixed order, as at small M.  Against the fused Pallas
-    kernel in bf16 (interpret mode), to 2 bf16 ulps of the output's
-    peak."""
-    params = _mlp_params(h=256, f=512, o=64)
-    x = RNG.standard_normal((m, 256)).astype(np.float32)
+    kernel in bf16 (interpret mode), to 2 bf16 ulps of the output's peak;
+    also at widths off the 16-byte step, whose K ends inside a k-tile (the
+    kernel's loads zero-fill past K) and whose odd O is stored a column at
+    a time."""
+    params = _mlp_params(h=h, f=f, o=o)
+    x = RNG.standard_normal((m, h)).astype(np.float32)
     x, w1, b1, w2, b2 = (torch.from_numpy(a).bfloat16().float().numpy()
                          for a in (x, *params))
     want = jax_mlp._fused_mlp_fwd_2d(*_jax(x, w1, b1, w2, b2,
@@ -565,6 +569,75 @@ def test_two_pass_bf16_mlp_matches_pallas(m, split):
     got = torch.from_numpy(_gemm_sequential(act, w2.T, b2, split, ktile=64)
                            ).bfloat16().float().numpy()
     assert got.shape == want.shape
+    _close_bf16(got, np.asarray(want.astype(jnp.float32)))
+
+
+def _pairs_tile(flat, ld, rows, k, first, shift, t):
+    """The 64-column tile t of every other row (from row `first`) of a
+    row-major [rows, k] matrix whose rows lie `ld` apart in `flat`, as
+    csrc/mlp.cu's pairs_map has TMA load it: based `shift` elements before
+    each row (what lies there, the row before's tail), columns past
+    k + shift zero."""
+    out = np.zeros((len(range(first, rows, 2)), 64), flat.dtype)
+    for i, r in enumerate(range(first, rows, 2)):
+        for c in range(64):
+            col = 64 * t + c
+            if col < k + shift:
+                out[i, c] = flat[r * ld - shift + col]
+    return out
+
+
+def _shifted(tiles, t, shift, k):
+    """Columns 64 t + shift .. 64 t + shift + 63 of the rows whose tiles
+    (unshifted) are `tiles`: the neighbouring tile's where it runs off,
+    zeros where there is none."""
+    whole = np.concatenate([np.zeros_like(tiles[0])] + tiles
+                           + [np.zeros_like(tiles[0])], axis=1)
+    return whole[:, 64 * (t + 1) + shift:64 * (t + 1) + shift + 64]
+
+
+@pytest.mark.parametrize("m,h", [(40, 36), (41, 100), (7, 804)])
+def test_pairs_fc1_matches_pallas(m, h):
+    """The bf16 MLP's fc1 on tma_pairs (csrc/mlp.cu, x and W1^T with rows
+    8 bytes past a 16-byte step, hidden 804), emulated: each operand's even
+    rows and its odd rows as two maps, the odd rows' tiles 4 columns early
+    and holding the row before's tail at k-tile 0; even x even and odd x
+    odd products over the tiles as they lie (odd x odd's first k-step with
+    A's columns under 4 zeroed), even x odd with x's tiles read 4 columns
+    early and odd x even 4 late.  fc2 on the rounded activation, against
+    the fused Pallas kernel in bf16 (interpret mode), to 2 bf16 ulps of the
+    output's peak."""
+    f, o = 70, 17
+    rng = np.random.default_rng(h)
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).bfloat16().float(
+        ).numpy()
+    x = bf(rng.standard_normal((m, h)))
+    w1t = bf(rng.standard_normal((f, h)) * 0.05)
+    b1 = bf(rng.standard_normal(f) * 0.01)
+    w2 = bf(rng.standard_normal((f, o)) * 0.05)
+    b2 = bf(rng.standard_normal(o) * 0.01)
+    tiles = -(-h // 64)
+    xa = [[_pairs_tile(x.ravel(), h, m, h, p, 4 * p, t)
+           for t in range(tiles)] for p in (0, 1)]
+    wb = [[_pairs_tile(w1t.ravel(), h, f, h, p, 4 * p, t)
+           for t in range(tiles)] for p in (0, 1)]
+    out = np.zeros((m, f), np.float32)
+    for t in range(tiles):
+        a_o0 = xa[1][t].copy()
+        if t == 0:
+            a_o0[:, :4] = 0  # the row before's tail meets zeros
+        prods = {(0, 0): xa[0][t] @ wb[0][t].T,
+                 (0, 1): _shifted(xa[0], t, -4, h) @ wb[1][t].T,
+                 (1, 1): a_o0 @ wb[1][t].T,
+                 (1, 0): _shifted(xa[1], t, 4, h) @ wb[0][t].T}
+        for (pm, pn), prod in prods.items():
+            out[pm::2, pn::2] += prod
+    act = bf(torch.nn.functional.gelu(torch.from_numpy(out + b1),
+                                      approximate="tanh").numpy())
+    got = bf(act @ w2 + b2)
+    want = jax_mlp._fused_mlp_fwd_2d(*_jax(x, w1t.T, b1, w2, b2,
+                                           dtype=jnp.bfloat16),
+                                     interpret=True)
     _close_bf16(got, np.asarray(want.astype(jnp.float32)))
 
 

@@ -292,23 +292,63 @@ def test_heads_tma_cannot_read_are_padded_with_zeros(d):
     assert out.transpose(1, 2).is_contiguous()
 
 
-@pytest.mark.parametrize("h,f,o", [(804, 64, 804), (40, 3070, 24),
-                                   (36, 100, 33)])
-def test_bf16_mlp_padding_changes_no_output(h, f, o):
-    """The bf16 kernel's operands at widths its TMA loads cannot address:
-    zero-padded copies (H and F to multiples of 8, O to even) whose plain
-    MLP, cut to O, is the unpadded one's (the zeros add nothing; the
-    sums may run in another order, so within 1 bf16 ulp of the peak)."""
-    rng = np.random.default_rng(h + f + o)
-    x, w1, b1, w2, b2 = (torch.from_numpy(rng.standard_normal(s).astype(
-        np.float32)).bfloat16() for s in ((5, h), (h, f), (f,), (f, o),
-                                           (o,)))
-    px, pw1t, pb1, pw2t, pb2 = mlp._tma_operands(
-        x, w1.t().contiguous(), b1, w2.t().contiguous(), b2)
-    assert px.shape[1] % 8 == 0 and pw1t.shape[0] % 8 == 0
-    assert pw2t.shape[0] % 2 == 0
-    got = mlp.mlp_reference(px, pw1t.t(), pb1, pw2t.t(), pb2)[:, :o]
-    want = mlp.mlp_reference(x, w1, b1, w2, b2)
-    assert got.shape == want.shape
-    tol = 2.0 ** -7 * want.float().abs().max().item()
-    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+@pytest.mark.parametrize("h,f,o", [(804, 3072, 804), (800, 3080, 800),
+                                   (40, 3070, 24), (36, 100, 33)])
+def test_bf16_mlp_reads_operands_in_place(h, f, o):
+    """At widths TMA cannot address (rows of 1608 bytes at hidden 804, W2's
+    of 6140 at F = 3070, odd widths), the bf16 kernel's operands are the
+    caller's own tensors: x and nn.Linear's weights (passed as .t() views)
+    with the same storage and strides, no padded copy (csrc/mlp.cu loads
+    them by cp.async or realigned words where TMA cannot; held to the plain
+    version on the card by chip_smoke.py)."""
+    fc1 = torch.nn.Linear(h, f).bfloat16()
+    fc2 = torch.nn.Linear(f, o).bfloat16()
+    x = torch.randn(3, 5, h).bfloat16().reshape(-1, h)
+    given = mlp._operands(x, fc1.weight.t(), fc1.bias, fc2.weight.t(),
+                          fc2.bias)
+    for was, got in zip((x, fc1.weight, fc1.bias, fc2.weight, fc2.bias),
+                        given):
+        assert got.data_ptr() == was.data_ptr()
+        assert got.stride() == was.stride() and got.shape == was.shape
+
+
+def _plan_of(h, f, o, x_offset=0):
+    """bf16_plan for x [5, h] (its base `x_offset` elements into a
+    16-byte-aligned buffer) and nn.Linear weights."""
+    flat = torch.zeros(5 * h + 16, dtype=torch.bfloat16)
+    skip = (-flat.data_ptr() % 16) // 2 + x_offset
+    x = flat[skip:skip + 5 * h].view(5, h)
+    w1t = torch.zeros(f, h, dtype=torch.bfloat16)
+    w2t = torch.zeros(o, f, dtype=torch.bfloat16)
+    return mlp.bf16_plan(x, w1t, w2t)
+
+
+@pytest.mark.parametrize("h,f,o,x_offset,tiles,loads", [
+    (800, 3072, 800, 0, (192, 200), ("tma", "tma", "tma", "tma")),
+    (804, 3072, 804, 0, (192, 208), ("tma_pairs", "tma_pairs", "tma",
+                                     "tma")),
+    (800, 3080, 800, 0, (200, 200), ("tma", "tma", "tma", "tma")),
+    (800, 3080, 804, 0, (200, 208), ("tma", "tma", "tma", "tma")),
+    (804, 3080, 804, 0, (192, 208), ("tma_pairs", "tma_pairs", "tma",
+                                     "tma")),
+    (804, 3072, 804, 4, (192, 208), ("staged", "staged", "tma", "tma")),
+    (800, 3070, 801, 0, (192, 208), ("tma", "tma", "tma", "staged")),
+    (800, 3072, 800, 1, (192, 200), ("staged", "tma", "tma", "tma")),
+    (800, 3072, 800, 4, (192, 200), ("staged", "tma", "tma", "tma")),
+    (33, 70, 17, 0, (192, 200), ("staged", "staged", "tma", "staged")),
+])
+def test_bf16_plan(h, f, o, x_offset, tiles, loads):
+    """The bf16 kernel's plan: each pass takes the fewest column tiles its
+    instances allow, the flagship's width on a tie (F = 3072 and 3080 in
+    16 tiles, of 192 and 200; O = 800 and 804 in 4, of 200 and 208; a
+    width over the tile, as 3080 over 192, would take a 17th tile a few
+    columns wide; fc1 on tma_pairs takes 192 alone), each operand the load
+    its base and row stride allow (TMA on 16-byte steps; hidden 804's x and
+    W1^T, rows 8 bytes past a step, as two TMA maps of every other row,
+    tma_pairs, where both are; else staged), the activation TMA's at a row
+    stride of F rounded up to 64 (rows on 128-byte lines)."""
+    plan = _plan_of(h, f, o, x_offset)
+    assert plan.tiles == tiles and plan.loads == loads
+    assert plan.act_ld == -(-f // 64) * 64
+    if f in (3072, 3080) and o in (800, 804) and loads[0] != "tma_pairs":
+        assert (-(-f // tiles[0]), -(-o // tiles[1])) == (16, 4)
