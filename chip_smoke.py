@@ -2814,9 +2814,10 @@ def last_modules(work, run_dir, native_counts, rates, card):
 # one; 264 past 256, in two output chunks on the grid's z axis), bf16 head
 # dims no multiple of 16 (and of 8: 67), and more (batch, head) pairs than
 # one grid takes (65540); q[20,12,360,64], the width hidden 804's heads
-# would have at a multiple of 8; and views of rows TMA cannot step over
-# (84 elements apart, over 80 columns: the block's copies).  Each the
-# model's fused QKV views but the last, layout "rows84".
+# would have at a multiple of 8; and views of rows 84 elements apart over
+# 80 columns (every other row 8 bytes past a 16-byte step: tma_pairs, as
+# hidden 804's D = 67 views).  Each the model's fused QKV views but the
+# last, layout "rows84".
 WIDE_ATTENTION = [(("bf16",), 20, 10, 1320, 1320, 80),
                   (("bf16",), 20, 10, 48, 1320, 80),
                   (("bf16",), 20, 8, 720, 720, 128)] + [
@@ -2829,14 +2830,17 @@ WIDE_ATTENTION = [(("bf16",), 20, 10, 1320, 1320, 80),
 # of 8 (f32) or of fc1's 192-column tile (bf16: 16 tiles of 200), H = O =
 # 804 (bf16: rows 8 bytes past a 16-byte step every other row, fc1 on
 # tma_pairs, fc2 in 4 tiles of 208) at the decode's M and at M = 960 (fc2
-# split over K), and in bf16 F = 3070 (W2's
-# rows 4 bytes past a 16-byte step: staged), an odd O (single stores), x on
-# a base 2 bytes past 16 (staged), and hidden 804 at M = 192 (batch 4's
-# last block: fc1 on tma_pairs split over K).
+# split over K), and in bf16 F = 3070 and 3068 (W2's rows in 4 and 2
+# phases off the 16-byte step: fc2 on tma_phases, at M = 960 split over
+# K), an odd O (single stores), x on a base 2 bytes past 16 (staged), and
+# hidden 804 at M = 192 (batch 4's last block: fc1 on tma_pairs split
+# over K).
 WIDE_MLP = [(("f32",), 7200, 800, 3070, 800),
             (("bf16",), 7200, 800, 3080, 800),
             (("f32", "bf16"), 7200, 804, 3072, 804),
             (("bf16",), 7200, 800, 3070, 800),
+            (("bf16",), 7200, 800, 3068, 800),
+            (("bf16",), 960, 800, 3070, 800),
             (("bf16",), 7200, 800, 3072, 801),
             (("bf16",), 7200, 800, 3072, 800, "x_off2"),
             (("bf16",), 960, 804, 3072, 804),
@@ -2858,11 +2862,12 @@ LIMIT_CONFIGS = {
 LIMIT_DECODE = (4, 8)  # 11b's decode: batch, steps
 # 11b's configs whose decode reaches the redesigned kernels (the f32 wide
 # attention kernel, the bf16 streamed one, heads read in place at D = 50
-# and 67; the bf16 MLP's 200- and 208-column tiles and 8-byte cp.async at
-# hidden 804, and its 200-column fc1 at F = 3080): their graphed decode is
-# timed.
+# and 67, on tma_pairs at 67; the bf16 MLP's 200- and 208-column tiles and
+# fc1 on tma_pairs at hidden 804, its 200-column fc1 at F = 3080, and fc2
+# on tma_phases at F = 3070): their graphed decode is timed.
 LIMIT_TIMED = ("head_dim_over_128", "bf16_keys", "keys_720_d128",
-               "bf16_head_dim_step", "hidden_804", "bf16_mlp_width")
+               "bf16_head_dim_step", "hidden_804", "bf16_mlp_width",
+               "f32_mlp_width")
 LIMIT_TRAIN = 2        # 11b's train batch
 WIDE_AXIS = dict(hidden_size=48, heads=2, intermediate_size=64)  # 11c
 WIDE_AXIS_RANKS = 4
@@ -2999,16 +3004,18 @@ def one_kernel_a_call(att, gen, card):
 
 def mlp_kernels_a_call(mlp, gen, card):
     """11a: one bf16 fused MLP call at hidden 804 (M = 7200 and the split
-    M = 960) and at F = 3080 on the model's operands (nn.Linear's weights
-    as .t() views) runs its two GEMM passes and, where K is split, their
-    reduce, and no other device kernel, as torch.profiler records it: the
-    kernel reads every operand where it lies (the parent's route padded
-    x and W1 first: six or seven kernels).  Returns {shape: kernels}."""
+    M = 960), at F = 3080 and at F = 3070 (fc2 on tma_phases; M = 960
+    split) on the model's operands (nn.Linear's weights as .t() views)
+    runs its two GEMM passes and, where K is split, their reduce, and no
+    other device kernel, as torch.profiler records it: the kernel reads
+    every operand where it lies (a route that padded x and W1 first ran six
+    or seven kernels).  Returns {shape: kernels}."""
     from torch.profiler import ProfilerActivity, profile
 
     counts = {}
     for m, h, f, o in ((7200, 804, 3072, 804), (960, 804, 3072, 804),
-                       (7200, 800, 3080, 800)):
+                       (7200, 800, 3080, 800), (7200, 800, 3070, 800),
+                       (960, 800, 3070, 800)):
         w1, b1, w2, b2 = mlp_weights(gen, torch.bfloat16, h=h, f=f, o=o)
         x = mlp_input(gen, m, h, torch.bfloat16)
         mlp.fused_mlp(x, w1, b1, w2, b2)

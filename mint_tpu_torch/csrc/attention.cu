@@ -115,9 +115,8 @@ __global__ void __launch_bounds__(128 * kTcMaxWgs, 2)
                         int heads, int nq, int nk, int d, float scale_log2,
                         long long bh0, bool pairs) {
   tc_resident<D, kLoad>(q, qs_, k, ks_, v, vs_, &kwide, &knarrow, &vwide,
-                        &vnarrow, nullptr, nullptr, nullptr, nullptr, kstep,
-                        vstep, 0, out, os_, heads, nq, nk, d, scale_log2, bh0,
-                        pairs);
+                        &vnarrow, kstep, vstep, out, os_, heads, nq, nk, d,
+                        scale_log2, bh0, pairs);
 }
 
 // The resident schedule but kTmaPairs' (attention_pairs.cu); D: the
@@ -189,17 +188,16 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   // wide as the heads' frame in them rounded up to 16 (ops/attention.py's
   // bf16_resident mirrors it).
   const int route = load_route(routes);
-  const bool staged = route == kTmaPairs;
-  const int tiles = staged ? pair_tiles(nk) : (nk + kTcKeys - 1) / kTcKeys;
+  const bool paired = route == kTmaPairs;
+  const int tiles = paired ? pair_tiles(nk) : (nk + kTcKeys - 1) / kTcKeys;
   const int frame =
       d + (route == kCopies ? 0
                             : std::max(col_shift(routes[1], st + 3, heads),
                                        col_shift(routes[2], st + 6, heads)));
   const int width = (frame + 15) / 16 * 16;
-  // kTmaPairs keeps 4 mbarriers for its staging slots.
-  if (frame <= kMaxD && tiles <= kTcMaxTiles - (staged ? 2 : 0) &&
-      tc_smem_bytes(width, tiles, staged ? kTcStaged : 0) <= kSmemLimit) {
-    if (staged)  // attention_pairs.cu
+  if (frame <= kMaxD && tiles <= kTcMaxTiles &&
+      tc_smem_bytes(width, tiles) <= kSmemLimit) {
+    if (paired)  // attention_pairs.cu
       return launch_bf16_pairs(q, k, v, out, st, width, batch, heads, nq, nk,
                                d, scale_log2, pairs, s);
     switch (width) {

@@ -94,7 +94,7 @@ __global__ void __launch_bounds__(128 * kWgs + kStreamProducer, 1)
              qbar, q0 + kTcWgRows * w, W * c);
     for (int j = 0; j < total; ++j) {
       const int i = j % slots, use = j / slots;
-      if (use > 0) mbar_wait_or_trap(empty + i, (use - 1) & 1);
+      if (use > 0) mint::mbar_wait_or_trap(empty + i, (use - 1) & 1);
       mint::mbar_expect_tx(full + i, T::kBytes);
       uint8_t* dst = ring + i * T::kBytes;
       if (j < pass1) {
@@ -123,7 +123,7 @@ __global__ void __launch_bounds__(128 * kWgs + kStreamProducer, 1)
   // warp's products on it have retired.
   int next = 0;
   auto acquire = [&]() -> uint8_t* {
-    mbar_wait_or_trap(full + next % slots, (next / slots) & 1);
+    mint::mbar_wait_or_trap(full + next % slots, (next / slots) & 1);
     return ring + (next % slots) * T::kBytes;
   };
   auto release = [&]() {
@@ -144,7 +144,7 @@ __global__ void __launch_bounds__(128 * kWgs + kStreamProducer, 1)
       release();
     }
   };
-  mbar_wait_or_trap(qbar, 0);
+  mint::mbar_wait_or_trap(qbar, 0);
   if (qstep) {
     for (int c = 0; c < chunks; ++c)
       zero_outside<W>(qt + c * T::kBytes, ko - W * c, ko + d - W * c,

@@ -1,10 +1,10 @@
 // What the bf16 attention sources share (csrc/attention.cu, the resident
-// kernel and the C entry; csrc/attention_pairs.cu, its kTmaPairs
-// instances; csrc/attention_stream.cu, the streamed kernel): the tile
-// layout, the routes a view is loaded by, the loads and copies into
-// shared memory, the two passes' arithmetic, the resident schedule
-// (tc_resident), and the TMA maps.  Split so that nvcc builds them at
-// once.
+// kernel and the C entry; csrc/attention_pairs.cu, the resident schedule
+// over kTmaPairs views; csrc/attention_stream.cu, the streamed kernel):
+// the tile layout, the routes a view is loaded by, the loads and copies
+// into shared memory, the two passes' arithmetic, the resident schedule
+// of the other routes (tc_resident), and the TMA maps.  Split so that
+// nvcc builds them at once.
 #pragma once
 
 #include "attention.cuh"
@@ -18,7 +18,6 @@ constexpr int kTcWgRows = 64;     // query rows per warpgroup (wgmma's M)
 constexpr int kTcMaxWgs = 2;      // warpgroups per block
 constexpr int kTcKeys = 64;       // keys per K / V tile (N of the scores)
 constexpr int kTcVStages = 3;     // V tiles resident at a time (a ring)
-constexpr int kTcStaged = 2;      // kTmaPairs: staging slots of odd rows
 constexpr int kTcBarBytes = 1024;     // mbarriers at the start of smem
 constexpr int kTcMaxTiles = kTcBarBytes / 8 / 2;
 // The streamed kernel: head-dim chunks of at most kStreamMaxW columns, a
@@ -46,13 +45,12 @@ struct TcTile {
   static constexpr int kBytes = kWide * kWideBytes + kNarrow * kNarrowBytes;
 };
 
-// The resident schedule: every K tile of width d, a ring of up to
-// kTcVStages V tiles, and `staged` more (kTmaPairs: kTcStaged).
-size_t tc_smem_bytes(int d, int tiles, int staged = 0) {
+// The resident schedule: every K tile of width d and a ring of up to
+// kTcVStages V tiles.
+size_t tc_smem_bytes(int d, int tiles) {
   // 1 KB of slack to align the tiles to the swizzle's 1 KB atoms.
   return 2 * kTcBarBytes +
-         (size_t)(tiles + std::min(tiles, kTcVStages) + staged) * kTcKeys *
-             2 * d;
+         (size_t)(tiles + std::min(tiles, kTcVStages)) * kTcKeys * 2 * d;
 }
 
 // kTmaPairs: the tiles of nk keys, even rows' (ceil of half) then odd.
@@ -84,26 +82,6 @@ __device__ __forceinline__ void merge_stats(float& m, float& l, float mo,
   const float b = (mo == -INFINITY) ? 0.f : lo * exp2f(mo - mn);
   m = mn;
   l = a + b;
-}
-
-// mbar_wait that ends the kernel with a trap, an error its launch reports,
-// where a phase never completes (some 2^24 polls, seconds): a fault in the
-// streamed kernel's ring then fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar,
-                                                  uint32_t parity) {
-  const uint32_t addr = mint::smem_addr(bar);
-  for (uint32_t polls = 0;; ++polls) {
-    uint32_t done = 0;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls > (1u << 24)) __trap();
-  }
 }
 
 // Descriptor of a swizzled slab: 128-byte (layout 1) or 32-byte (layout 3)
@@ -148,17 +126,17 @@ __device__ __forceinline__ uint64_t kstep_desc(const uint8_t* tile, int kk) {
 // slow on an H100), and V's reach only output columns that are never
 // stored.
 //
-// kTmaPairs (the resident kernel): a view whose token rows alternate
-// between two 16-byte phases (a token stride of 8 bytes past a 16-byte
-// step: the model's fused QKV views at hidden 804, 4824-byte rows) is two
-// TMA maps, its even rows and its odd rows, each over every other token
-// (a 16-byte step).  The keys run even rows first, then odd ones (the
-// softmax and P.V take them in any order, K's and V's alike).  Within a
-// map a head starts o_p = (c_p + h st_h) % 8 columns into its tiles (c_p:
-// 4 where that parity's rows start 8 bytes past a 16-byte step, the map
-// then based 8 bytes early), and o_1 = o_0 +- 4: even rows' tiles land
-// where the frame has them, odd rows' land in a staging slot and move 4
-// columns into place (realign_tile), 8 bytes at a time.
+// kTmaPairs (the resident schedule of attention_pairs.cu): a view whose
+// token rows alternate between two 16-byte phases (a token stride of 8
+// bytes past a 16-byte step: the model's fused QKV views at hidden 804,
+// 4824-byte rows) is two TMA maps, its even rows and its odd rows, each
+// over every other token (a 16-byte step).  The keys run even rows first,
+// then odd ones (the softmax and P.V take them in any order, K's and V's
+// alike).  Within a map a head starts o_p = (c_p + h st_h) % 8 columns
+// into its tiles (c_p: 4 where that parity's rows start 8 bytes past a
+// 16-byte step, the map then based 8 bytes early), and o_1 = o_0 +- 4:
+// each parity's tiles land as TMA writes them, and the 4 columns between
+// them are made up in registers (attention_tc_pairs_kernel).
 enum Route { kTmaView = 0, kTmaColumns = 1, kCopies = 2, kTmaPairs = 3 };
 
 // Byte offset in a TcTile<D> of element (row r, column c), swizzled as TMA
@@ -277,29 +255,6 @@ __device__ __forceinline__ void copy_tile(uint8_t* dst, uint64_t* bar,
   }
   mint::fence_proxy_async();
   mint::mbar_arrive(bar);
-}
-
-// The block's threads move the staged tile src into dst, `delta` columns
-// (4 or -4) to the left: column c of dst is column c + delta of src, zeros
-// from outside src.  Two 8-byte halves a 16-byte unit.  The caller fences
-// and arrives.
-template <int D>
-__device__ __forceinline__ void realign_tile(uint8_t* dst, const uint8_t* src,
-                                             int delta) {
-  constexpr int kUnits = D / 8;
-  for (int i = threadIdx.x; i < kTcKeys * kUnits; i += blockDim.x) {
-    const int r = i / kUnits, c = 8 * (i - r * kUnits) + delta;
-    uint2 half[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int cc = c + 4 * e;
-      half[e] = cc >= 0 && cc < D ? *reinterpret_cast<const uint2*>(
-                                        src + tile_byte<D>(r, cc))
-                                  : make_uint2(0u, 0u);
-    }
-    *reinterpret_cast<uint4*>(dst + tile_byte<D>(r, c - delta)) =
-        make_uint4(half[0].x, half[0].y, half[1].x, half[1].y);
-  }
 }
 
 // Issues (and commits; the caller waits) the scores of this warpgroup's
@@ -436,6 +391,89 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* oh,
   }
 }
 
+// Q's A fragments of rows `row` and `row + 8` of a head (qh, rows
+// `stride` elements apart) straight from device memory: k-step kk holds
+// the tiles' columns 16 kk + 2 t (a[0], a[1]) and + 8 (a[2], a[3]), the
+// head's columns ko before them; zeros past nq and outside the head.
+template <int D>
+__device__ __forceinline__ void load_q_frags(uint32_t (&qf)[D / 16][4],
+                                             const __nv_bfloat16* qh,
+                                             long long stride, int row,
+                                             int nq, int d, int ko, int t4) {
+  const bool qal = rows_aligned4(qh, stride) && ko % 2 == 0;
+  const __nv_bfloat16* q0p = qh + row * stride;
+  const __nv_bfloat16* q8p = q0p + 8 * stride;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int col = 16 * kk + 2 * t4 - ko;
+    qf[kk][0] = row < nq ? ld_pair(q0p, col, d, qal) : 0u;
+    qf[kk][1] = row + 8 < nq ? ld_pair(q8p, col, d, qal) : 0u;
+    qf[kk][2] = row < nq ? ld_pair(q0p, col + 8, d, qal) : 0u;
+    qf[kk][3] = row + 8 < nq ? ld_pair(q8p, col + 8, d, qal) : 0u;
+  }
+}
+
+// P.V of one V tile vt (a ring slot): one m64n64k16 per wide slab of V and
+// one m64n16k16 per narrow one a 16-key step of P (a), the steps past
+// `valid` keys skipped; the first product overwrites the accumulators
+// unless `acc`.  Waits for the products.
+template <int D>
+__device__ __forceinline__ void tc_pv(
+    float (&ow)[TcTile<D>::kWide ? TcTile<D>::kWide : 1][32],
+    float (&on)[TcTile<D>::kNarrow ? TcTile<D>::kNarrow : 1][8],
+    const uint32_t (&a)[kTcKeys / 16][4], const uint8_t* vt, int valid,
+    bool acc) {
+  using T = TcTile<D>;
+  mint::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < kTcKeys / 16; ++j) {
+    if (16 * j >= valid) break;  // the same for the whole warpgroup
+    const int add = acc || j > 0;
+#pragma unroll
+    for (int w = 0; w < T::kWide; ++w)
+      mint::wgmma_rs<64, 1>(
+          ow[w], a[j],
+          slab_desc(vt + w * T::kWideBytes + 16 * j * 128, 1024, 1), add);
+#pragma unroll
+    for (int w = 0; w < T::kNarrow; ++w)
+      mint::wgmma_rs<16, 1>(
+          on[w], a[j],
+          slab_desc(vt + T::kWide * T::kWideBytes + w * T::kNarrowBytes +
+                        16 * j * 32,
+                    256, 3),
+          add);
+  }
+  mint::wgmma_commit();
+  mint::wgmma_wait<0>();
+}
+
+// Stores the P.V accumulators of rows `row` and `row + 8` into the head's
+// output oh (rows `stride` apart): V's tile column c is the head's c - vo.
+template <int D>
+__device__ __forceinline__ void store_head(
+    const float (&ow)[TcTile<D>::kWide ? TcTile<D>::kWide : 1][32],
+    const float (&on)[TcTile<D>::kNarrow ? TcTile<D>::kNarrow : 1][8],
+    __nv_bfloat16* oh, long long stride, int row, int nq, int d, int vo,
+    bool pairs, int t4) {
+  using T = TcTile<D>;
+  const bool opairs = pairs && vo % 2 == 0;
+#pragma unroll
+  for (int w = 0; w < T::kWide; ++w)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      store_out(oh, stride, row, nq, 64 * w + 8 * n + 2 * t4 - vo, d, opairs,
+                ow[w][4 * n], ow[w][4 * n + 1], ow[w][4 * n + 2],
+                ow[w][4 * n + 3]);
+#pragma unroll
+  for (int w = 0; w < T::kNarrow; ++w)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+      store_out(oh, stride, row, nq,
+                64 * T::kWide + 16 * w + 8 * n + 2 * t4 - vo, d, opairs,
+                on[w][4 * n], on[w][4 * n + 1], on[w][4 * n + 2],
+                on[w][4 * n + 3]);
+}
+
 // TMA map of one [B, H, N, d] bf16 view (strides st: b, h, n), boxes of
 // `box` columns x 64 rows with the given swizzle.  kTmaView: dims (d, N,
 // H, B), columns past d (and rows past N) read as zeros.  kTmaColumns: the
@@ -537,72 +575,43 @@ int col_shift(int route, const long long* st, int heads) {
 // TMA over the views, one thread issuing every load up front.
 // kTmaColumns: the same over the token rows' head columns (kstep / vstep:
 // a head's column step), the head ko / vo columns into its tiles.
-// kTmaPairs (attention_tc_pairs_kernel): the even rows' tiles by TMA up
-// front as kTmaColumns', the odd rows' through the staging ring (full /
-// empty mbarriers), each moved into place by every thread (realign) while
-// the tensor cores work on the tile before it (K's in pass 1; V's first
-// few between the passes, the rest in place of the ring's refills); `lag`
-// holds K's parities' lag bits, then V's; kwide1 .. vnarrow1 the odd
-// rows' maps.  kCopies: the block's copies (copy_tile; k, v and their
-// strides), each while the tensor cores work on a tile's scores: K tile 0
-// first, then pass 1's tile t copies K tile t + 1, pass 2's tile t V tile
-// t into the ring slot of tile t - 3, which every warpgroup is done with
-// (it copied its share of tile t - 1, which this thread has waited for,
-// after its P.V of tile t - 2).
+// kCopies: the block's copies (copy_tile; k, v and their strides), each
+// while the tensor cores work on a tile's scores: K tile 0 first, then
+// pass 1's tile t copies K tile t + 1, pass 2's tile t V tile t into the
+// ring slot of tile t - 3, which every warpgroup is done with (it copied
+// its share of tile t - 1, which this thread has waited for, after its
+// P.V of tile t - 2).  (kTmaPairs has a schedule of its own,
+// attention_pairs.cu.)
 template <int D, int kLoad>
 __device__ __forceinline__ void tc_resident(
     const __nv_bfloat16* __restrict__ q, Strides qs_,
     const __nv_bfloat16* __restrict__ k, Strides ks_,
     const __nv_bfloat16* __restrict__ v, Strides vs_,
     const CUtensorMap* kwide, const CUtensorMap* knarrow,
-    const CUtensorMap* vwide, const CUtensorMap* vnarrow,
-    const CUtensorMap* kwide1, const CUtensorMap* knarrow1,
-    const CUtensorMap* vwide1, const CUtensorMap* vnarrow1, int kstep,
-    int vstep, int lag, __nv_bfloat16* __restrict__ out, Strides os_,
-    int heads, int nq, int nk, int d, float scale_log2, long long bh0,
-    bool pairs) {
+    const CUtensorMap* vwide, const CUtensorMap* vnarrow, int kstep,
+    int vstep, __nv_bfloat16* __restrict__ out, Strides os_, int heads,
+    int nq, int nk, int d, float scale_log2, long long bh0, bool pairs) {
   using bf16 = __nv_bfloat16;
   using T = TcTile<D>;
-  constexpr bool kCopy = kLoad == kCopies, kPairs = kLoad == kTmaPairs;
+  constexpr bool kCopy = kLoad == kCopies;
   extern __shared__ uint8_t smem_raw[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
   const uint32_t base = mint::smem_addr(smem_raw) + kTcBarBytes;
   uint8_t* ks = smem_raw + kTcBarBytes + (1024 - base % 1024) % 1024;
-  // kTmaPairs runs the even rows' ne keys in te tiles, then the odd rows';
-  // pair_valid(t): a tile's real keys there.
-  const int ne = (nk + 1) / 2, te = (ne + kTcKeys - 1) / kTcKeys;
-  const int tiles = kPairs ? te + (nk - ne + kTcKeys - 1) / kTcKeys
-                           : (nk + kTcKeys - 1) / kTcKeys;
-  const int to = tiles - te;  // kTmaPairs: the odd rows' tiles
-  auto pair_valid = [&](int t) {
-    return t < te ? ne - kTcKeys * t : nk - ne - kTcKeys * (t - te);
-  };
+  const int tiles = (nk + kTcKeys - 1) / kTcKeys;
   // K tile t at ks + t * T::kBytes, V tiles in a ring of kTcVStages after
-  // them; K tile t completes on kbar[t], V tile t on vbar[t].  kTmaPairs:
-  // kTcStaged staging slots after the ring, slot i's load completing on
-  // full[i] and every thread's read of it on empty[i].
+  // them; K tile t completes on kbar[t], V tile t on vbar[t].
   uint8_t* vs = ks + tiles * T::kBytes;
   uint64_t* kbar = bars;
   uint64_t* vbar = bars + tiles;
-  uint8_t* stage = vs + min(tiles, kTcVStages) * T::kBytes;
-  uint64_t* full = bars + 2 * tiles;
-  uint64_t* empty = full + kTcStaged;
 
   const long long bh = bh0 + blockIdx.y;
   const int b = (int)(bh / heads), h = (int)(bh % heads);
   const int q0 = blockIdx.x * kTcWgRows * (blockDim.x / 128);
-  // The head's first column in parity par's map of an operand (kTmaPairs:
-  // lags, its parities' lag bits), whose boxes start on the 16-byte step
-  // at or before it; ko / vo: where it lies in K's and V's tiles.
-  auto col = [&](int step, int lags, int par) {
-    return 4 * (lags >> par & 1) + h * step;
-  };
-  const int ko = kLoad == kTmaColumns ? h * kstep % 8
-                 : kPairs             ? col(kstep, lag, 0) % 8
-                                      : 0;
-  const int vo = kLoad == kTmaColumns ? h * vstep % 8
-                 : kPairs             ? col(vstep, lag >> 2, 0) % 8
-                                      : 0;
+  // Where the head lies in K's and V's tiles (boxes from the 16-byte step
+  // at or before its first column).
+  const int ko = kLoad == kTmaColumns ? h * kstep % 8 : 0;
+  const int vo = kLoad == kTmaColumns ? h * vstep % 8 : 0;
   // One thread issues the TMA loads: a slab per box, a tile per mbarrier.
   auto load = [&](const CUtensorMap* wide, const CUtensorMap* narrow,
                   int step, uint8_t* dst, uint64_t* bar, int t) {
@@ -617,19 +626,6 @@ __device__ __forceinline__ void tc_resident(
                         narrow, bar, col + 64 * T::kWide + 16 * i,
                         kTcKeys * t, hc, b);
   };
-  // kTmaPairs: the box of a map at column `first` (rounded down to the
-  // 16-byte step) and row `row`.
-  auto load_at = [&](const CUtensorMap* wide, const CUtensorMap* narrow,
-                     int first, uint8_t* dst, uint64_t* bar, int row) {
-    mint::mbar_expect_tx(bar, T::kBytes);
-    const int c0 = first / 8 * 8;
-    for (int i = 0; i < T::kWide; ++i)
-      mint::tma_load_4d(dst + i * T::kWideBytes, wide, bar, c0 + 64 * i, row,
-                        0, b);
-    for (int i = 0; i < T::kNarrow; ++i)
-      mint::tma_load_4d(dst + T::kWide * T::kWideBytes + i * T::kNarrowBytes,
-                        narrow, bar, c0 + 64 * T::kWide + 16 * i, row, 0, b);
-  };
   const bf16* kh = k + b * ks_.b + h * ks_.h;
   const bf16* vh = v + b * vs_.b + h * vs_.h;
   // kCopies: K tile t, V tile t (into its ring slot).
@@ -640,69 +636,14 @@ __device__ __forceinline__ void tc_resident(
     copy_tile<D>(vs + t % kTcVStages * T::kBytes, vbar + t, vh, vs_.n,
                  kTcKeys * t, nk, d);
   };
-  // kTmaPairs: staged load j (K's odd rows' tiles, then V's) into slot
-  // j % kTcStaged; realign(j) moves it into its tile (the rows' shift from
-  // the even rows' frame: 4 either way) and lets thread 0 stage load
-  // j + kTcStaged into the slot once every thread is done with it.
-  auto stage_load = [&](int j) {
-    uint8_t* dst = stage + j % kTcStaged * T::kBytes;
-    uint64_t* bar = full + j % kTcStaged;
-    if (j < to)
-      load_at(kwide1, knarrow1, col(kstep, lag, 1), dst, bar, kTcKeys * j);
-    else
-      load_at(vwide1, vnarrow1, col(vstep, lag >> 2, 1), dst, bar,
-              kTcKeys * (j - to));
-  };
-  auto realign = [&](int j) {
-    const int slot = j % kTcStaged;
-    const uint32_t phase = j / kTcStaged & 1;
-    mint::mbar_wait(full + slot, phase);
-    const uint8_t* src = stage + slot * T::kBytes;
-    if (j < to) {
-      realign_tile<D>(ks + (te + j) * T::kBytes, src,
-                      col(kstep, lag, 1) % 8 - ko);
-    } else {
-      const int u = te + j - to;
-      realign_tile<D>(vs + u % kTcVStages * T::kBytes, src,
-                      col(vstep, lag >> 2, 1) % 8 - vo);
-    }
-    mint::fence_proxy_async();
-    mint::mbar_arrive(j < to ? kbar + te + j : vbar + te + j - to);
-    mint::mbar_arrive(empty + slot);
-    if (threadIdx.x == 0 && j + kTcStaged < 2 * to) {
-      mint::mbar_wait(empty + slot, phase);
-      stage_load(j + kTcStaged);
-    }
-  };
   if (threadIdx.x == 0) {
-    if constexpr (kPairs) {  // the odd rows' tiles: every thread's moves
-      for (int t = 0; t < tiles; ++t) {
-        mint::mbar_init(kbar + t, t < te ? 1 : blockDim.x);
-        mint::mbar_init(vbar + t, t < te ? 1 : blockDim.x);
-      }
-      for (int i = 0; i < kTcStaged; ++i) {
-        mint::mbar_init(full + i, 1);
-        mint::mbar_init(empty + i, blockDim.x);
-      }
-    } else {
-      for (int i = 0; i < 2 * tiles; ++i)
-        mint::mbar_init(bars + i, kCopy ? blockDim.x : 1);
-    }
+    for (int i = 0; i < 2 * tiles; ++i)
+      mint::mbar_init(bars + i, kCopy ? blockDim.x : 1);
     mint::mbar_fence_init();
   }
   __syncthreads();
   if constexpr (kCopy) {
     copy_k(0);
-  } else if constexpr (kPairs) {
-    if (threadIdx.x == 0) {
-      for (int t = 0; t < te; ++t)
-        load_at(kwide, knarrow, col(kstep, lag, 0), ks + t * T::kBytes,
-                kbar + t, kTcKeys * t);
-      for (int j = 0; j < min(2 * to, kTcStaged); ++j) stage_load(j);
-      for (int t = 0; t < min(te, kTcVStages); ++t)
-        load_at(vwide, vnarrow, col(vstep, lag >> 2, 0), vs + t * T::kBytes,
-                vbar + t, kTcKeys * t);
-    }
   } else if (threadIdx.x == 0) {
     // Every K tile, then the first V tiles: pass 1 starts on key 0 while
     // the rest lands.
@@ -722,18 +663,7 @@ __device__ __forceinline__ void tc_resident(
   // tile columns 16 kk + 2 t (a[0], a[1]) and + 8 (a[2], a[3]), the head's
   // columns ko before them; zeros past the rows and outside the head.
   uint32_t qf[D / 16][4];
-  const bf16* qh = q + b * qs_.b + h * qs_.h;
-  const bool qal = rows_aligned4(qh, qs_.n) && ko % 2 == 0;
-  const bf16* q0p = qh + row * qs_.n;
-  const bf16* q8p = q0p + 8 * qs_.n;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int col = 16 * kk + 2 * t4 - ko;
-    qf[kk][0] = row < nq ? ld_pair(q0p, col, d, qal) : 0u;
-    qf[kk][1] = row + 8 < nq ? ld_pair(q8p, col, d, qal) : 0u;
-    qf[kk][2] = row < nq ? ld_pair(q0p, col + 8, d, qal) : 0u;
-    qf[kk][3] = row + 8 < nq ? ld_pair(q8p, col + 8, d, qal) : 0u;
-  }
+  load_q_frags<D>(qf, q + b * qs_.b + h * qs_.h, qs_.n, row, nq, d, ko, t4);
   float s[32];
 
   // Pass 1: max and sum of exp2(s - max) of rows g and g + 8 over this
@@ -741,99 +671,48 @@ __device__ __forceinline__ void tc_resident(
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv_l[2];
   for (int t = 0; t < tiles; ++t) {
     mint::mbar_wait(kbar + t, 0);
-    if (kCopy || (kPairs && t >= te)) mint::fence_proxy_async();
+    if (kCopy) mint::fence_proxy_async();
     tc_scores<D>(qf, ks + t * T::kBytes, s);
     if constexpr (kCopy) {  // while the tensor cores work
       if (t + 1 < tiles) copy_k(t + 1);
-    } else if constexpr (kPairs) {
-      if (t + 1 >= te && t + 1 < tiles) realign(t + 1 - te);
     }
     mint::wgmma_wait<0>();
-    const int valid = kPairs ? pair_valid(t) : nk - kTcKeys * t;
+    const int valid = nk - kTcKeys * t;
     if (valid >= kTcKeys)
       tile_stats<true>(s, m, l, valid, t4, scale_log2);
     else
       tile_stats<false>(s, m, l, valid, t4, scale_log2);
   }
   row_stats(m, l, inv_l);
-  if constexpr (kPairs) {  // the odd rows' V tiles of the ring's first fill
-    for (int u = te; u < min(tiles, kTcVStages); ++u) realign(to + u - te);
-  }
 
-  // Pass 2: P, then P.V: one m64n64k16 per wide slab of V and one
-  // m64n16k16 per narrow one; the first (tile 0, keys 0-15: always valid)
-  // overwrites the accumulators.  By TMA, once every warpgroup is done
-  // with V tile t, its ring slot takes tile t + kTcVStages.
+  // Pass 2: P, then P.V (tc_pv); the first product (tile 0, keys 0-15:
+  // always valid) overwrites the accumulators.  By TMA, once every
+  // warpgroup is done with V tile t, its ring slot takes tile
+  // t + kTcVStages.
   float ow[T::kWide ? T::kWide : 1][32];
   float on[T::kNarrow ? T::kNarrow : 1][8];
   for (int t = 0; t < tiles; ++t) {
     tc_scores<D>(qf, ks + t * T::kBytes, s);
     if constexpr (kCopy) copy_v(t);
     mint::wgmma_wait<0>();
-    const int valid = kPairs ? pair_valid(t) : nk - kTcKeys * t;
+    const int valid = nk - kTcKeys * t;
     uint32_t a[kTcKeys / 16][4];
     if (valid >= kTcKeys)
       tile_probs<true>(s, a, m, inv_l, valid, t4, scale_log2);
     else
       tile_probs<false>(s, a, m, inv_l, valid, t4, scale_log2);
     mint::mbar_wait(vbar + t, 0);
-    if (kCopy || (kPairs && t >= te)) mint::fence_proxy_async();
-    const uint8_t* vt = vs + t % kTcVStages * T::kBytes;
-    mint::wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < kTcKeys / 16; ++j) {
-      if (16 * j >= valid) break;  // the same for the whole warpgroup
-      const int acc = t > 0 || j > 0;
-#pragma unroll
-      for (int w = 0; w < T::kWide; ++w)
-        mint::wgmma_rs<64, 1>(
-            ow[w], a[j],
-            slab_desc(vt + w * T::kWideBytes + 16 * j * 128, 1024, 1), acc);
-#pragma unroll
-      for (int w = 0; w < T::kNarrow; ++w)
-        mint::wgmma_rs<16, 1>(
-            on[w], a[j],
-            slab_desc(vt + T::kWide * T::kWideBytes + w * T::kNarrowBytes +
-                          16 * j * 32,
-                      256, 3),
-            acc);
-    }
-    mint::wgmma_commit();
-    mint::wgmma_wait<0>();
+    if (kCopy) mint::fence_proxy_async();
+    tc_pv<D>(ow, on, a, vs + t % kTcVStages * T::kBytes, valid, t > 0);
     if (!kCopy && t + kTcVStages < tiles) {
       __syncthreads();  // every warpgroup's P.V of tile t is done
-      const int u = t + kTcVStages;
-      if constexpr (kPairs) {
-        if (u >= te)
-          realign(to + u - te);
-        else if (threadIdx.x == 0)
-          load_at(vwide, vnarrow, col(vstep, lag >> 2, 0),
-                  vs + (t % kTcVStages) * T::kBytes, vbar + u, kTcKeys * u);
-      } else if (threadIdx.x == 0) {
+      if (threadIdx.x == 0)
         load(vwide, vnarrow, vstep, vs + (t % kTcVStages) * T::kBytes,
-             vbar + u, u);
-      }
+             vbar + t + kTcVStages, t + kTcVStages);
     }
   }
-
-  // V's tile column c is the head's c - vo.
-  bf16* oh = out + b * os_.b + h * os_.h;
-  const bool opairs = pairs && vo % 2 == 0;
-#pragma unroll
-  for (int w = 0; w < T::kWide; ++w)
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      store_out(oh, os_.n, row, nq, 64 * w + 8 * n + 2 * t4 - vo, d, opairs,
-                ow[w][4 * n], ow[w][4 * n + 1], ow[w][4 * n + 2],
-                ow[w][4 * n + 3]);
-#pragma unroll
-  for (int w = 0; w < T::kNarrow; ++w)
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-      store_out(oh, os_.n, row, nq,
-                64 * T::kWide + 16 * w + 8 * n + 2 * t4 - vo, d, opairs,
-                on[w][4 * n], on[w][4 * n + 1], on[w][4 * n + 2],
-                on[w][4 * n + 3]);
+  store_head<D>(ow, on, out + b * os_.b + h * os_.h, os_.n, row, nq, d, vo,
+                pairs, t4);
 }
 
 }  // namespace

@@ -142,6 +142,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// mbar_wait that ends the kernel with a trap, an error its launch reports,
+// where a phase never completes (some 2^24 polls, seconds): a fault in a
+// ring's bookkeeping then fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done = 0;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls > (1u << 24)) __trap();
+  }
+}
+
 // TMA: the box of `map` at coordinates (c0, c1[, c2, c3]) (innermost first)
 // into shared memory at dst; its bytes complete on `bar`.  Elements
 // outside the tensor arrive as zeros.

@@ -75,15 +75,19 @@
 //   TMA zero-fills the ragged last k-tile and rows past N); fc1 at hidden
 //   widths 4 columns past a step (804), x's and W1^T's rows 8 bytes past a
 //   16-byte step every other row, by TMA over their even rows and over
-//   their odd rows (gemm_tc_pairs_kernel, mlp_routes.cu); else
+//   their odd rows (gemm_tc_pairs_kernel, mlp_routes.cu); fc2 at MLP
+//   widths no multiple of 8 (F = 3070), W2^T's rows in 2, 4 or 8 phases
+//   off the step, by TMA over each phase's rows, the shift made up in
+//   registers (gemm_tc_phases_kernel, mlp_phases.cu); else
 //   gemm_tc_any_kernel (mlp_routes.cu), whose producer warpgroup stages
-//   the operand (W2^T at F = 3070, any element-aligned base or stride):
-//   the aligned 16-byte words around each row's k-tile by cp.async,
-//   zero-filled past K and past the last row, then moved in shared memory
-//   into the swizzled stage by each row's byte phase (correct, but about
-//   twice the time of a TMA-fed pass).  The activation is the kernel's
-//   own, its rows F rounded up to 64 apart (bf16_plan's), so fc2's A is
-//   always TMA's (the map's columns stop at F: zeros past it).  An odd O
+//   the operand (any element-aligned base or stride: x off a 16-byte
+//   base): the aligned 16-byte words around each row's k-tile by
+//   cp.async, zero-filled past K and past the last row, then moved in
+//   shared memory into the swizzled stage by each row's byte phase
+//   (correct, but about twice the time of a TMA-fed pass).  The
+//   activation is the kernel's own, its rows F rounded up to 64 apart
+//   (bf16_plan's), so fc2's activation is always TMA's (the map's columns
+//   stop at F: zeros past it).  An odd O
 //   or F is stored a column at a time where a pair would straddle 4
 //   bytes.
 
@@ -527,9 +531,10 @@ struct TcPlan {
 };
 
 // ld_act: the bf16 activation's row stride (bf16_plan's: F rounded up to
-// 64, rows on 128-byte lines for fc2's TMA loads).
+// 64, rows on 128-byte lines for fc2's TMA loads); phases: W2^T on
+// tma_phases (fc2's tiles then 128 of its columns by bn2 of its rows).
 cudaError_t plan_bf16(int m, int h, int f, int o, int bn1, int bn2,
-                      long long ld_act, TcPlan* p) {
+                      long long ld_act, bool phases, TcPlan* p) {
   if (!tc_tile_ok(1, bn1) || !tc_tile_ok(2, bn2) || ld_act < f ||
       ld_act % 8)
     return cudaErrorInvalidValue;
@@ -537,7 +542,8 @@ cudaError_t plan_bf16(int m, int h, int f, int o, int bn1, int bn2,
   const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   p->split1 = tc_split(m, f, h, bn1, sms);
-  p->split2 = tc_split(m, o, f, bn2, sms);
+  p->split2 = phases ? tc_phases_split(m, o, f, sms)
+                     : tc_split(m, o, f, bn2, sms);
   p->act_bytes = ((size_t)m * ld_act * 2 + 255) / 256 * 256;
   const size_t part1 = p->split1 > 1 ? (size_t)p->split1 * m * f : 0;
   const size_t part2 = p->split2 > 1 ? (size_t)p->split2 * m * o : 0;
@@ -547,14 +553,15 @@ cudaError_t plan_bf16(int m, int h, int f, int o, int bn1, int bn2,
 
 // Whether `o` ([rows, k]) lies where its route can load it: TMA wants the
 // base and the row stride on 16-byte steps, tma_pairs the base on one and
-// the stride 8 bytes past one, staged an element-aligned base; rows
-// overlap nowhere.
+// the stride 8 bytes past one, tma_phases the base on one and the stride
+// not, staged an element-aligned base; rows overlap nowhere.
 bool load_ok(const Operand& o, int rows, int k) {
   const uintptr_t p = reinterpret_cast<uintptr_t>(o.p);
   if (rows > 1 && o.ld < k) return false;
   switch (o.load) {
     case kTma: return p % 16 == 0 && o.ld % 8 == 0;
     case kTmaPairs: return p % 16 == 0 && o.ld % 8 == 4 && rows > 1;
+    case kTmaPhases: return p % 16 == 0 && o.ld % 8 != 0 && rows > 1;
     case kStaged: return p % 2 == 0;
   }
   return false;
@@ -586,8 +593,9 @@ cudaError_t gemm_tc(const __nv_bfloat16* a, long long lda,
 }
 
 // One pass on the instance of its column tile bn: fc1 on tma_pairs where
-// both operands are; the flagship's kernel where the pass is laid out as
-// the flagship's (bn its width, both operands on TMA, c's rows n apart, n
+// both operands are; fc2 on gemm_tc_phases_kernel where W2^T is on
+// tma_phases; the flagship's kernel where the pass is laid out as the
+// flagship's (bn its width, both operands on TMA, c's rows n apart, n
 // even); else gemm_tc_any_kernel.
 template <bool kGelu>
 cudaError_t tc_pass(int bn, const Operand& a, const Operand& b,
@@ -598,6 +606,10 @@ cudaError_t tc_pass(int bn, const Operand& a, const Operand& b,
   if (a.load == kTmaPairs || b.load == kTmaPairs) {  // fc1's, both or none
     if (!kGelu || a.load != b.load) return cudaErrorInvalidValue;
     return tc_pairs_pass(bn, a, b, bias, c, ldc, part, m, n, k, split, s);
+  }
+  if (a.load == kTmaPhases || b.load == kTmaPhases) {  // fc2's W2^T alone
+    if (kGelu) return cudaErrorInvalidValue;
+    return tc_phases_pass(bn, a, b, bias, c, ldc, part, m, n, k, split, s);
   }
   if (bn == kFlagship && a.load == kTma && b.load == kTma && ldc == n &&
       n % 2 == 0)
@@ -650,7 +662,8 @@ int launch_bf16(const void* x, const void* w1t, const void* b1,
       !load_ok(w2a, o, f))
     return (int)cudaErrorInvalidValue;
   TcPlan p;
-  cudaError_t err = plan_bf16(m, h, f, o, plan[0], plan[1], ldf, &p);
+  cudaError_t err =
+      plan_bf16(m, h, f, o, plan[0], plan[1], ldf, plan[5] == kTmaPhases, &p);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
   auto* part =
@@ -718,11 +731,13 @@ extern "C" long long mint_mlp_f32_scratch(int m, int h, int f, int o) {
 
 extern "C" long long mint_mlp_bf16_scratch(int m, int h, int f, int o,
                                            int bn1, int bn2, int ld_act) {
-  TcPlan p;
+  // Enough for fc2 on either kernel (tma_phases splits by its own tiles).
+  TcPlan p, q;
   if (m <= 0 || f <= 0 || o <= 0 ||
-      plan_bf16(m, h, f, o, bn1, bn2, ld_act, &p) != cudaSuccess)
+      plan_bf16(m, h, f, o, bn1, bn2, ld_act, false, &p) != cudaSuccess ||
+      plan_bf16(m, h, f, o, bn1, bn2, ld_act, true, &q) != cudaSuccess)
     return -1;
-  return (long long)p.bytes;
+  return (long long)std::max(p.bytes, q.bytes);
 }
 
 extern "C" int mint_mlp_f32(const void* x, const void* w1t, const void* b1,

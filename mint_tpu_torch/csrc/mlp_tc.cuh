@@ -1,8 +1,9 @@
-// Shared by the bf16 fused MLP's two sources: mlp.cu (the f32 passes, the
-// flagship's bf16 kernel, the plan and the C entry) and mlp_routes.cu (the
-// bf16 kernels of the other layouts, a source of its own so that the two
-// compile at once): the tiles, the operand routes, the tanh-GELU, and what
-// each source defines for the other.
+// Shared by the bf16 fused MLP's sources: mlp.cu (the f32 passes, the
+// flagship's bf16 kernel, the plan and the C entry), mlp_routes.cu (the
+// bf16 kernels of the other layouts) and mlp_phases.cu (fc2 over W2^T's
+// row phases), each a source of its own so that they compile at once: the
+// tiles, the operand routes, the tanh-GELU, and what each source defines
+// for the others.
 #pragma once
 
 #include <stdint.h>
@@ -28,17 +29,19 @@ constexpr int kTcBN2 = 200;     // fc2 columns per block (O = 800: 4)
 // How a GEMM input [rows, k] (k contiguous, rows `ld` elements apart)
 // reaches the ring (ops/mlp.py's LOADS, picked by bf16_plan from its base
 // and row stride): TMA (both whole 16-byte steps); tma_pairs (fc1 alone,
-// gemm_tc_pairs_kernel below); else staged: the 16-byte words around each
-// row's k-tile are copied as they lie by cp.async (16 bytes, zero-filled
-// past the row's last word) into a raw slot, and moved into the swizzled
-// stage in shared memory, each row by its own byte phase (any
-// element-aligned base and stride).  (8- and 4-byte cp.async straight
+// gemm_tc_pairs_kernel in mlp_routes.cu); tma_phases (fc2's W2^T alone,
+// its base on a step and its rows not: a TMA map a row phase,
+// gemm_tc_phases_kernel in mlp_phases.cu); else staged: the 16-byte words
+// around each row's k-tile are copied as they lie by cp.async (16 bytes,
+// zero-filled past the row's last word) into a raw slot, and moved into
+// the swizzled stage in shared memory, each row by its own byte phase
+// (any element-aligned base and stride).  (8- and 4-byte cp.async straight
 // into the stage ran hidden 804's fc1 at 0.298 ms against TMA's 0.1445 on
 // padded rows: the LSU's small copies, not the bytes, set the pace;
 // 2-byte loads realigned in registers, 0.352; staging with a thread a
 // 16-byte unit and the realignment's run-time selects, 0.377: the
 // producers' instructions.)
-enum Load { kTma = 0, kStaged = 1, kTmaPairs = 2 };
+enum Load { kTma = 0, kStaged = 1, kTmaPairs = 2, kTmaPhases = 3 };
 
 struct Operand {
   const __nv_bfloat16* p;
@@ -74,5 +77,15 @@ cudaError_t tc_pairs_pass(int bn, const Operand& a, const Operand& b,
                           const bf16* bias, bf16* c, int ldc, float* part,
                           int m, int n, int k, int split,
                           cudaStream_t stream);
+
+// mlp_phases.cu: fc2 c [m, n] = a [m, k] w [n, k]^T + bias with w on
+// tma_phases (gemm_tc_phases_kernel; bn its activation rows a block, 200),
+// split `split` ways into `part`; and the split its tiles take on `sms`
+// SMs (tc_split's rule).
+cudaError_t tc_phases_pass(int bn, const Operand& a, const Operand& w,
+                           const bf16* bias, bf16* c, int ldc, float* part,
+                           int m, int n, int k, int split,
+                           cudaStream_t stream);
+int tc_phases_split(int m, int n, int k, int sms);
 
 }  // namespace mint_mlp

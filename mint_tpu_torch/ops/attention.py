@@ -217,14 +217,14 @@ def bf16_resident(frame: int, nk: int, pairs: bool = False) -> bool:
     `frame` columns (the head dim and its _col_shift) runs on the resident
     kernel (any view), rather than the streamed one (TMA's views only).
     `pairs`: K and V on "tma_pairs" (csrc/attention.cu's launch_bf16):
-    the even rows' tiles then the odd rows', two more tiles of staging,
-    and 4 of the 128 mbarriers kept for them."""
+    the even rows' tiles, then the odd rows' (one more tile where both
+    parities end in a partial one)."""
     if not pairs:
         return frame <= 128 and nk <= bf16_max_keys(frame)
     width = -(-frame // 16) * 16
     tiles = -(-((nk + 1) // 2) // 64) + -(-(nk // 2) // 64)
-    smem = 2048 + (tiles + min(tiles, 3) + 2) * 64 * 2 * width
-    return frame <= 128 and tiles <= 62 and smem <= 232448
+    smem = 2048 + (tiles + min(tiles, 3)) * 64 * 2 * width
+    return frame <= 128 and tiles <= 64 and smem <= 232448
 
 
 def _stream_fits(frame: int) -> bool:

@@ -119,18 +119,23 @@ class MLPFunction(torch.autograd.Function):
 
 # The bf16 kernel's column tiles (csrc/mlp.cu's instances): fc1's and
 # fc2's, the flagship's first (F = 3072 in 16 tiles of 192, O = 800 in 4
-# of 200); fc1 on tma_pairs takes 192 alone (two halves of 96 columns).
+# of 200); fc1 on tma_pairs takes 192 alone (two halves of 96 columns);
+# fc2 on tma_phases tiles the activation's rows by 200 (and W2^T's by 128:
+# csrc/mlp_phases.cu's transposed product).
 TILES = ((192, 200), (200, 208))
 PAIRS_TILES = (192,)
+PHASES_TILE = 200
 # The activation's row stride is F rounded up to this: rows on 128-byte
 # lines for fc2's TMA loads (rows on 16-byte steps alone, F = 3080's 6160
 # bytes, ran fc2 at 0.0957 ms against 0.0790 on an H100).
 ACT_STEP = 64
-# How the bf16 kernel loads an operand [rows, K] (csrc/mlp.cu's Load): TMA;
-# staged (16-byte words copied as they lie, then moved in shared memory:
-# any layout); or, for fc1's x and W1^T both with rows 8 bytes past a
-# 16-byte step (hidden 804), TMA over their even rows and their odd rows.
-LOADS = ("tma", "staged", "tma_pairs")
+# How the bf16 kernel loads an operand [rows, K] (csrc/mlp_tc.cuh's Load):
+# TMA; staged (16-byte words copied as they lie, then moved in shared
+# memory: any layout); for fc1's x and W1^T both with rows 8 bytes past a
+# 16-byte step (hidden 804), TMA over their even rows and their odd rows;
+# or, for fc2's W2^T on a step with rows off it (F no multiple of 8), TMA
+# over each of its rows' 2, 4 or 8 phases.
+LOADS = ("tma", "staged", "tma_pairs", "tma_phases")
 
 
 class Bf16Plan(NamedTuple):
@@ -170,20 +175,31 @@ def _pairs(t: torch.Tensor) -> bool:
             and t.stride(0) % 8 == 4)
 
 
+def _phases(t: torch.Tensor) -> bool:
+    """Whether `t`'s rows start off the 16-byte step from a base on one:
+    a TMA map over each of their phases reads it (fc2's W2^T at an MLP
+    width no multiple of 8)."""
+    return (t.shape[0] > 1 and t.data_ptr() % 16 == 0
+            and t.stride(0) % 8 != 0)
+
+
 def bf16_plan(x: torch.Tensor, w1t: torch.Tensor,
               w2t: torch.Tensor) -> Bf16Plan:
     """The bf16 kernel's plan for x [M, H], W1^T [F, H] and W2^T [O, F]
     (each K-contiguous, as :func:`_operands` hands them): each pass's
     column tile (the fewest tiles its instances allow: F = 3080 in 16 of
-    200, O = 804 in 4 of 208), each operand's load (fc1 on tma_pairs where
-    x and W1^T both allow it), and the activation's row stride, F rounded
-    up to ACT_STEP."""
+    200, O = 804 in 4 of 208; PHASES_TILE where W2^T is on tma_phases),
+    each operand's load (fc1 on tma_pairs where x and W1^T both allow it,
+    W2^T on tma_phases where it allows it), and the activation's row
+    stride, F rounded up to ACT_STEP."""
     f, o = w1t.shape[0], w2t.shape[0]
     pairs = _pairs(x) and _pairs(w1t)
     fc1 = ("tma_pairs",) * 2 if pairs else (_load(x), _load(w1t))
+    w2 = "tma_phases" if _phases(w2t) else _load(w2t)
     return Bf16Plan((_tile(f, PAIRS_TILES if pairs else TILES[0]),
-                     _tile(o, TILES[1])),
-                    (*fc1, "tma", _load(w2t)), _round_up(f, ACT_STEP))
+                     PHASES_TILE if w2 == "tma_phases"
+                     else _tile(o, TILES[1])),
+                    (*fc1, "tma", w2), _round_up(f, ACT_STEP))
 
 
 def _operands(x, w1, b1, w2, b2):

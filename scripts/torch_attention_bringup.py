@@ -18,14 +18,14 @@ design alternatives they were chosen over and the parent commit's.
    widths 8-128 and its wide heads), and each variant at the 360-query
    shapes: f32 within 1e-5, bf16 within 2 bf16 ulps of the output's peak
    (phase 2's tolerances in ``chip_smoke.py``).
-4. Times, at the model's fused views, in turns (then again in reverse
-   order), by CUDA events (``chip_smoke.cuda_ms``) beside the plain
-   version and the bound (``chip_smoke.py`` phase 11a times the library's
-   call beside the kernel): bf16 on each view's route, on the parent's
-   route (zero-padded copies of q, k and v, then the kernel on them: six
-   launches of their own) or, on views TMA reads as they lie, the parent's
-   kernel itself, and, on the resident kernel, by the block's copies; f32
-   against each variant and the parent's library.
+4. Times ``TIMED`` (the model's fused views, and views of padded rows)
+   in turns (then again in reverse order), by CUDA events
+   (``chip_smoke.cuda_ms``) beside the plain version and the bound
+   (``chip_smoke.py`` phase 11a times the library's call beside the
+   kernel): bf16 on each view's route, the parent's kernel on the same
+   views (its own C entry, the routes' ABI), and, on the resident kernel,
+   by the block's copies; f32 against each variant and the parent's
+   library.
 
 5. With ``--decode`` (and ``--parent DIR``), only the flagship's bf16
    batch-20 decode frames/s through its CUDA graph (``chip_smoke.py``
@@ -72,17 +72,22 @@ VARIANTS = {
          f"MINT_CASE({w8}, attention_kernel)") for w8 in (9, 10)]),
 }
 
-# (dtype name, B, H, Nq, Nk, D): chip_smoke.py phase 11a's shapes of the
-# heads read in place (hidden 800 over 16 heads, 804 over 12, 1040 over
-# 8), the same widths rounded to 8 (what the parent's general f32 instance
-# cost at a width its 16-byte copies read), hidden 800 over 8 heads, and
-# the flagship's.
-TIMED = [(name, 20, h, 360, 360, d) for name in ("bf16", "f32")
+# A bf16 source's library also takes the other two bf16 sources.
+BF16_SOURCES = ("attention.cu", "attention_stream.cu", "attention_pairs.cu")
+
+# (dtype name, B, H, Nq, Nk, D, layout): chip_smoke.py phase 11a's shapes
+# of the heads read in place (hidden 800 over 16 heads, 804 over 12, 1040
+# over 8), the same widths rounded to 8 (what the parent's general f32
+# instance cost at a width its 16-byte copies read), hidden 800 over 8
+# heads, the flagship's, and the 84-over-80 view (tma_pairs).
+TIMED = [(name, 20, h, 360, 360, d, "fused") for name in ("bf16", "f32")
          for h, d in ((16, 50), (12, 67), (12, 64), (16, 48), (10, 80),
-                      (8, 100))] + [("bf16", 20, 8, 360, 360, 130)]
-if os.environ.get("BRINGUP_TIMED"):  # e.g. "bf16:12:67,f32:16:50"
-    TIMED = [(n, 20, int(h), 360, 360, int(d)) for n, h, d in (
-        x.split(":") for x in os.environ["BRINGUP_TIMED"].split(","))]
+                      (8, 100))] + [("bf16", 20, 8, 360, 360, 130, "fused"),
+                                    ("bf16", 20, 10, 360, 360, 80, "rows84")]
+if os.environ.get("BRINGUP_TIMED"):  # e.g. "bf16:12:67,bf16:10:80:rows84"
+    TIMED = [(n, 20, int(h), 360, 360, int(d), (rest or ["fused"])[0])
+             for n, h, d, *rest in (
+                 x.split(":") for x in os.environ["BRINGUP_TIMED"].split(","))]
 
 
 def checked_shapes(only):
@@ -107,6 +112,19 @@ def checked_shapes(only):
                       for h in heads for nq in (360, 48)]
         cases += [("bf16", f"rows{st}", 2, 3, nq, 360, d)
                   for st, d in ((84, 80), (69, 67)) for nq in (360, 48)]
+        # tma_pairs (token rows 8 bytes past a 16-byte step every other
+        # row) at key counts that end either parity's run on a partial
+        # tile or leave the odd run one tile, and at frames of every slab
+        # mix: 67 over 12 and 4 heads (80 wide), 36 over 1 (48: narrow
+        # slabs only), 100 over 1 (112), 121 over 4 (128).  An odd key
+        # count puts the batch stride off the step: one batch.
+        cases += [("bf16", "fused", 2 - nk % 2, h, min(nq, nk), nk, d)
+                  for h, d in ((12, 67), (4, 67), (1, 36), (1, 100),
+                               (4, 121))
+                  for nk in (2, 3, 64, 65, 128, 129, 130, 361)
+                  for nq in (48, 360)]
+        cases += [("bf16", "rows84", 1, 3, nq, nk, 80)
+                  for nk in (129, 361) for nq in (48, 360)]
         # The last key count the resident kernel takes by its block's
         # copies, and the first past it (the streamed kernel on a
         # zero-padded copy).
@@ -140,8 +158,11 @@ def ptxas_report(log, tag):
             continue
         if "serialized" in line:
             fn = re.search(r"\d+(attention\w+?)EEEv", line)
+            why = re.search(r"(\(C\d+\)).*serialized (due to .*?) in the "
+                            r"function", line)
             print(f"{tag} ptxas: wgmma serialised in "
-                  f"{fn.group(1) if fn else '?'}: {line.split(':')[1]}")
+                  f"{fn.group(1) if fn else '?'}: "
+                  f"{' '.join(why.groups()) if why else line.strip()[-160:]}")
         elif name and "attention" in name and (
                 "Used" in line or ("spill" in line
                                    and " 0 bytes spill stores" not in line)):
@@ -159,17 +180,16 @@ def load(path):
 
 
 def build(sources, work):
-    """{name: (attention.cu text, include dir)} -> {name: library}, one
-    nvcc each, all at once."""
+    """{name: (source name, its text, include dir)} -> {name: library},
+    one nvcc each, all at once."""
     procs = {}
-    for name, (text, include) in sources.items():
+    for name, (source, text, include) in sources.items():
         path = os.path.join(work, f"{name}.cu")
         with open(path, "w") as f:
             f.write(text)
-        # The bf16 resident source calls the launches of the other two.
-        extra = ([os.path.join(include, f"attention_{part}.cu")
-                  for part in ("stream", "pairs")]
-                 if "return launch_bf16_stream(" in text else [])
+        # The bf16 sources call each other's launches.
+        extra = ([os.path.join(include, s) for s in BF16_SOURCES
+                  if s != source] if source in BF16_SOURCES else [])
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-I", include, "-shared",
              "-o", path[:-3] + ".so", path, *extra],
@@ -182,32 +202,6 @@ def build(sources, work):
         ptxas_report(log, name)
         libs[name] = load(os.path.join(work, f"{name}.so"))
     return libs
-
-
-def parent_kernel(lib, q, k, v, scale):
-    """The parent commit's bf16 kernel (its C entry: no routes) on views it
-    reads as they are (TMA's, a head dim a multiple of 8)."""
-    q, k, v, out = att._operands(q, k, v)
-    fn = lib.mint_attention_bf16
-    fn.argtypes = (_build._SIGNATURES["mint_attention_bf16"][:5]
-                   + _build._SIGNATURES["mint_attention_bf16"][6:])
-    strides = (ctypes.c_longlong * 12)(
-        *(st for t in (q, k, v, out) for st in t.stride()[:3]))
-    b, h, nq, d = q.shape
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             strides, b, h, nq, k.shape[2], d, float(scale),
-             torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"parent bf16 kernel: CUDA error {err}")
-    return out
-
-
-def parent_route(lib, q, k, v, scale):
-    """The parent commit's bf16 route for a view TMA could not address:
-    each of q, k and v copied into zero-padded rows (a multiple of 8
-    wide), then the kernel on the copies."""
-    return att._call(*(t if att._tma_ready(t) and t.shape[-1] % 8 == 0
-                       else att._tma_copy(t) for t in (q, k, v)), scale, lib)
 
 
 # Run in a process of its own, sys.argv[1] a tree: that tree's flagship
@@ -273,11 +267,11 @@ def main():
             if old not in text:
                 raise SystemExit(f"variant {name}: {old!r} not in the source")
             text = text.replace(old, new)
-        sources[name] = (text, _build.CSRC)
+        sources[name] = (source, text, _build.CSRC)
     if parent:
         csrc = os.path.join(os.path.abspath(parent), "mint_tpu_torch", "csrc")
-        sources["parent"] = (open(os.path.join(csrc, "attention.cu")).read(),
-                             csrc)
+        sources["parent"] = ("attention.cu", open(os.path.join(
+            csrc, "attention.cu")).read(), csrc)
     t0 = time.perf_counter()
     others = build(sources, work)
     print(f"variants built in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -311,21 +305,18 @@ def main():
     if "--check-only" in args:
         return
 
-    for name, b, h, nq, nk, d in TIMED:
+    for name, b, h, nq, nk, d, layout in TIMED:
         if only not in ("all", name):
             continue
         dtype = torch.bfloat16 if name == "bf16" else torch.float32
-        q, k, v = cs._qkv("fused", b, h, nq, nk, d, dtype, gen)
+        q, k, v = cs._qkv(layout, b, h, nq, nk, d, dtype, gen)
         repo = libs["repo"]
         runs = {"repo": lambda: att._call(q, k, v, cs.SCALE, repo)}
         if name == "bf16":
             routes = [att.bf16_route(t) for t in (q, k, v)]
-            if set(routes) != {"tma_view"}:
-                runs["parent_route"] = lambda: parent_route(repo, q, k, v,
-                                                            cs.SCALE)
-            elif "parent" in others:
-                runs["parent"] = lambda: parent_kernel(others["parent"], q,
-                                                       k, v, cs.SCALE)
+            if "parent" in others:
+                runs["parent"] = lambda: att._call(q, k, v, cs.SCALE,
+                                                   others["parent"])
             if att.bf16_resident(d, nk) and "copies" not in routes:
                 runs["copies_route"] = lambda: att._call(
                     q, k, v, cs.SCALE, repo, ["copies"] * 3)
@@ -337,7 +328,8 @@ def main():
             routes = ""
             for lname, lib in list(libs.items()) + [
                     ("parent", others.get("parent"))]:
-                if lib is not None and lname.startswith(("f32", "parent")):
+                if (lname.startswith(("f32", "parent"))
+                        and hasattr(lib, "mint_attention_f32")):
                     runs[lname] = (lambda lib=lib: att._call(
                         q, k, v, cs.SCALE, lib))
         order = list(runs.items())
@@ -349,7 +341,7 @@ def main():
                                                  dtype.itemsize), name)
         kernels = ", ".join(f"{n} {first[n]:.4f} / {second[n]:.4f}"
                             for n, _ in order)
-        print(f"time {name} q[{b},{h},{nq},{d}] k[..,{nk},{d}] "
+        print(f"time {name} q[{b},{h},{nq},{d}] k[..,{nk},{d}] {layout} "
               f"{'/'.join(routes)} ms: {kernels}; plain {t_p:.4f}; bound "
               f"{b_ms:.4f} ({b_by}) ({card})", flush=True)
 

@@ -5,14 +5,14 @@ commit's.
 
 1. Builds ``mint_tpu_torch/csrc`` and prints, for each MLP kernel
    instance, ptxas's registers and spills; the build's seconds.
-2. Builds ``csrc/mlp.cu`` and ``csrc/mlp_routes.cu`` alone (their
-   seconds), each entry of ``VARIANTS`` (those sources with a few lines
-   changed: the alternatives the kernel was measured against) and, given
-   ``--parent DIR`` (a checkout of another commit, e.g. ``git archive
-   HEAD`` unpacked), that tree's MLP sources, each into a library of its
-   own run through its tree's own wrapper (``ops/mlp.py``, its library
-   swapped in): the parent's route pads the operands TMA cannot address,
-   then launches its kernel.
+2. Builds the MLP sources (``csrc/mlp.cu``, ``mlp_routes.cu``,
+   ``mlp_phases.cu``) alone (their seconds), each entry of ``VARIANTS``
+   (those sources with a few lines changed: the alternatives the kernel
+   was measured against) and, given ``--parent DIR`` (a checkout of
+   another commit with the same C entry, e.g. ``git archive HEAD``
+   unpacked), that tree's MLP sources, each into a library of its own run
+   through its tree's own wrapper (``ops/mlp.py``, its library swapped
+   in), so that the parent's plan loads each operand its own way.
 3. Checks the kernel against ``mlp_reference`` at ``CHECKED`` (every
    column tile and every load of ``ops.mlp.bf16_plan``: widths off the
    16-byte step, K tails inside a k-tile, odd outputs, bases off 16
@@ -22,7 +22,8 @@ commit's.
    10 times: the device kernels a call and each one's time, for this tree
    and the parent.
 5. Times the ``TIMED`` shapes by CUDA events (``chip_smoke.cuda_ms``) in
-   turns, this tree, the variants (where an operand is off TMA) and the
+   turns, this tree, the variants and this tree's other routes (where a
+   TIMED shape takes the load they change: ``TIMED_WHERE``) and the
    parent, then again in reverse order, beside the plain version and the
    bound.
 
@@ -57,10 +58,12 @@ from mint_tpu_torch.ops import mlp  # noqa: E402
 # 1608 bytes: fc1 on tma_pairs; fc2's 208-column tiles) at the decode's M
 # of batch 20 and 4, the split fc2 at M = 960 and split fc1 at M = 480,
 # 192 and 48 (batch 4's and 1's small blocks), MLP width 3080 (200-column
-# fc1 tiles), 3070 (W2^T's rows 4 bytes past a step: staged), O = 801 (odd:
-# single stores), odd H (staged at a 2-byte phase), and the layouts: x on
-# a base 2 bytes past 16 ("x_off2"), x a view of rows H + 1 apart
-# ("x_rows"): staged.
+# fc1 tiles), 3070, 3068, 3066 and 3071 (W2^T's rows in 4, 2, 4 and 8
+# phases off the step: fc2 on tma_phases, at M = 960 split over K), O =
+# 801 (odd: single stores), odd H (staged at a 2-byte phase), fewer of
+# W2^T's rows than phases (O = 5 at F = 69), and the layouts: x on a base
+# 2 bytes past 16 ("x_off2"), x a view of rows H + 1 apart ("x_rows"):
+# staged.
 C = "contiguous"
 CHECKED = [
     (7200, 800, 3072, 800, C), (960, 800, 3072, 800, C),
@@ -69,11 +72,13 @@ CHECKED = [
     (480, 804, 3072, 804, C), (192, 804, 3072, 804, C),
     (48, 804, 3072, 804, C),
     (7200, 800, 3080, 800, C), (1440, 800, 3080, 800, C),
-    (7200, 800, 3070, 800, C), (7200, 800, 3072, 801, C),
+    (7200, 800, 3070, 800, C), (960, 800, 3070, 800, C),
+    (7200, 800, 3068, 800, C), (960, 800, 3066, 800, C),
+    (7200, 800, 3071, 800, C), (7200, 800, 3072, 801, C),
     (960, 800, 3071, 801, C), (7200, 800, 3072, 800, "x_off2"),
     (960, 804, 3072, 804, "x_off2"), (1440, 804, 3072, 804, "x_rows"),
     (257, 36, 100, 33, C), (300, 40, 3070, 24, C), (129, 33, 70, 17, C),
-    (129, 33, 70, 17, "x_off2"), (3, 8, 8, 2, C),
+    (129, 33, 70, 17, "x_off2"), (3, 8, 8, 2, C), (64, 40, 69, 5, C),
     (600, 1040, 4160, 1040, C),
 ]
 # The rows chip_smoke.py phase 11a times, and the flagship's decode rows.
@@ -82,7 +87,8 @@ TIMED = [
     (7200, 804, 3072, 804, C), (1440, 804, 3072, 804, C),
     (960, 804, 3072, 804, C), (192, 804, 3072, 804, C),
     (7200, 800, 3080, 800, C), (1440, 800, 3080, 800, C),
-    (7200, 800, 3070, 800, C),
+    (7200, 800, 3070, 800, C), (7200, 800, 3068, 800, C),
+    (960, 800, 3070, 800, C), (7200, 800, 3071, 800, C),
     (7200, 800, 3072, 801, C), (7200, 800, 3072, 800, "x_off2"),
 ]
 
@@ -126,7 +132,8 @@ VARIANTS = {
 # The load a run other than this tree's and the parent's is timed where a
 # TIMED shape takes (None: at every shape).
 TIMED_WHERE = {"producer_warp": "staged", "act_ld8": None,
-               "pairs_one_split": "tma_pairs", "staged": "tma_pairs"}
+               "pairs_one_split": "tma_pairs", "staged": "tma_pairs",
+               "w2_staged": "tma_phases"}
 
 
 def build_alone(sources, work):
@@ -158,12 +165,9 @@ def wrapper(tree, so):
     the library `so` (built from that tree's mlp.cu, or a variant of it):
     its fused_mlp runs that library through that tree's own route."""
     lib = ctypes.CDLL(so)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    new_abi = tree == REPO
-    lib.mint_mlp_bf16.argtypes = (_build._SIGNATURES["mint_mlp_bf16"]
-                                  if new_abi else [p] * 7 + [i] * 4 + [p])
-    lib.mint_mlp_bf16.restype = i
-    lib.mint_mlp_bf16_scratch.argtypes = [i] * (7 if new_abi else 4)
+    lib.mint_mlp_bf16.argtypes = _build._SIGNATURES["mint_mlp_bf16"]
+    lib.mint_mlp_bf16.restype = ctypes.c_int
+    lib.mint_mlp_bf16_scratch.argtypes = [ctypes.c_int] * 7
     lib.mint_mlp_bf16_scratch.restype = ctypes.c_longlong
 
     def check(err, what):
@@ -228,7 +232,7 @@ def main():
     work = os.path.join(_build.BUILD_DIR, "variants")
     os.makedirs(work, exist_ok=True)
     # This tree's MLP sources (a variant patches whichever holds its text).
-    mine = [n for n in ("mlp.cu", "mlp_routes.cu")
+    mine = [n for n in ("mlp.cu", "mlp_routes.cu", "mlp_phases.cu")
             if os.path.exists(os.path.join(_build.CSRC, n))]
     sources = {"repo": ([os.path.join(_build.CSRC, n) for n in mine],
                         _build.CSRC)}
@@ -249,16 +253,20 @@ def main():
         tree = os.path.abspath(parent)
         csrc = os.path.join(tree, "mint_tpu_torch", "csrc")
         sources["parent"] = ([os.path.join(csrc, n) for n in (
-            "mlp.cu", "mlp_routes.cu") if os.path.exists(
+            "mlp.cu", "mlp_routes.cu", "mlp_phases.cu") if os.path.exists(
             os.path.join(csrc, n))], csrc)
     built = build_alone(sources, work)
     for name in VARIANTS:
         runs[name] = wrapper(REPO, built[name]).fused_mlp
-    # This tree's kernel with fc1 staged where it would take tma_pairs, and
-    # with the activation's rows F rounded up to 8 apart, not 64.
+    # This tree's kernel with fc1 staged where it would take tma_pairs, W2^T
+    # staged where it would take tma_phases, and with the activation's rows
+    # F rounded up to 8 apart, not 64.
     staged = wrapper(REPO, built["repo"])
     staged._pairs = lambda t: False
     runs["staged"] = staged.fused_mlp
+    w2_staged = wrapper(REPO, built["repo"])
+    w2_staged._phases = lambda t: False
+    runs["w2_staged"] = w2_staged.fused_mlp
     act_ld8 = wrapper(REPO, built["repo"])
     act_ld8.ACT_STEP = 8
     runs["act_ld8"] = act_ld8.fused_mlp

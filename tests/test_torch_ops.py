@@ -425,6 +425,148 @@ def test_two_pass_bf16_attention_at_padded_widths_matches_jax(d, offset,
     _close_bf16(got, np.asarray(want.astype(jnp.float32)))
 
 
+def _shift4_lanes(x, delta):
+    """csrc/attention_pairs.cu's shift4 on fragment rows x [..., W] (W a
+    multiple of 8): lane t (0-3) of a row holds columns 8 n + 2 t and the
+    next of each group n; for delta 4 (column c takes c - 4's) it sends its
+    group n where t < 2, else its group n - 1 (zeros before the first),
+    groups from the last down; for -4 (c takes c + 4's) its group n + 1
+    where t < 2 (zeros past the last), else its group n, from the first up;
+    each lane takes lane t ^ 2's."""
+    groups = x.shape[-1] // 8
+    lanes = [[x[..., 8 * n + 2 * t:8 * n + 2 * t + 2].copy()
+              for n in range(groups)] for t in range(4)]
+    zero = np.zeros_like(lanes[0][0])
+    for n in (range(groups - 1, -1, -1) if delta > 0 else range(groups)):
+        if delta > 0:
+            send = [lanes[t][n] if t < 2 else
+                    (lanes[t][n - 1] if n > 0 else zero) for t in range(4)]
+        else:
+            send = [(lanes[t][n + 1] if n + 1 < groups else zero) if t < 2
+                    else lanes[t][n] for t in range(4)]
+        for t in range(4):
+            lanes[t][n] = send[t ^ 2]
+    out = np.empty_like(x)
+    for t in range(4):
+        for n in range(groups):
+            out[..., 8 * n + 2 * t:8 * n + 2 * t + 2] = lanes[t][n]
+    return out
+
+
+def _pairs_tiles(flat, base, st_n, st_h, heads, n, d, h, par, width):
+    """The 64-key tiles of head h of one parity's token rows (par) as
+    csrc/attention_tc.cuh's tc_pair_maps has TMA load them from a view of
+    `flat` (its [n, heads, d] rows st_n elements apart from element
+    `base`, heads st_h apart; `flat`'s start on a 16-byte step): the map
+    over every other row from row par, based 4 columns early where the
+    row starts 8 bytes past a step, columns past the last head's zeros;
+    the head's boxes `width` wide from the step at or before its first
+    column.  Returns (tiles, the head's column in them)."""
+    row0 = base + par * st_n
+    lag = 4 if row0 % 8 else 0
+    cols = lag + (heads - 1) * st_h + d
+    first = lag + h * st_h
+    c0 = first // 8 * 8
+    rows = list(range(par, n, 2))
+    tiles = []
+    for t0 in range(0, len(rows), 64):
+        tile = np.zeros((64, width), np.float32)
+        for i, r in enumerate(rows[t0:t0 + 64]):
+            for c in range(width):
+                if c0 + c < cols:
+                    tile[i, c] = flat[row0 - par * st_n + r * st_n - lag
+                                      + c0 + c]
+        tiles.append(tile)
+    return tiles, first - c0
+
+
+def _pairs_bf16_attention(buf, nq, scale):
+    """The bf16 kernel over tma_pairs views (csrc/attention_pairs.cu) in
+    f32 numpy on the model's fused QKV buffer [n, 3, heads, d] (bf16
+    values): per head, K's and V's tiles of the even token rows then the
+    odd ones (_pairs_tiles, frames of the head dim + 7 rounded up to 16);
+    Q's fragments at the even K tiles' frame, zeros outside the head,
+    moved to the odd tiles' frame by shift4 (_shift4_lanes) between the
+    runs and back after pass 1; pass 1 the running max and sum of exp2
+    over each tile's real keys, pass 2 P = exp2(s - max) / sum rounded to
+    bf16 and P.V accumulated in the even V tiles' frame, the accumulator
+    moved to the odd tiles' frame by shift4 between the runs and the odd
+    rows' products added; the output the head's columns of that frame,
+    rounded to bf16.  Returns [heads, nq, d]."""
+    n, _, heads, d = buf.shape
+    flat = buf.reshape(-1)
+    st_n, width = 3 * heads * d, -(-(d + 7) // 16) * 16
+    log2e = np.float32(1.4426950408889634)
+    ne = (n + 1) // 2
+    valid = ([min(64, ne - 64 * t) for t in range(-(-ne // 64))]
+             + [min(64, n - ne - 64 * t) for t in range(-(-(n - ne) // 64))])
+    out = np.zeros((heads, nq, d), np.float32)
+    for h in range(heads):
+        # (tiles, the head's column) of K's and V's even and odd rows
+        (ke, ko), (ve, vo) = (
+            [_pairs_tiles(flat, part * heads * d, st_n, d, heads, n, d, h,
+                          par, width) for par in (0, 1)] for part in (1, 2))
+        kt, vt = ke[0] + ko[0], ve[0] + vo[0]
+        te, dk, dv = len(ke[0]), ko[1] - ke[1], vo[1] - ve[1]
+        assert abs(dk) == abs(dv) == 4
+        q0 = np.zeros((nq, width), np.float32)
+        q0[:, ke[1]:ke[1] + d] = buf[:nq, 0, h]
+        qs = [q0 if t < te else _shift4_lanes(q0, dk)
+              for t in range(len(kt))]
+        m = np.full((nq, 1), -np.inf, np.float32)
+        l = np.zeros_like(m)
+        s = []
+        for t, tile in enumerate(kt):
+            st = (qs[t] @ tile.T) * np.float32(scale) * log2e
+            st[:, valid[t]:] = -np.inf
+            m_new = np.maximum(m, st.max(axis=-1, keepdims=True))
+            l = l * np.exp2(m - m_new) + np.exp2(st - m_new).sum(
+                axis=-1, keepdims=True)
+            m = m_new
+            s.append(st)
+        acc = np.zeros((nq, width), np.float32)
+        for t, tile in enumerate(vt):
+            if t == te:
+                acc = _shift4_lanes(acc, dv)
+            p = torch.from_numpy(np.exp2(s[t] - m) / l).bfloat16().float()
+            acc += p.numpy() @ tile
+        frame = vo[1] if len(vt) > te else ve[1]
+        out[h] = acc[:, frame:frame + d]
+    return torch.from_numpy(out).bfloat16().float().numpy()
+
+
+def test_shift4_moves_columns():
+    """shift4's lanes move a fragment row 4 columns either way, zeros in."""
+    x = RNG.standard_normal((3, 80)).astype(np.float32)
+    right = np.concatenate([np.zeros((3, 4), np.float32), x[:, :-4]], 1)
+    left = np.concatenate([x[:, 4:], np.zeros((3, 4), np.float32)], 1)
+    np.testing.assert_array_equal(_shift4_lanes(x, 4), right)
+    np.testing.assert_array_equal(_shift4_lanes(x, -4), left)
+
+
+@pytest.mark.parametrize("n", [129, 130])
+def test_pairs_bf16_attention_matches_pallas(n):
+    """The bf16 kernel over views whose token rows lie 8 bytes past a
+    16-byte step every other row (tma_pairs: hidden 804's fused QKV at
+    D = 67; here 4 heads, 804-element rows), emulated from the buffer's
+    bytes as TMA lays the tiles out (_pairs_bf16_attention), against the
+    Pallas kernel in bf16 (interpret mode) on each head's q, k and v, to 2
+    bf16 ulps of the output's peak; an odd key count (the odd rows' run a
+    tile shorter) and an even one, the heads lying both ways of their odd
+    rows' frame."""
+    heads, d = 4, 67
+    buf = torch.from_numpy(RNG.standard_normal((n, 3, heads, d)).astype(
+        np.float32)).bfloat16().float().numpy()
+    assert (3 * heads * d) % 8 == 4
+    views = [np.ascontiguousarray(buf[:, i].transpose(1, 0, 2))[None]
+             for i in range(3)]
+    want = jax_attention.pallas_attention(
+        *_jax(*views, dtype=jnp.bfloat16), 800 ** -0.5)
+    got = _pairs_bf16_attention(buf, n, 800 ** -0.5)[None]
+    assert got.shape == want.shape
+    _close_bf16(got, np.asarray(want.astype(jnp.float32)))
+
+
 def _online_softmax_attention(q, k, v, scale, tile):
     """The f32 CUDA kernel's arithmetic (csrc/attention.cu), in f32 numpy:
     one pass over tiles of `tile` keys (the kernel's are 32) with a running
@@ -636,6 +778,85 @@ def test_pairs_fc1_matches_pallas(m, h):
                                       approximate="tanh").numpy())
     got = bf(act @ w2 + b2)
     want = jax_mlp._fused_mlp_fwd_2d(*_jax(x, w1t.T, b1, w2, b2,
+                                           dtype=jnp.bfloat16),
+                                     interpret=True)
+    _close_bf16(got, np.asarray(want.astype(jnp.float32)))
+
+
+def _phases_fc2(act, w2t, b2, split):
+    """fc2 on tma_phases (csrc/mlp_phases.cu), emulated in f32 numpy: W2^T
+    [o, f] (rows f apart, f no multiple of 8, its base on a 16-byte step)
+    as P = 8 / gcd(f, 8) TMA maps, phase p over rows p, p + P, .. based
+    c_p = f p % 8 columns early, columns past f + c_p zeros; a block's
+    128 rows hold 128 / P of each phase's, tiles of 64 map columns, the
+    stage past a split's last k-tile W2^T's alone and a phase's tile there
+    not loaded (NaN here: stale shared memory) where its map ends before
+    it.  Each row's A fragments of k-tile i are its map columns
+    64 i + c_p .. from tiles i and i + 1, columns past f zero; the
+    transposed product c^T = W2^T act^T summed over each split's k-tiles
+    in order, the splits' sums in order, then b2."""
+    o, f = w2t.shape
+    m = act.shape[0]
+    flat = w2t.ravel()
+    P = 8 // np.gcd(f, 8)
+    ktiles = -(-f // 64)
+    per = -(-ktiles // split)
+    act = np.pad(act, ((0, 0), (0, 64 * ktiles - f)))  # TMA's zeros past f
+    out = np.zeros((m, o), np.float32)
+    for o0 in range(0, o, 128):
+        tiles = {}  # (phase, k-tile) -> [128 / P, 64]
+        for p in range(P):
+            cp = f * p % 8
+            for i in range(ktiles + 1):
+                tile = np.full((128 // P, 64), np.nan, np.float32)
+                if p < o and 64 * i < f + cp:
+                    tile[:] = 0
+                    for j in range(128 // P):
+                        row = o0 + p + P * j
+                        for c in range(64):
+                            col = 64 * i + c
+                            if row < o and col < f + cp:
+                                tile[j, c] = flat[row * f - cp + col]
+                tiles[p, i] = tile
+        total = np.zeros((min(128, o - o0), m), np.float32)
+        for z in range(split):
+            part = np.zeros_like(total)
+            for i in range(min(ktiles, z * per), min(ktiles, z * per + per)):
+                fr = np.zeros((len(total), 64), np.float32)
+                for r in range(len(total)):
+                    p, cp = r % P, f * (r % P) % 8
+                    both = np.concatenate([tiles[p, i][r // P],
+                                           tiles[p, i + 1][r // P]])
+                    live = min(64, f - 64 * i)
+                    fr[r, :live] = both[cp:cp + live]
+                part += fr @ act[:, 64 * i:64 * i + 64].T
+            total = part if z == 0 else total + part
+        out[:, o0:o0 + 128] = total.T + b2[o0:o0 + 128]
+    return out
+
+
+@pytest.mark.parametrize("f,o", [(66, 17), (68, 130), (70, 17), (69, 5)])
+@pytest.mark.parametrize("split", [1, 2])
+def test_phases_fc2_matches_pallas(f, o, split):
+    """The bf16 MLP's fc2 on tma_phases (csrc/mlp_phases.cu: MLP widths
+    no multiple of 8, W2^T's rows in 4, 2, 4 and 8 phases off the 16-byte
+    step), emulated (_phases_fc2) on fc1's rounded activation, split over
+    K or not, two blocks of W2^T's rows at o = 130 and fewer rows than
+    phases at o = 5, against the fused Pallas kernel in bf16 (interpret
+    mode), to 2 bf16 ulps of the output's peak."""
+    m, h = 40, 36
+    rng = np.random.default_rng(f + o)
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).bfloat16().float(
+        ).numpy()
+    x = bf(rng.standard_normal((m, h)))
+    w1 = bf(rng.standard_normal((h, f)) * 0.05)
+    b1 = bf(rng.standard_normal(f) * 0.01)
+    w2t = bf(rng.standard_normal((o, f)) * 0.05)
+    b2 = bf(rng.standard_normal(o) * 0.01)
+    act = bf(torch.nn.functional.gelu(torch.from_numpy(x @ w1 + b1),
+                                      approximate="tanh").numpy())
+    got = bf(_phases_fc2(act, w2t, b2, split))
+    want = jax_mlp._fused_mlp_fwd_2d(*_jax(x, w1, b1, w2t.T, b2,
                                            dtype=jnp.bfloat16),
                                      interpret=True)
     _close_bf16(got, np.asarray(want.astype(jnp.float32)))

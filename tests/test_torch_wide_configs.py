@@ -332,21 +332,26 @@ def _plan_of(h, f, o, x_offset=0):
     (804, 3080, 804, 0, (192, 208), ("tma_pairs", "tma_pairs", "tma",
                                      "tma")),
     (804, 3072, 804, 4, (192, 208), ("staged", "staged", "tma", "tma")),
-    (800, 3070, 801, 0, (192, 208), ("tma", "tma", "tma", "staged")),
+    (800, 3070, 801, 0, (192, 200), ("tma", "tma", "tma", "tma_phases")),
     (800, 3072, 800, 1, (192, 200), ("staged", "tma", "tma", "tma")),
     (800, 3072, 800, 4, (192, 200), ("staged", "tma", "tma", "tma")),
-    (33, 70, 17, 0, (192, 200), ("staged", "staged", "tma", "staged")),
+    (33, 70, 17, 0, (192, 200), ("staged", "staged", "tma", "tma_phases")),
+    (800, 3068, 800, 0, (192, 200), ("tma", "tma", "tma", "tma_phases")),
+    (800, 3071, 804, 0, (192, 200), ("tma", "tma", "tma", "tma_phases")),
 ])
 def test_bf16_plan(h, f, o, x_offset, tiles, loads):
     """The bf16 kernel's plan: each pass takes the fewest column tiles its
     instances allow, the flagship's width on a tie (F = 3072 and 3080 in
     16 tiles, of 192 and 200; O = 800 and 804 in 4, of 200 and 208; a
     width over the tile, as 3080 over 192, would take a 17th tile a few
-    columns wide; fc1 on tma_pairs takes 192 alone), each operand the load
-    its base and row stride allow (TMA on 16-byte steps; hidden 804's x and
-    W1^T, rows 8 bytes past a step, as two TMA maps of every other row,
-    tma_pairs, where both are; else staged), the activation TMA's at a row
-    stride of F rounded up to 64 (rows on 128-byte lines)."""
+    columns wide; fc1 on tma_pairs takes 192 alone, fc2 on tma_phases 200
+    of the activation's rows), each operand the load its base and row
+    stride allow (TMA on 16-byte steps; hidden 804's x and W1^T, rows 8
+    bytes past a step, as two TMA maps of every other row, tma_pairs, where
+    both are; W2^T at an MLP width no multiple of 8, its rows off the step
+    from a base on one, as a TMA map a row phase, tma_phases; else staged),
+    the activation TMA's at a row stride of F rounded up to 64 (rows on
+    128-byte lines)."""
     plan = _plan_of(h, f, o, x_offset)
     assert plan.tiles == tiles and plan.loads == loads
     assert plan.act_ld == -(-f // 64) * 64
