@@ -124,9 +124,11 @@ CPU):
    head dims 130, 256, 50, 67 and 64 (q[20,H,360,D], the model's fused
    QKV views, read in place) and at 65540 (batch, head) pairs
    (q[6554,10,48,80] against 120 keys), bf16 on views of rows TMA cannot
-   step over (84 elements apart, over 80 columns); one bf16 call on the
-   model's views at D = 50, 67 and 130 making one device kernel, as
-   torch.profiler records it; the MLP at F = 3070
+   step over (84 elements apart, over 80 columns), and heads past the
+   width where Q stays in shared memory (q[2,4,360,D], the model's views:
+   f32 D = 1032 and 2048, bf16 1360 and 2048); one bf16 call on the
+   model's views at D = 50, 67, 130, 1360 and 2048 making one device
+   kernel, as torch.profiler records it; the MLP at F = 3070
    (f32) and 3080 (bf16) and at H = O = 804, and in bf16 at F = 3070, O =
    801, x on a base 2 bytes past 16 and H = O = 804 at M = 960 (split
    K): every operand read where it lies, one bf16 call at H = 804 and F
@@ -2816,8 +2818,11 @@ def last_modules(work, run_dir, native_counts, rates, card):
 # one grid takes (65540); q[20,12,360,64], the width hidden 804's heads
 # would have at a multiple of 8; and views of rows 84 elements apart over
 # 80 columns (every other row 8 bytes past a 16-byte step: tma_pairs, as
-# hidden 804's D = 67 views).  Each the model's fused QKV views but the
-# last, layout "rows84".
+# hidden 804's D = 67 views); and heads past the width where Q stays in
+# shared memory (f32 1016, bf16 1344: Q's rows stream with K, the f32
+# scores summed over head-dim slices, the bf16 Q chunks through the ring),
+# at 1032 (f32), 1360 (bf16) and 2048 (both).  Each the model's fused QKV
+# views but the "rows84" one.
 WIDE_ATTENTION = [(("bf16",), 20, 10, 1320, 1320, 80),
                   (("bf16",), 20, 10, 48, 1320, 80),
                   (("bf16",), 20, 8, 720, 720, 128)] + [
@@ -2825,7 +2830,10 @@ WIDE_ATTENTION = [(("bf16",), 20, 10, 1320, 1320, 80),
     for h, d in ((8, 130), (4, 192), (4, 256), (4, 264), (16, 50),
                  (12, 67), (12, 64))] + [
     (("f32", "bf16"), 6554, 10, 48, 120, 80),
-    (("bf16",), 20, 10, 360, 360, 80, "rows84")]
+    (("bf16",), 20, 10, 360, 360, 80, "rows84"),
+    (("f32",), 2, 4, 360, 360, 1032),
+    (("bf16",), 2, 4, 360, 360, 1360),
+    (("f32", "bf16"), 2, 4, 360, 360, 2048)]
 # (dtype names, M, H, F, O[, x's layout]) of the fused MLP: F no multiple
 # of 8 (f32) or of fc1's 192-column tile (bf16: 16 tiles of 200), H = O =
 # 804 (bf16: rows 8 bytes past a 16-byte step every other row, fc1 on
@@ -2895,9 +2903,17 @@ def wide_kernels(att, mlp, ln, gen, card):
     """11a: each kernel at the shapes of WIDE_ATTENTION, WIDE_MLP and
     WIDE_LN against its plain version, at phase 2's tolerance for its
     dtype, timed beside its plain version, its bound and, where one
-    PyTorch call computes it, that call.  Returns {(kernel, dtype name):
-    {shape: row}}."""
+    PyTorch call computes it, that call (attention past 256 columns:
+    SDPA's math backend, the one that takes such heads).  Returns
+    {(kernel, dtype name): {shape: row}}."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def sdpa(q, k, v, d):
+        if d <= 256:
+            return F.scaled_dot_product_attention(q, k, v, scale=SCALE)
+        with sdpa_kernel(SDPBackend.MATH):
+            return F.scaled_dot_product_attention(q, k, v, scale=SCALE)
 
     rows = {}
     for names, b, h, nq, nk, d, *layout in WIDE_ATTENTION:
@@ -2918,10 +2934,10 @@ def wide_kernels(att, mlp, ln, gen, card):
                 f"attention {name}", shape, err, err <= tol, f"{tol:.3e}",
                 cuda_ms(lambda: att.attention(q, k, v, SCALE), 5),
                 cuda_ms(lambda: att.attention_reference(q, k, v, SCALE), 3),
-                cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, scale=SCALE), 5),
+                cuda_ms(lambda: sdpa(q, k, v, d), 5),
                 attention_work(b, h, nq, nk, d, dtype.itemsize), name, card,
-                "scaled_dot_product_attention")
+                "scaled_dot_product_attention" + (
+                    " (math backend)" if d > 256 else ""))
             del q, k, v
             torch.cuda.empty_cache()
     for names, m, hid, f, o, *layout in WIDE_MLP:
@@ -2973,16 +2989,18 @@ def wide_kernels(att, mlp, ln, gen, card):
 def one_kernel_a_call(att, gen, card):
     """11a: one bf16 attention call on the model's fused QKV views at head
     dims 50, 67 and 130 (hidden 800 over 16 heads, 804 over 12, 1040 over
-    8; batch 20, 360 queries) runs exactly one device kernel, as
-    torch.profiler records it: the kernel reads the heads where they lie
-    (a route that copied them into zero-padded rows ran seven: a fill and
-    a copy of each of q, k and v, then the kernel).  Returns {D: kernels}."""
+    8; batch 20, 360 queries), and at 1360 and 2048 (4 heads, batch 2: Q's
+    chunks through the streamed kernel's ring) runs exactly one device
+    kernel, as torch.profiler records it: the kernel reads the heads where
+    they lie (a route that copied them into zero-padded rows ran seven: a
+    fill and a copy of each of q, k and v, then the kernel).  Returns {D:
+    kernels}."""
     from torch.profiler import ProfilerActivity, profile
 
     counts = {}
-    for h, d in ((16, 50), (12, 67), (8, 130)):
-        q, k, v = _qkv("fused", DISPATCH, h, 360, 360, d, torch.bfloat16,
-                       gen)
+    for b, h, d in ((DISPATCH, 16, 50), (DISPATCH, 12, 67),
+                    (DISPATCH, 8, 130), (2, 4, 1360), (2, 4, 2048)):
+        q, k, v = _qkv("fused", b, h, 360, 360, d, torch.bfloat16, gen)
         att.attention(q, k, v, SCALE)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -2992,7 +3010,7 @@ def one_kernel_a_call(att, gen, card):
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
         counts[d] = len(names)
-        log(f"attention bf16 q[{DISPATCH},{h},360,{d}] on the model's views "
+        log(f"attention bf16 q[{b},{h},360,{d}] on the model's views "
             f"({', '.join(att.bf16_route(t) for t in (q, k, v))}): "
             f"{len(names)} device kernel(s) a call, want 1: "
             f"{[n[:60] for n in names]} ({card})")

@@ -88,8 +88,11 @@
 //   Heads over 256 run output chunks of at most 256 columns on the grid's
 //   z axis: every block computes the scores over all the chunks of Q and
 //   K (each chunk of a K tile a load of the ring) and P.V over its own
-//   chunk of V; Q's chunks all stay resident, up to a head of 1344
-//   columns.  No config reaches that, but the JAX kernel takes it.
+//   chunk of V; Q's chunks all stay resident up to a frame of 1344
+//   columns.  Past it Q's chunks ride the ring with K's (kQRing): a slot
+//   holds chunk c of each consumer's Q tile and of a K tile, so no head is
+//   too wide; Q is then read again for every key tile.  No config reaches
+//   that, but the JAX kernel takes it.
 //   The ring's waits trap after ~2^24 polls instead of hanging the card.
 //
 // Both kernels put the (batch, head) pairs on the grid's y axis, at most

@@ -57,8 +57,17 @@
 //   a 256-thread block may take (ptxas: 238).  Past 256 columns the
 //   grid's z axis cuts the output into chunks of at most 256 (each block
 //   still computes every score over the whole head) and the block takes as
-//   many warps as fit, down to one: heads of up to 1016 columns
-//   (ops/attention.py's MAX_HEAD_DIM).
+//   many warps as fit, down to one, whose rows of Q fit up to a head of
+//   1016 columns (ops/attention.py's RESIDENT_Q_MAX_HEAD_DIM).
+// - f32, wider heads (attention_sliced_kernel): no width is refused.
+//   The same online softmax and P.V over output chunks on z, but neither Q
+//   nor a K tile is held whole: each 32-key tile's scores are summed in
+//   registers over 128-column slices of the head dim, Q's rows and the K
+//   tile's over one slice a stage, two stages in flight by cp.async (slice
+//   s + 1 lands while slice s is summed; V(t) with the tile's first
+//   slice).  Q's rows are read again for every key tile (from L2: one
+//   head's Q is at most 128 rows a block).  8 warps: two stages of 128 + 32
+//   rows of 132 floats, a V tile over a 256-column chunk and P take 217 KB.
 //
 // The kernels put the (batch, head) pairs on the grid's y axis, at most
 // 65535 a launch; the C entry points launch as many times as B * H needs,
@@ -76,6 +85,12 @@ constexpr int kKTile = 32;     // keys per K and V tile
 constexpr int kLdP = kKTile + 4;  // P row: (stride / 4) odd, as in tile_ld
 constexpr int kWideMaxWarps = 8;  // warps a block of attention_wide_kernel
 constexpr int kWideMaxD = 256;    // output columns a block of it owns
+constexpr int kSliceD = 128;      // head-dim columns a slice (sliced kernel)
+// The widest head attention_wide_kernel takes: up to it one warp's rows of
+// Q fit beside the tiles at every width (ops/attention.py's
+// RESIDENT_Q_MAX_HEAD_DIM; a few wider ones would fit at one warp, where
+// a narrower output chunk leaves room, but 16 rows a block).
+constexpr int kWideResidentMaxD = 1016;
 
 // Floats per row of a Q, K or V tile in shared memory: the head dim
 // rounded up to a float4, padded so that (stride / 4) is odd: eight rows
@@ -98,6 +113,14 @@ size_t wide_smem_bytes(int d, int dc, int warps) {
          ((size_t)(kWarpRows * warps + kKTile) * tile_ld(d) +
           (size_t)kKTile * tile_ld(dc) +
           (size_t)warps * kWarpRows * (kLdP + 2));
+}
+
+// attention_sliced_kernel: two stages of Q's rows and a K tile over one
+// slice, a V tile over the dc columns of the block's output chunk, and P.
+size_t sliced_smem_bytes(int dc, int warps) {
+  return sizeof(float) *
+         (2 * (size_t)(kWarpRows * warps + kKTile) * tile_ld(kSliceD) +
+          (size_t)kKTile * tile_ld(dc) + (size_t)warps * kWarpRows * (kLdP + 2));
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -548,6 +571,134 @@ __global__ void __launch_bounds__(32 * kWideMaxWarps)
                  nq, dcz, vec ? 16 : 4, sr, sc, pr, pq);
 }
 
+// The columns [0, w) of rows [r0, r0 + rows) of an [n, *] matrix whose
+// rows are `stride` elements apart into dst[rows][ld], and zeros in the
+// columns w .. 4 ceil(w / 4) and in rows past n.  vec: 16-byte copies (w,
+// the stride and the base multiples of 4 floats), else 4-byte ones.
+__device__ __forceinline__ void load_slice(float* dst, int ld,
+                                           const float* src, long long stride,
+                                           int r0, int rows, int n, int w,
+                                           bool vec) {
+  if (vec) {
+    load_rows(dst, ld, src, stride, r0, rows, n, w, true);
+    return;
+  }
+  const int wp = (w + 3) / 4 * 4;
+  for (int i = threadIdx.x; i < rows * wp; i += blockDim.x) {
+    const int r = i / wp;
+    const int c = i - r * wp;
+    const bool ok = r0 + r < n && c < w;
+    mint::cp_async4(dst + r * ld + c, ok ? src + (r0 + r) * stride + c : src,
+                    ok);
+  }
+}
+
+// Heads past attention_wide_kernel's shared memory: one block per (batch*
+// head bh0 + blockIdx.y, 16 * warps query rows, output chunk blockIdx.z of
+// dc columns).  Its schedule and arithmetic, with each 32-key tile's
+// scores summed over slices of kSliceD head-dim columns: stage g (key tile
+// g / slices, slice g % slices) holds Q's rows and the K tile over that
+// slice, in buffer g % 2; stage g + 1 is in flight while stage g is
+// summed, V(t) from the tile's first stage on.  The scores of a slice are
+// exact: its columns past d are zeros in Q and K.
+template <int NQ>
+__global__ void __launch_bounds__(32 * kWideMaxWarps)
+    attention_sliced_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            float* __restrict__ out, Strides qs_,
+                            Strides ks_, Strides vs_, Strides os_, int heads,
+                            int nq, int nk, int d, int dc, float scale,
+                            bool vec, long long bh0) {
+  extern __shared__ float4 smem4[];
+  const int ld = tile_ld(kSliceD), ldv = tile_ld(dc);
+  const int dc4 = (dc + 3) / 4;
+  const int warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int rows = kWarpRows * warps;
+  const int stage = (rows + kKTile) * ld;  // Q's rows, then the K tile
+  float* st0 = reinterpret_cast<float*>(smem4);  // [2][stage]
+  float* vs = st0 + 2 * stage;                   // [kKTile][ldv]
+  float* ps = vs + kKTile * ldv + warp * kWarpRows * (kLdP + 2);
+  float* alpha_s = ps + kWarpRows * kLdP;
+  float* l_s = alpha_s + kWarpRows;
+
+  const long long bh = bh0 + blockIdx.y;
+  const int b = (int)(bh / heads), h = (int)(bh % heads);
+  const int q0 = blockIdx.x * rows;
+  const int c0 = blockIdx.z * dc;  // this block's output columns
+  const int dcz = min(dc, d - c0);
+  const float* qh = q + b * qs_.b + h * qs_.h;
+  const float* kh = k + b * ks_.b + h * ks_.h;
+  const float* vh = v + b * vs_.b + h * vs_.h + c0;
+  const int slices = (d + kSliceD - 1) / kSliceD;
+  const int total = slices * ((nk + kKTile - 1) / kKTile);
+  auto load_stage = [&](int g) {
+    const int col = kSliceD * (g % slices), w = min(kSliceD, d - col);
+    float* qs = st0 + (g % 2) * stage;
+    load_slice(qs, ld, qh + col, qs_.n, q0, rows, nq, w, vec);
+    load_slice(qs + rows * ld, ld, kh + col, ks_.n, kKTile * (g / slices),
+               kKTile, nk, w, vec);
+  };
+  load_stage(0);
+  mint::cp_async_commit();
+
+  const int sr = lane / 8, sc = lane % 8;
+  const int pr = lane / 4, pq = lane % 4;
+  float m[4], lsum[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    lsum[i] = 0.f;
+  }
+  float4 acc[2][NQ];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int u = 0; u < NQ; ++u) acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  constexpr int kJ = kKTile / 8;
+  int g = 0;
+  for (int k0 = 0; k0 < nk; k0 += kKTile) {
+    float s[4][kJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) s[i][j] = 0.f;
+    for (int sl = 0; sl < slices; ++sl, ++g) {
+      // Stage g has landed for every thread, and every warp is done with
+      // stage g - 1 (and, on a tile's first slice, with V(t - 1)).
+      mint::cp_async_wait<0>();
+      __syncthreads();
+      if (sl == 0) load_rows(vs, ldv, vh, vs_.n, k0, kKTile, nk, dcz, vec);
+      if (g + 1 < total) load_stage(g + 1);
+      mint::cp_async_commit();
+      const float* qs = st0 + (g % 2) * stage;
+      const float* qw = qs + (warp * kWarpRows + sr) * ld;
+      const float* kt = qs + (rows + sc) * ld;
+      const int w = min(kSliceD, d - kSliceD * sl);
+      if (w == kSliceD)
+        scores_fma<kJ>(s, qw, kt, ld, kSliceD / 4);
+      else
+        scores_fma<kJ>(s, qw, kt, ld, (w + 3) / 4);
+    }
+    const int valid = nk - k0;
+    softmax_tile<kJ>(s, m, lsum, ps, alpha_s, sr, sc, valid, scale);
+
+    // V(t) has landed, and every warp has written its P.
+    mint::cp_async_wait<0>();
+    __syncthreads();
+    pv_fma<NQ, false>(acc, ps, alpha_s, vs, ldv, pr, pq,
+                      (min(kKTile, valid) + 3) & ~3, dc4);
+  }
+
+  const int row0 = q0 + warp * kWarpRows;
+  write_rows<NQ>(acc, lsum, l_s,
+                 out + b * os_.b + h * os_.h + row0 * os_.n + c0, os_.n, row0,
+                 nq, dcz, vec ? 16 : 4, sr, sc, pr, pq);
+}
+
 int launch_f32(const void* q, const void* k, const void* v, void* out,
                const long long* st, int batch, int heads, int nq, int nk,
                int d, float scale, void* stream) {
@@ -579,11 +730,20 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
     // allow; up to kWideMaxWarps warps, as many as fit in shared memory.
     const int chunks = (d + kWideMaxD - 1) / kWideMaxD;
     const int dc = ((d + chunks - 1) / chunks + 3) / 4 * 4;
+    // Q resident (attention_wide_kernel) up to kWideResidentMaxD, else the
+    // sliced kernel.
     warps = min(kWideMaxWarps, (nq + kWarpRows - 1) / kWarpRows);
-    while (warps > 1 && wide_smem_bytes(d, dc, warps) > kSmemLimit) --warps;
-    const size_t smem = wide_smem_bytes(d, dc, warps);
+    const bool sliced = d > kWideResidentMaxD;
+    auto bytes = [&](int w) {
+      return sliced ? sliced_smem_bytes(dc, w) : wide_smem_bytes(d, dc, w);
+    };
+    while (warps > 1 && bytes(warps) > kSmemLimit) --warps;
+    const size_t smem = bytes(warps);
     if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-    auto kernel = dc <= 144   ? attention_wide_kernel<9>
+    auto kernel = sliced ? (dc <= 144   ? attention_sliced_kernel<9>
+                            : dc <= 192 ? attention_sliced_kernel<12>
+                                        : attention_sliced_kernel<16>)
+                  : dc <= 144 ? attention_wide_kernel<9>
                   : dc <= 192 ? attention_wide_kernel<12>
                               : attention_wide_kernel<16>;
     cudaError_t err = cudaFuncSetAttribute(

@@ -68,33 +68,15 @@ __device__ __forceinline__ void shift4(At at, int delta) {
   }
 }
 
-// Pins registers where they were written (empty asm that reads and
-// writes each): the compiler may otherwise move a shift's writes into the
-// next product's pipeline stage, or its reads above the last wgmma_wait.
-template <int N>
-__device__ __forceinline__ void keep(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
-}
-template <int N, int M>
-__device__ __forceinline__ void keep(float (&r)[N][M]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < M; ++e) asm volatile("" : "+f"(r[i][e])::"memory");
-}
-
 // Q's fragments (wgmma_rs's A: k-step kk's a[2 j + r] hold columns
 // 16 kk + 8 j + 2 t and the next of row g + 8 r) moved `delta` columns.
 template <int N>
 __device__ __forceinline__ void shift_q(uint32_t (&qf)[N][4], int delta) {
-  keep(qf);
+  mint::keep(qf);
   shift4<2 * N, 2, uint32_t>(
       [&](int n, int r) -> uint32_t& { return qf[n / 2][2 * (n % 2) + r]; },
       delta);
-  keep(qf);
+  mint::keep(qf);
 }
 
 // Value i (rows g, g + 8 by i / 2; columns 2 t + i % 2) of 8-column
@@ -119,13 +101,13 @@ __device__ __forceinline__ void shift_acc(
     float (&ow)[TcTile<D>::kWide ? TcTile<D>::kWide : 1][32],
     float (&on)[TcTile<D>::kNarrow ? TcTile<D>::kNarrow : 1][8],
     int delta) {
-  keep(ow);
-  keep(on);
+  mint::keep(ow);
+  mint::keep(on);
   shift4<D / 8, 4, float>(
       [&](int n, int i) -> float& { return acc_ref<D>(ow, on, n, i); },
       delta);
-  keep(ow);
-  keep(on);
+  mint::keep(ow);
+  mint::keep(on);
 }
 
 // Tiles past 80 columns hold more registers a thread than the 128 that two

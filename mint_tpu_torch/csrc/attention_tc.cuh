@@ -29,6 +29,10 @@ constexpr int kStreamMaxSlots = 8;
 constexpr int kStreamMaxWgs = 3;
 constexpr int kStreamWideW = 96;
 constexpr int kStreamProducer = 32;  // the producer warp's threads
+// The narrowest chunk of a frame whose Q tiles and two ring slots do not
+// fit (over 1344 columns: 6 chunks of at least 224), where Q rides the
+// ring (attention_stream.cu's kQRing).
+constexpr int kStreamQRingW = 224;
 
 // A K, V or Q tile in shared memory (64 rows): the head dim in 64-column
 // slabs with the 128-byte swizzle (rows of 128 bytes), then 16-column slabs
@@ -362,16 +366,17 @@ __device__ __forceinline__ void row_stats(float (&m)[2], float (&l)[2],
 }
 
 // Columns col and col + 1 of rows `row` (v0, v1) and `row + 8` (v2, v3)
-// of a head's output oh, those below nq and in [0, dz) (a head that lies
-// o columns into its tiles stores from col = -o); in pairs of 4 bytes
+// of a head's output oh, those below nq and in [lo, dz) (a head that lies
+// o columns into its tiles stores from col = -o; oh may be a chunk's
+// first column, lo then the head's first: -W z); in pairs of 4 bytes
 // where the output's strides and col's parity allow (`pairs`).
 __device__ __forceinline__ void store_out(__nv_bfloat16* oh,
                                           long long stride, int row, int nq,
                                           int col, int dz, bool pairs,
                                           float v0, float v1, float v2,
-                                          float v3) {
-  if (col >= dz || col < -1) return;
-  if (pairs && col >= 0 && col + 1 < dz) {
+                                          float v3, int lo = 0) {
+  if (col >= dz || col + 1 < lo) return;
+  if (pairs && col >= lo && col + 1 < dz) {
     if (row < nq)
       *reinterpret_cast<__nv_bfloat162*>(oh + row * stride + col) =
           __floats2bfloat162_rn(v0, v1);
@@ -380,7 +385,7 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* oh,
           __floats2bfloat162_rn(v2, v3);
     return;
   }
-  const bool first = col >= 0, second = col + 1 < dz;
+  const bool first = col >= lo, second = col + 1 < dz;
   if (row < nq) {
     if (first) oh[row * stride + col] = __float2bfloat16_rn(v0);
     if (second) oh[row * stride + col + 1] = __float2bfloat16_rn(v1);

@@ -315,18 +315,37 @@ __global__ void __launch_bounds__(kTcAnyThreads, 1)
 // the odd rows', based 8 bytes early, whose tiles hold k0 - 4 .. k0 + 59.
 // A block's 128 rows are 64 even ones (warpgroup 0's) and the 64 odd ones
 // between them (warpgroup 1's); its BN columns are BN / 2 even W1^T rows
-// and the BN / 2 odd ones, each half a product of N = BN / 2 (wgmma's N is
-// a multiple of 8: BN = 192 only, halves of 96).  Where A's
+// and the BN / 2 odd ones, each half a product of N = BN / 2.  Where A's
 // and B's tiles hold the same columns (even x even, odd x odd) the
-// product is wgmma's from shared memory, as on TMA; where they do not,
-// A's fragments are read from its tiles at the other shift (even rows 4
-// columns early, the previous tile's last ones; odd rows 4 late, the next
-// tile's first) into registers (wgmma_rs).  Columns before 0 (the row
-// before's last four, in both odd tiles at k-tile 0) meet zeros in A.
-// One k range a block (no split).  The epilogue stores each row's even and
-// odd columns as pairs.  (With a branch a warpgroup around the wgmma,
-// fc1 at x[7200,804] ran 0.216 ms, 0.203 with one around the first tile's
-// and an extra late step: ptxas serialised the wgmma, C7520.)
+// product is wgmma's from shared memory, as on TMA (`same`).  Where they
+// do not (`cross`), A is wgmma's register operand: each warpgroup reads
+// its own tile's fragments once, as TMA laid them (ldmatrix), and moves
+// them 4 columns to the other parity's frame by warp shuffles
+// (attention_pairs.cu's shift4), the neighbouring tile's 4 columns
+// shifted in: even rows +4 (the tile before's last four), odd rows -4 (the
+// next tile's first four).  So the odd rows' cross product of tile i
+// needs tile i + 1: both warpgroups run it one step behind, in iteration
+// i + 1 beside the same product of tile i + 1 (tiles i and i + 1 held,
+// the rest of the ring in flight).  The shift runs between wgmma chains,
+// never inside one, the same code in both warpgroups (each its direction
+// by selects: a branch a warpgroup around the wgmma made ptxas serialise
+// it, C7520).  Columns before 0 (the row before's last four, in both odd
+// tiles at k-tile 0) meet zeros in A.  The column tile stays 192 (halves
+// of 96): at x[7200, 804] its 57 x 16 blocks make 6.9 waves on 132 SMs,
+// where 256 (N = 128) makes 5.2, so six waves of blocks a third longer,
+// and 208 or 224 seven such waves; two products of N = 96 a k-step cost
+// the flagship's fc1 nothing.  The epilogue stores each row's even and
+// odd columns as pairs.  On an H100 (fc1 at x[7200, 804]): the design
+// before it, A's cross fragments read 4 columns off with 16 shared-memory
+// loads a thread a k-tile and the odd rows waiting for tile i + 1, 0.184
+// ms; this one 0.173, against 0.124 for the flagship's fc1.  A fifth ring
+// stage bought nothing (scripts/torch_mlp_bringup.py's pairs_5_stages),
+// nor did blocks in clusters of two sharing their W1^T tile by TMA
+// multicast; the flagship's route at hidden 808, whose rows start 16
+// bytes into a 32-byte sector every other row as these do, ran 8% slower
+// than at 816 (PERF.md).
+constexpr int kPairsStages = 4;
+
 template <int BN>
 struct Pairs {
   static constexpr int kN = BN / 2;
@@ -336,29 +355,58 @@ struct Pairs {
   static constexpr uint32_t kABytes = kTcBM * kTcBK * 2;
   static constexpr uint32_t kBBytes = 2 * kHalf;
   static constexpr size_t kSmem =
-      1024 + (size_t)kTcStages * (kABytes + kBBytes) +
-      2 * kTcStages * sizeof(uint64_t);
+      1024 + (size_t)kPairsStages * (kABytes + kBBytes) +
+      2 * kPairsStages * sizeof(uint64_t);
 };
 
-// The bf16 pair at row r, columns c and c + 1 (c even) of a
-// 128-byte-swizzled tile of 64 columns.
-__device__ __forceinline__ uint32_t tile_pair(const uint8_t* tile, int r,
-                                              int c) {
-  return *reinterpret_cast<const uint32_t*>(tile + swizzled(r, 2 * c));
+// This warp's A fragment of k-step kk (wgmma_rs: rows 16 warp + g and
+// + 8, columns 16 kk + 2 t (+ 8) and the next) of a 128-byte-swizzled
+// tile of 64 rows, by one ldmatrix: lane l gives the address of row
+// 16 warp + 8 (l / 8 % 2) + l % 8 of 8-column block 2 kk + l / 16.
+__device__ __forceinline__ void ld_frag(uint32_t (&a)[4], const uint8_t* tile,
+                                        int kk, int warp, int lane) {
+  const int r = 16 * warp + 8 * (lane / 8 % 2) + lane % 8;
+  const uint32_t addr = mint::smem_addr(
+      tile + 128 * r + (((2 * kk + lane / 16) ^ (r & 7)) << 4));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr)
+      : "memory");
 }
 
-// This thread's A fragment (wgmma_rs: rows row and row + 8, columns
-// 16 j + 2 t (+ 8) and the next) of the 128 columns `lo` | `hi` (two
-// tiles; a null one reads as zeros) from column off on.
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const uint8_t* lo,
-                                       const uint8_t* hi, int off, int j,
-                                       int row, int t) {
+template <int N>
+__device__ __forceinline__ void ld_frags(uint32_t (&a)[N][4],
+                                         const uint8_t* tile, int warp,
+                                         int lane) {
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int c = off + 16 * j + 2 * t + 8 * (e >> 1);
-    const uint8_t* tile = c < kTcBK ? lo : hi;
-    a[e] = tile ? tile_pair(tile, row + 8 * (e & 1), c % kTcBK) : 0u;
-  }
+  for (int kk = 0; kk < N; ++kk) ld_frag(a[kk], tile, kk, warp, lane);
+}
+
+// x = the fragments p (one tile's 8 column groups; group n, row r in
+// p[n / 2][2 (n % 2) + r]) moved 4 columns: `up` (column c takes c - 4's,
+// the tile before's last group `cin` shifted in) or down (c takes c + 4's,
+// the next tile's first group `cin`).  A column 4 away is lane t ^ 2's,
+// in the same group or the next: lanes t < 2 send their group n (up) or
+// n + 1 (down), the others n - 1 (up) or n; one shuffle a value.
+template <int N>
+__device__ __forceinline__ void shift_frags(uint32_t (&x)[N][4],
+                                            const uint32_t (&p)[N][4],
+                                            const uint32_t (&cin)[2], bool up,
+                                            bool lo) {
+  constexpr int G = 2 * N;
+  auto at = [&](int n, int r) { return p[n / 2][2 * (n % 2) + r]; };
+#pragma unroll
+  for (int n = 0; n < G; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const uint32_t below = n > 0 ? at(n - 1, r) : cin[r];
+      const uint32_t above = n + 1 < G ? at(n + 1, r) : cin[r];
+      const uint32_t send = lo ? (up ? at(n, r) : above)
+                               : (up ? below : at(n, r));
+      x[n / 2][2 * (n % 2) + r] = __shfl_xor_sync(0xffffffffu, send, 2);
+    }
+  mint::keep(x);
 }
 
 template <int BN, bool kSplit>
@@ -377,14 +425,14 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = mint::smem_addr(smem_raw);
   uint8_t* as = smem_raw + (1024 - raw % 1024) % 1024;  // [stages][128][64]
-  uint8_t* bs = as + kTcStages * P::kABytes;  // [stages][2][kHalf]
-  uint64_t* full = reinterpret_cast<uint64_t*>(bs + kTcStages * P::kBBytes);
-  uint64_t* empty = full + kTcStages;
+  uint8_t* bs = as + kPairsStages * P::kABytes;  // [stages][2][kHalf]
+  uint64_t* full = reinterpret_cast<uint64_t*>(bs + kPairsStages * P::kBBytes);
+  uint64_t* empty = full + kPairsStages;
 
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * kTcBM;
   // Split z's k-tiles kt0 .. kt1 - 1; the ring holds tiles lo .. hi - 1,
-  // one more on each side where there is one (the cross products read 4
-  // columns of the tiles around).  Unsplit (an instance of its own: the
+  // one more on each side where there is one (the cross products shift in
+  // 4 columns of the tiles around).  Unsplit (an instance of its own: the
   // split's bookkeeping cost the unsplit pass 7% at x[1440,804]), all.
   const int ktiles = (k + kTcBK - 1) / kTcBK;
   int kt0 = 0, kt1 = ktiles, lo = 0, hi = ktiles;
@@ -397,7 +445,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kTcStages; ++s) {
+    for (int s = 0; s < kPairsStages; ++s) {
       mint::mbar_init(full + s, 1);
       mint::mbar_init(empty + s, 2);  // one arrival per consumer warpgroup
     }
@@ -408,9 +456,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   if (threadIdx.x >= 256) {  // producer warp
     if (threadIdx.x == 256 && kt0 < kt1) {
       for (int i = lo; i < hi; ++i) {
-        const int j = i - lo, s = j % kTcStages;
-        if (j >= kTcStages)
-          mint::mbar_wait(empty + s, (j / kTcStages - 1) & 1);
+        const int j = i - lo, s = j % kPairsStages;
+        if (j >= kPairsStages)
+          mint::mbar_wait_or_trap(empty + s, (j / kPairsStages - 1) & 1);
         mint::mbar_expect_tx(full + s, P::kABytes + 2 * N2 * kTcBK * 2);
         uint8_t* at = as + s * P::kABytes;
         uint8_t* bt = bs + s * P::kBBytes;
@@ -423,70 +471,111 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     return;
   }
 
-  // Warpgroup wg (0: the even rows, 1: the odd ones) runs two products
-  // each k-tile, the same wgmma sequence in both (a branch around them made
-  // ptxas serialise the wgmma, C7520): `same`, its rows x W1^T's rows of
-  // its parity, tiles as they lie, from shared memory; and `cross`, its
-  // rows x the other parity's, A's fragments from two tiles' 128 columns:
-  // even rows tiles i - 1 and i from column 60 (4 early), odd rows tiles i
-  // and i + 1 from column 4 (4 late).  The odd rows' tile 0 holds the row
-  // before's last four columns first: they are zeroed in shared memory.
+  // Warpgroup wg (0: the even rows, 1: the odd ones): `same`, its rows x
+  // W1^T's rows of its parity, and `cross`, its rows x the other parity's.
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x % 128) / 32;
-  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
   const int row = 16 * warp + g;  // in the warpgroup's 64
-  const int off = wg ? 4 : kTcBK - 4;
+  const bool up = wg == 0, lo_lane = t < 2;
   float same[N2 / 2], cross[N2 / 2];
 #pragma unroll
   for (int i = 0; i < N2 / 2; ++i) same[i] = cross[i] = 0.f;
-  static_assert((kTcStages & (kTcStages - 1)) == 0, "a power of 2");
-  auto slot = [&](int i) { return (unsigned)(i - lo) % kTcStages; };
-  auto a_tile = [&](int i) -> const uint8_t* {
-    return i >= lo && i < hi ? as + slot(i) * P::kABytes + wg * 64 * 128
-                             : nullptr;
+  auto slot = [&](int i) { return (unsigned)(i - lo) % kPairsStages; };
+  auto a_tile = [&](int i) -> uint8_t* {
+    return as + slot(i) * P::kABytes + wg * 64 * 128;
   };
   auto b_tile = [&](int i, int odd) {
     return bs + slot(i) * P::kBBytes + odd * P::kHalf;
   };
-  auto wait_full = [&](int i) {
-    mint::mbar_wait(full + slot(i), ((unsigned)(i - lo) / kTcStages) & 1);
+  auto wait_full = [&](int i) {  // a fault in the ring traps, not hangs
+    mint::mbar_wait_or_trap(full + slot(i),
+                            ((unsigned)(i - lo) / kPairsStages) & 1);
   };
   auto desc = [](const uint8_t* p, int j) {
     return mint::smem_desc(p + 32 * j, 16, 1024, 1);
   };
-  uint32_t fr[kSteps][4];
-  if (kSplit && kt0 < kt1 && lo < kt0) wait_full(lo);  // even rows' first
-  for (int i = kt0; i < kt1; ++i) {
-    wait_full(i);
-    if (i + 1 < hi) wait_full(i + 1);  // the odd rows' cross product's
-    const uint8_t* cur = a_tile(i);
-    if (i == 0) {
+  auto release = [&](int i) {
+    if (threadIdx.x % 128 == 0) mint::mbar_arrive(empty + slot(i));
+  };
+  // prev: this warpgroup's fragments of the tile before, as they lie; x:
+  // them moved to the other parity's frame (the cross product's A); c7:
+  // the group 7 of the tile before that (the even rows' carry).
+  uint32_t prev[kSteps][4], cur[kSteps][4], x[kSteps][4];
+  uint32_t c7[2] = {0u, 0u}, cin[2];
+  if (kt0 < kt1) {
+    if (lo < kt0) {  // split: the tile before's last group
+      wait_full(lo);
+      uint32_t f[4];
+      ld_frag(f, a_tile(lo), kSteps - 1, warp, lane);
+      c7[0] = f[2];
+      c7[1] = f[3];
+    }
+    wait_full(kt0);
+    if (kt0 == 0) {  // the odd rows' first columns: the row before's tail
       if (wg == 1 && threadIdx.x % 128 < 64) {
-        *reinterpret_cast<uint2*>(const_cast<uint8_t*>(cur) +
-                                  swizzled(threadIdx.x % 128, 0)) =
+        *reinterpret_cast<uint2*>(a_tile(0) + swizzled(threadIdx.x % 128, 0)) =
             make_uint2(0u, 0u);
         mint::fence_proxy_async();
       }
       mint::named_bar_sync(1 + wg, 128);
     }
-#pragma unroll
-    for (int j = 0; j < kSteps; ++j)
-      a_frag(fr[j], a_tile(wg ? i : i - 1), a_tile(wg ? i + 1 : i), off, j,
-             row, t);
-    const uint8_t* b_same = b_tile(i, wg);
-    const uint8_t* b_cross = b_tile(i, !wg);
+    ld_frags(prev, a_tile(kt0), warp, lane);
+    const uint8_t* b_same = b_tile(kt0, wg);
     mint::wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kSteps; ++j)
-      mint::wgmma_ss<N2>(same, desc(cur, j), desc(b_same, j));
-#pragma unroll
-    for (int j = 0; j < kSteps; ++j)
-      mint::wgmma_rs<N2, 0>(cross, fr[j], desc(b_cross, j));
+      mint::wgmma_ss<N2>(same, desc(a_tile(kt0), j), desc(b_same, j));
     mint::wgmma_commit();
     mint::wgmma_wait<0>();
-    // Tile i - 1 is done with (the even rows read it last, now).
-    if (i > lo && threadIdx.x % 128 == 0)
-      mint::mbar_arrive(empty + slot(i - 1));
+    if (lo < kt0) release(lo);
+  }
+  // Tile i's same product and tile i - 1's cross product, the shift
+  // between the chains.
+  for (int i = kt0 + 1; i < kt1; ++i) {
+    wait_full(i);
+    ld_frags(cur, a_tile(i), warp, lane);
+    cin[0] = up ? c7[0] : cur[0][0];
+    cin[1] = up ? c7[1] : cur[0][1];
+    c7[0] = prev[kSteps - 1][2];
+    c7[1] = prev[kSteps - 1][3];
+    shift_frags(x, prev, cin, up, lo_lane);
+    const uint8_t* b_same = b_tile(i, wg);
+    const uint8_t* b_cross = b_tile(i - 1, !wg);
+    mint::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j)
+      mint::wgmma_ss<N2>(same, desc(a_tile(i), j), desc(b_same, j));
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j)
+      mint::wgmma_rs<N2, 0>(cross, x[j], desc(b_cross, j));
+    mint::wgmma_commit();
+    mint::wgmma_wait<0>();
+    release(i - 1);  // both products of tile i - 1 are done
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) prev[j][e] = cur[j][e];
+  }
+  // The last tile's cross product: the odd rows shift in the next tile's
+  // first group where there is one (split), else zeros.
+  if (kt0 < kt1) {
+    uint32_t f[4] = {0u, 0u, 0u, 0u};
+    if (kt1 < hi) {
+      wait_full(kt1);
+      ld_frag(f, a_tile(kt1), 0, warp, lane);
+    }
+    cin[0] = up ? c7[0] : f[0];
+    cin[1] = up ? c7[1] : f[1];
+    shift_frags(x, prev, cin, up, lo_lane);
+    const uint8_t* b_cross = b_tile(kt1 - 1, !wg);
+    mint::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j)
+      mint::wgmma_rs<N2, 0>(cross, x[j], desc(b_cross, j));
+    mint::wgmma_commit();
+    mint::wgmma_wait<0>();
   }
 
   // same / cross [4 jj + e]: row row + 8 (e / 2) of the warpgroup's

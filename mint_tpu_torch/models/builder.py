@@ -30,10 +30,11 @@ def check_kernel_limits(config: FACTModelConfig,
     """Raise ValueError, naming the field, where the model `config` builds
     could not run its hand-written kernels in `dtype`: a dtype no kernel
     takes, a transformer whose hidden size its heads do not divide, or a
-    head wider than the attention kernel holds in shared memory
-    (``attention.MAX_HEAD_DIM``: 1016 in f32, 1344 in bf16).  The kernels
-    take every other width, and every key count and batch (``ops``: bf16
-    attention streams K past shared memory, LayerNorm and the MLP take any
+    head wider than the attention kernels' grids hold
+    (``attention.HEAD_DIM_CEILING``, some 16.7 million columns).  The
+    kernels take every other width, and every key count and batch
+    (``ops``: attention streams K past shared memory, and Q with it past
+    ``attention.RESIDENT_Q_MAX_HEAD_DIM``; LayerNorm and the MLP take any
     width).  With `model` tensor-parallel ranks the split is held to
     :func:`check_split` first."""
     check_split(config, model)
@@ -42,12 +43,11 @@ def check_kernel_limits(config: FACTModelConfig,
         if heads <= 0 or hidden % heads:
             raise ValueError(f"{field}: hidden_size {hidden} is not a "
                              f"multiple of num_attention_heads {heads}")
-        widest = attention_op.MAX_HEAD_DIM.get(dtype)
-        if widest is not None and hidden // heads > widest:
+        widest = attention_op.HEAD_DIM_CEILING
+        if hidden // heads > widest:
             raise ValueError(f"{field}: head dim {hidden // heads} "
                              f"(hidden_size {hidden} / {heads} heads) over "
-                             f"the {widest} the {dtype} attention kernel "
-                             "takes")
+                             f"the {widest} the attention kernels take")
     broken = attention_op.limit_broken(dtype) or mlp_op.limit_broken(dtype)
     if broken:
         raise ValueError(f"kernel limit: {broken}")

@@ -62,15 +62,25 @@ _ENTRY = {torch.float32: "mint_attention_f32",
           torch.bfloat16: "mint_attention_bf16"}
 
 
-# The widest head each kernel takes: Q's rows stay in shared memory for
-# the whole pass over the keys, over every column of the head (the 232448
-# bytes a block may take on an H100).  f32 (attention_wide_kernel): one
-# warp's 16 rows of Q and a 32-key K tile over the whole head dim, rows
-# padded to tile_ld, a 32-key V tile over an output chunk of at most 256
-# columns, and P.  bf16 (attention_tc_stream_kernel): one warpgroup's 64
-# rows of Q over the head dim in chunks of at most 256 columns, and a ring
-# of two 64-key tiles of one chunk.
-MAX_HEAD_DIM = {torch.float32: 1016, torch.bfloat16: 1344}
+# Where each kernel's schedule for heads over 128 changes: up to this
+# width (bf16: of the head's frame in its tiles, the head dim and the
+# columns it lies into them, _col_shift) Q's rows stay in shared memory for
+# the whole pass over the keys, over every column of the head; past it Q
+# streams with K (csrc/attention*.cu).  f32: attention_wide_kernel holds
+# one warp's 16 rows of Q and a 32-key K tile over the whole head dim, a
+# 32-key V tile over an output chunk of at most 256 columns, and P; wider
+# heads take attention_sliced_kernel, each score summed over 128-column
+# slices of Q and the K tile.  bf16: attention_tc_stream_kernel holds one
+# warpgroup's 64 rows of Q over the head dim in chunks of at most 256
+# columns and a ring of two 64-key tiles of one chunk; wider frames send
+# Q's chunks through the ring beside K's.  Both within the 232448 bytes a
+# block may take on an H100.
+RESIDENT_Q_MAX_HEAD_DIM = {torch.float32: 1016, torch.bfloat16: 1344}
+
+# The widest head either kernel takes: its output chunks of at most 256
+# columns lie on the grid's z axis, at most 65535 of them, over the head's
+# frame (up to 7 columns wider than the head, see _col_shift).
+HEAD_DIM_CEILING = 65535 * 256 - 7
 
 
 def bf16_max_keys(d: int) -> int:
@@ -91,9 +101,9 @@ def bf16_max_keys(d: int) -> int:
 
 def limit_broken(dtype: torch.dtype) -> str | None:
     """Why no attention kernel takes inputs of `dtype`, or None if one
-    does.  Both kernels take any key count and batch of heads, and head
-    dims up to MAX_HEAD_DIM (csrc/attention*.cu): f32 runs on the FMA
-    kernels, bf16 on the tensor-core ones."""
+    does.  Both kernels take any key count and batch of heads, and any
+    head dim up to HEAD_DIM_CEILING (csrc/attention*.cu): f32 runs on the
+    FMA kernels, bf16 on the tensor-core ones."""
     if dtype not in _ENTRY:
         return f"no attention kernel takes {dtype} (float32, bfloat16)"
     return None
@@ -227,22 +237,11 @@ def bf16_resident(frame: int, nk: int, pairs: bool = False) -> bool:
     return frame <= 128 and tiles <= 64 and smem <= 232448
 
 
-def _stream_fits(frame: int) -> bool:
-    """Whether the streamed kernel holds one warpgroup's Q over `frame`
-    columns and a ring of two tiles in shared memory (its chunks of at most
-    256 columns, a multiple of 16 each; csrc/attention_tc.cuh's
-    tc_stream_smem_bytes)."""
-    chunks = -(-frame // 256)
-    width = -(-(-(-frame // chunks)) // 16) * 16
-    return 2048 + (chunks + 2) * 64 * 2 * width <= 232448
-
-
 def _streamable(q, k, v):
     """q, k and v as the streamed kernel takes them: by TMA over the view
     or its head columns, q's heads as many columns into their tiles as k's
-    (their head strides alike modulo 8), within shared memory.  A view
-    that is not is copied once into zero-padded rows (_tma_copy; never one
-    of the model's)."""
+    (their head strides alike modulo 8).  A view that is not is copied
+    once into zero-padded rows (_tma_copy; never one of the model's)."""
     views = (q, k, v)
     routes = [bf16_route(t) for t in views]
     copy = [r in ("copies", "tma_pairs") for r in routes]
@@ -251,10 +250,6 @@ def _streamable(q, k, v):
     if steps[0] != steps[1]:
         copy[0] = copy[0] or routes[0] == "tma_columns"
         copy[1] = copy[1] or routes[1] == "tma_columns"
-    frame = q.shape[-1] + max([0] + [_col_shift(t, r) for t, r, c in
-                                     zip(views, routes, copy) if not c])
-    if not _stream_fits(frame):
-        copy = [c or r == "tma_columns" for c, r in zip(copy, routes)]
     return tuple(_tma_copy(t) if c else t for t, c in zip(views, copy))
 
 
@@ -320,10 +315,9 @@ def _operands(q, k, v):
     if nq == 0 or nk == 0 or b * h == 0 or d == 0:
         raise ValueError(f"attention: empty input; got {tuple(q.shape)}, "
                          f"Nk={nk}")
-    if d > MAX_HEAD_DIM[q.dtype]:
+    if d > HEAD_DIM_CEILING:
         raise ValueError(f"attention: head dim {d} over the "
-                         f"{MAX_HEAD_DIM[q.dtype]} the {q.dtype} kernel "
-                         "holds in shared memory")
+                         f"{HEAD_DIM_CEILING} the kernels' grids hold")
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     if q.dtype == torch.bfloat16:
         routes = [bf16_route(t) for t in (k, v)]

@@ -25,7 +25,8 @@ design alternatives they were chosen over and the parent commit's.
    kernel): bf16 on each view's route, the parent's kernel on the same
    views (its own C entry, the routes' ABI), and, on the resident kernel,
    by the block's copies; f32 against each variant and the parent's
-   library.
+   library (heads past the width where Q stays resident: this tree's
+   alone, the parent refused them).
 
 5. With ``--decode`` (and ``--parent DIR``), only the flagship's bf16
    batch-20 decode frames/s through its CUDA graph (``chip_smoke.py``
@@ -79,11 +80,21 @@ BF16_SOURCES = ("attention.cu", "attention_stream.cu", "attention_pairs.cu")
 # of the heads read in place (hidden 800 over 16 heads, 804 over 12, 1040
 # over 8), the same widths rounded to 8 (what the parent's general f32
 # instance cost at a width its 16-byte copies read), hidden 800 over 8
-# heads, the flagship's, and the 84-over-80 view (tma_pairs).
+# heads, the flagship's, and the 84-over-80 view (tma_pairs); the heads
+# over 128 with Q resident (130, 192, 256, 264) and past it (f32 1032,
+# bf16 1360, both 2048: Q streamed with K; the parent refused those).
 TIMED = [(name, 20, h, 360, 360, d, "fused") for name in ("bf16", "f32")
          for h, d in ((16, 50), (12, 67), (12, 64), (16, 48), (10, 80),
                       (8, 100))] + [("bf16", 20, 8, 360, 360, 130, "fused"),
-                                    ("bf16", 20, 10, 360, 360, 80, "rows84")]
+                                    ("bf16", 20, 10, 360, 360, 80, "rows84")
+                                    ] + [
+    (name, 20, h, 360, 360, d, "fused") for name in ("bf16", "f32")
+    for h, d in ((8, 130), (4, 192), (4, 256), (4, 264))
+    if (name, d) != ("bf16", 130)] + [
+    ("f32", 2, 4, 360, 360, 1032, "fused"),
+    ("bf16", 2, 4, 360, 360, 1360, "fused"),
+    ("f32", 2, 4, 360, 360, 2048, "fused"),
+    ("bf16", 2, 4, 360, 360, 2048, "fused")]
 if os.environ.get("BRINGUP_TIMED"):  # e.g. "bf16:12:67,bf16:10:80:rows84"
     TIMED = [(n, 20, int(h), 360, 360, int(d), (rest or ["fused"])[0])
              for n, h, d, *rest in (
@@ -99,10 +110,20 @@ def checked_shapes(only):
                       (112, 800), (128, 720)):
             cases += [("bf16", "contiguous", 2, 3, nq, nk, d)
                       for nq in (48, 130, 200, 360)]
-        for d in (130, 144, 192, 200, 256, 264, 520, 1344):
+        for d in (130, 144, 192, 200, 256, 264, 520, 1344, 1345, 1360,
+                  2048, 4100):
             cases += [("bf16", "contiguous", 2, 3, nq, nk, d)
                       for nq, nk in ((48, 360), (100, 100), (360, 65),
                                      (360, 360))]
+        # Heads over 256 on the model's views in several output chunks,
+        # read over the token rows' head columns (266 and 1298 over 4
+        # heads: Q resident; each chunk past the first stores the head's
+        # columns its frame moved into it) and with Q's chunks through the
+        # ring (1362 over 4: the columns around each head zeroed in its Q
+        # tiles at each arrival; 1360 over 4, over the view).
+        cases += [("bf16", "fused", 2, h, nq, 360, d)
+                  for h, d in ((4, 266), (4, 1298), (4, 1362), (4, 1360))
+                  for nq in (360, 48)]
         # The model's views: the first head count makes a token row TMA
         # can step over (tma_columns; 67 over 12 heads: copies, the odd
         # heads' rows on 2-byte boundaries), 3 heads one it cannot.
@@ -132,9 +153,15 @@ def checked_shapes(only):
                   for nk in (att.bf16_max_keys(80),
                              att.bf16_max_keys(80) + 1)]
     if only in ("all", "f32"):
-        for d in (130, 192, 200, 256, 264, 600, 1016):
+        for d in (130, 192, 200, 256, 264, 600, 1016, 1017, 1032, 2048,
+                  4100):
             cases += [("f32", "contiguous", 2, 3, nq, nk, d)
                       for nq, nk in ((48, 37), (200, 360), (360, 360))]
+        # The sliced kernel on the model's views: 16-byte copies (1032
+        # over 4 heads) and 4-byte ones (1031 over 3: columns past d zero
+        # in the last slice).
+        cases += [("f32", "fused", 2, h, nq, 360, d)
+                  for h, d in ((4, 1032), (3, 1031)) for nq in (360, 48)]
         for d in (8, 18, 36, 48, 50, 64, 67, 80, 100, 120, 127, 128):
             cases += [("f32", layout, 2, h, nq, 360, d)
                       for layout, h in (("fused", 3), ("fused", 16),
@@ -270,12 +297,15 @@ def main():
         sources[name] = (source, text, _build.CSRC)
     if parent:
         csrc = os.path.join(os.path.abspath(parent), "mint_tpu_torch", "csrc")
-        sources["parent"] = ("attention.cu", open(os.path.join(
-            csrc, "attention.cu")).read(), csrc)
+        for lname, source in (("parent", "attention.cu"),
+                              ("parent_f32", "attention_f32.cu")):
+            sources[lname] = (source, open(os.path.join(csrc, source)).read(),
+                              csrc)
     t0 = time.perf_counter()
     others = build(sources, work)
     print(f"variants built in {time.perf_counter() - t0:.1f} s", flush=True)
-    libs.update((n, lib) for n, lib in others.items() if n != "parent")
+    libs.update((n, lib) for n, lib in others.items()
+                if not n.startswith("parent"))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     bad = 0
@@ -312,9 +342,11 @@ def main():
         q, k, v = cs._qkv(layout, b, h, nq, nk, d, dtype, gen)
         repo = libs["repo"]
         runs = {"repo": lambda: att._call(q, k, v, cs.SCALE, repo)}
+        # The parent refused heads past the width where Q stays resident.
+        resident = d <= att.RESIDENT_Q_MAX_HEAD_DIM[dtype]
         if name == "bf16":
             routes = [att.bf16_route(t) for t in (q, k, v)]
-            if "parent" in others:
+            if "parent" in others and resident:
                 runs["parent"] = lambda: att._call(q, k, v, cs.SCALE,
                                                    others["parent"])
             if att.bf16_resident(d, nk) and "copies" not in routes:
@@ -327,7 +359,7 @@ def main():
         else:
             routes = ""
             for lname, lib in list(libs.items()) + [
-                    ("parent", others.get("parent"))]:
+                    ("parent", others.get("parent_f32"))] * resident:
                 if (lname.startswith(("f32", "parent"))
                         and hasattr(lib, "mint_attention_f32")):
                     runs[lname] = (lambda lib=lib: att._call(

@@ -90,6 +90,10 @@ TIMED = [
     (7200, 800, 3070, 800, C), (7200, 800, 3068, 800, C),
     (960, 800, 3070, 800, C), (7200, 800, 3071, 800, C),
     (7200, 800, 3072, 801, C), (7200, 800, 3072, 800, "x_off2"),
+    # The flagship's route at hidden widths whose rows start 16 bytes into
+    # a 32-byte sector every other row (808: 1616-byte rows, as hidden
+    # 804's tma_pairs maps do) and on sectors (816).
+    (7200, 808, 3072, 808, C), (7200, 816, 3072, 816, C),
 ]
 
 
@@ -128,11 +132,33 @@ VARIANTS = {
     # variant is timed at its shapes only).
     "pairs_one_split": [("  p->split1 = tc_split(m, f, h, bn1, sms);",
                          "  p->split1 = 1;")],
+    # fc1 on tma_pairs with a ring of 5 stages, not 4 (the cross product
+    # runs a tile behind: 2 tiles held, 3 in flight, not 2).
+    "pairs_5_stages": [("constexpr int kPairsStages = 4;",
+                        "constexpr int kPairsStages = 5;")],
+    # The flagship's fc1 (gemm_tc_kernel<192>) as two products of N = 96
+    # a k-step, the column halves tma_pairs' products have.
+    "flagship_n96": [(
+        "      mint::wgmma_ss<BN>(acc, mint::smem_desc(at + 32 * kk, 16, 1024, 1),\n"
+        "                         mint::smem_desc(bt + 32 * kk, 16, 1024, 1));",
+        "      if constexpr (BN == 192) {\n"
+        "        mint::wgmma_ss<96>(*reinterpret_cast<float(*)[48]>(acc),\n"
+        "            mint::smem_desc(at + 32 * kk, 16, 1024, 1),\n"
+        "            mint::smem_desc(bt + 32 * kk, 16, 1024, 1));\n"
+        "        mint::wgmma_ss<96>(*reinterpret_cast<float(*)[48]>(acc + 48),\n"
+        "            mint::smem_desc(at + 32 * kk, 16, 1024, 1),\n"
+        "            mint::smem_desc(bt + 96 * 128 + 32 * kk, 16, 1024, 1));\n"
+        "      } else {\n"
+        "      mint::wgmma_ss<BN>(acc, mint::smem_desc(at + 32 * kk, 16, 1024, 1),\n"
+        "                         mint::smem_desc(bt + 32 * kk, 16, 1024, 1));\n"
+        "      }")],
 }
 # The load a run other than this tree's and the parent's is timed where a
 # TIMED shape takes (None: at every shape).
 TIMED_WHERE = {"producer_warp": "staged", "act_ld8": None,
-               "pairs_one_split": "tma_pairs", "staged": "tma_pairs",
+               "pairs_one_split": "tma_pairs", "pairs_5_stages": "tma_pairs",
+               "flagship_n96": "tma",
+               "staged": "tma_pairs",
                "w2_staged": "tma_phases"}
 
 

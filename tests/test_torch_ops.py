@@ -158,25 +158,195 @@ def _fits(dtype, d):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_head_dim_limit(dtype):
-    """The widest head each kernel takes (attention.MAX_HEAD_DIM: Q stays
-    in shared memory for the whole pass) is where its shared memory runs
-    out: every head dim up to it fits, the next does not.  The wrapper and
-    the build's check refuse a wider one, naming the limit."""
+    """No head is refused for shared memory, as the Pallas kernel refuses
+    none.  attention.RESIDENT_Q_MAX_HEAD_DIM marks where each kernel's
+    schedule changes: every head dim up to it keeps Q in shared memory,
+    the next does not fit, and past it Q streams with K.  The wrapper and
+    the build's check take heads past it (1032 in f32, 1360 in bf16) and
+    any width up to attention.HEAD_DIM_CEILING (the grid's z axis: output
+    chunks of 256 columns over a frame up to 7 columns wider), refusing
+    only a wider one, naming the ceiling."""
     from mint_tpu_torch.models import builder
 
-    widest = att.MAX_HEAD_DIM[dtype]
-    assert all(_fits(dtype, d) for d in range(129, widest + 1))
-    assert not _fits(dtype, widest + 1)
-    q = torch.zeros(1, 1, 2, widest, dtype=dtype)
+    changes = att.RESIDENT_Q_MAX_HEAD_DIM[dtype]
+    assert all(_fits(dtype, d) for d in range(129, changes + 1))
+    assert not _fits(dtype, changes + 1)
+    if dtype == torch.bfloat16:  # and no wider frame fits
+        assert not any(_fits(dtype, d) for d in range(changes + 1, 4097))
+    ceiling = att.HEAD_DIM_CEILING
+    assert ceiling == 65535 * 256 - 7 and ceiling >= 8192
+    past = {torch.float32: 1032, torch.bfloat16: 1360}[dtype]
+    for d in (changes + 1, past, 8192):
+        q = torch.zeros(1, 1, 2, d, dtype=dtype)
+        assert att._operands(q, q, q)[-1].shape == q.shape
+        builder.check_kernel_limits(
+            _fact_config(hidden=2 * d, heads=2).fact_model, dtype)
+    q = torch.empty(1, 1, 2, ceiling, dtype=dtype, device="meta")
     assert att._operands(q, q, q)[-1].shape == q.shape
-    q = torch.zeros(1, 1, 2, widest + 1, dtype=dtype)
-    with pytest.raises(ValueError, match=f"head dim {widest + 1} over"):
+    q = torch.empty(1, 1, 2, ceiling + 1, dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match=f"head dim {ceiling + 1} over"):
         att._operands(q, q, q)
     builder.check_kernel_limits(
-        _fact_config(hidden=2 * widest, heads=2).fact_model, dtype)
-    with pytest.raises(ValueError, match=f"over the {widest}"):
+        _fact_config(hidden=2 * ceiling, heads=2).fact_model, dtype)
+    with pytest.raises(ValueError, match=f"over the {ceiling}"):
         builder.check_kernel_limits(
-            _fact_config(hidden=2 * widest + 2, heads=2).fact_model, dtype)
+            _fact_config(hidden=2 * ceiling + 2, heads=2).fact_model, dtype)
+
+
+def _pallas_rows(q, k, v, scale, dtype):
+    """The Pallas kernel (interpret mode on the CPU) on q's rows against
+    more keys: it takes Nq = Nk, so q's rows come first among random ones,
+    each row's output its own; as f32 numpy."""
+    extra = RNG.standard_normal(
+        q.shape[:2] + (k.shape[2] - q.shape[2], q.shape[3])).astype(np.float32)
+    full_q = np.concatenate([q.float().numpy(), extra], axis=2)
+    out = jax_attention.pallas_attention(
+        *(jnp.asarray(t, dtype) for t in (full_q, k.float().numpy(),
+                                          v.float().numpy())), scale)
+    return np.asarray(out.astype(jnp.float32))[:, :, :q.shape[2]]
+
+
+def _q_ring_bf16_attention(q, k, v, scale, wgs=2, tile=64):
+    """csrc/attention_stream.cu's streamed kernel with Q in its ring
+    (kQRing), in f32 PyTorch on bf16-valued inputs.  The head in `chunks`
+    chunks of W columns (at most 256, a multiple of 16; zeros past D, as
+    TMA fills them), K and V in `tile`-key tiles (zeros past Nk); a block
+    of wgs warpgroups of 64 query rows and one output chunk z.  Its loads
+    in the ring's order: pass 1's load t * chunks + c is a slot of chunk c
+    of every warpgroup's Q rows and chunk c of K tile t; pass 2 takes each
+    tile's chunks so again, then V tile t's chunk z.  Each warpgroup reads
+    every load in that order: a tile's scores are its Q tile times the K
+    tile of each slot, summed over the chunks in f32; pass 1 keeps each
+    row's running max and sum of exp2 (keys past Nk masked), pass 2 forms
+    the exactly normalised P, rounds it to bf16 and adds P.V in f32; the
+    output is rounded to bf16 and cut to D."""
+    *lead, nq, d = q.shape
+    nk = k.shape[-2]
+    chunks = -(-d // 256)
+    width = -(-(-(-d // chunks)) // 16) * 16
+    tiles = -(-nk // tile)
+    rows = 64 * wgs
+    pad_d = chunks * width - d
+    q = torch.nn.functional.pad(q.float(), (0, pad_d, 0, -nq % rows))
+    k = torch.nn.functional.pad(k.float(), (0, pad_d, 0, tiles * tile - nk))
+    v = torch.nn.functional.pad(v.float(), (0, pad_d, 0, tiles * tile - nk))
+    scale_log2 = torch.tensor(scale * 1.4426950408889634, dtype=torch.float32)
+    cols = [slice(c * width, (c + 1) * width) for c in range(chunks)]
+    keys = [slice(t * tile, (t + 1) * tile) for t in range(tiles)]
+    out = torch.zeros(*lead, q.shape[-2], chunks * width)
+    for q0 in range(0, nq, rows):
+        for z in range(chunks):
+            def slot(t, c):  # a score load: Q's chunk c, K tile t's
+                return ("scores", [q[..., q0 + 64 * w:q0 + 64 * (w + 1),
+                                     cols[c]] for w in range(wgs)],
+                        k[..., keys[t], cols[c]])
+            ring = [slot(t, c) for t in range(tiles) for c in range(chunks)]
+            for t in range(tiles):
+                ring += [slot(t, c) for c in range(chunks)]
+                ring.append(("v", None, v[..., keys[t], cols[z]]))
+            for w in range(wgs):
+                loads = iter(ring)
+
+                def scores(t):
+                    s = torch.zeros(*lead, 64, tile)
+                    for _ in range(chunks):
+                        kind, qt, kt = next(loads)
+                        assert kind == "scores"
+                        s = s + qt[w] @ kt.transpose(-1, -2)
+                    valid = torch.arange(tile) < nk - t * tile
+                    return torch.where(valid, s * scale_log2, -torch.inf)
+
+                m = torch.full((*lead, 64, 1), -torch.inf)
+                l = torch.zeros_like(m)
+                for t in range(tiles):
+                    s = scores(t)
+                    m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                    l = l * torch.exp2(m - m_new) + torch.exp2(
+                        s - m_new).sum(-1, keepdim=True)
+                    m = m_new
+                acc = torch.zeros(*lead, 64, width)
+                for t in range(tiles):
+                    p = (torch.exp2(scores(t) - m) * (1 / l)).bfloat16()
+                    kind, _, vt = next(loads)
+                    assert kind == "v"
+                    acc = acc + p.float() @ vt
+                out[..., q0 + 64 * w:q0 + 64 * (w + 1), cols[z]] = acc
+                assert next(loads, None) is None
+    return out[..., :nq, :d].bfloat16()
+
+
+@pytest.mark.parametrize("d,nk", [
+    (att.RESIDENT_Q_MAX_HEAD_DIM[torch.bfloat16] + 1, 37),  # the first
+    (1360, 67),                                      # and a model's
+])
+def test_q_ring_bf16_attention_matches_pallas(d, nk):
+    """Heads past the width where the streamed bf16 kernel's Q tiles and
+    two ring slots fit: Q's chunks ride the ring with K's, each score
+    still summed over the chunks once a pass.  q[1, 2, 16, d] against an
+    odd key count (a ragged last tile), within 2 bf16 ulps of the Pallas
+    kernel's peak."""
+    assert not _fits(torch.bfloat16, d)
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, n, d)).astype(
+        np.float32)).bfloat16() for n in (16, nk, nk))
+    got = _q_ring_bf16_attention(q, k, v, 800 ** -0.5)
+    want = _pallas_rows(q, k, v, 800 ** -0.5, jnp.bfloat16)
+    assert got.shape == want.shape == (1, 2, 16, d)
+    _close_bf16(got.float().numpy(), want)
+
+
+def _sliced_f32_attention(q, k, v, scale, rows=128, tile=32, width=128):
+    """csrc/attention_f32.cu's attention_sliced_kernel in f32 PyTorch:
+    blocks of `rows` query rows (16 a warp, 8 warps) and output chunks of
+    at most 256 columns (a multiple of 4); for each, one pass over
+    `tile`-key tiles whose scores are summed over `width`-column slices of
+    the head dim (Q's rows and the K tile a slice a stage), with the online
+    softmax of attention_kernel: a running row max and sum, the P.V
+    accumulator rescaled by exp(old max - new max), divided by the sum at
+    the end."""
+    *lead, nq, d = q.shape
+    nk = k.shape[-2]
+    chunks = -(-d // 256)
+    dc = -(-(-(-d // chunks)) // 4) * 4
+    out = torch.empty(*lead, nq, d)
+    for r0 in range(0, nq, rows):
+        qb = q[..., r0:r0 + rows, :]
+        for c0 in range(0, d, dc):
+            m = torch.full((*lead, qb.shape[-2], 1), -torch.inf)
+            l = torch.zeros_like(m)
+            acc = torch.zeros(*lead, qb.shape[-2], min(dc, d - c0))
+            for k0 in range(0, nk, tile):
+                kt = k[..., k0:k0 + tile, :]
+                s = torch.zeros(*lead, qb.shape[-2], kt.shape[-2])
+                for s0 in range(0, d, width):
+                    s = s + qb[..., s0:s0 + width] @ kt[
+                        ..., s0:s0 + width].transpose(-1, -2)
+                s = s * scale
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(s - m_new)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                acc = acc * alpha + p @ v[..., k0:k0 + tile, c0:c0 + dc]
+                m = m_new
+            out[..., r0:r0 + rows, c0:c0 + dc] = acc / l
+    return out
+
+
+def test_sliced_f32_attention_matches_pallas():
+    """f32 heads past the width where the wide kernel's Q rows fit (1016):
+    each score summed over 128-column slices of Q and the K tile, at
+    D = 1032 over a ragged last key tile, against the Pallas kernel in f32,
+    within 1e-5 (summation order only: exact f32 on both sides)."""
+    d = 1032
+    assert d > att.RESIDENT_Q_MAX_HEAD_DIM[torch.float32]
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 40, d)).astype(
+        np.float32)) for _ in range(3))
+    got = _sliced_f32_attention(q, k, v, 800 ** -0.5)
+    want = np.asarray(jax_attention.pallas_attention(
+        *_jax(q.numpy(), k.numpy(), v.numpy()), 800 ** -0.5))
+    assert got.shape == want.shape == (1, 2, 40, d)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
 
 
 def _fact_config(hidden=800, heads=10, mlp_width=3072, audio_seq=240):
@@ -729,26 +899,31 @@ def _pairs_tile(flat, ld, rows, k, first, shift, t):
     return out
 
 
-def _shifted(tiles, t, shift, k):
-    """Columns 64 t + shift .. 64 t + shift + 63 of the rows whose tiles
-    (unshifted) are `tiles`: the neighbouring tile's where it runs off,
-    zeros where there is none."""
-    whole = np.concatenate([np.zeros_like(tiles[0])] + tiles
-                           + [np.zeros_like(tiles[0])], axis=1)
-    return whole[:, 64 * (t + 1) + shift:64 * (t + 1) + shift + 64]
+def _frag_shift(prev, carry, up):
+    """csrc/mlp_routes.cu's shift_frags on a tile's fragment rows [rows,
+    64] as ldmatrix read them: moved 4 columns up (column c takes c - 4's,
+    `carry` the tile before's last 8-column group shifted in) or down (c
+    takes c + 4's, `carry` the next tile's first group), the lanes of
+    _shift4_lanes over the row with the carry group beside it."""
+    if up:
+        return _shift4_lanes(np.concatenate([carry, prev], 1), 4)[:, 8:]
+    return _shift4_lanes(np.concatenate([prev, carry], 1), -4)[:, :64]
 
 
 @pytest.mark.parametrize("m,h", [(40, 36), (41, 100), (7, 804)])
 def test_pairs_fc1_matches_pallas(m, h):
-    """The bf16 MLP's fc1 on tma_pairs (csrc/mlp.cu, x and W1^T with rows
-    8 bytes past a 16-byte step, hidden 804), emulated: each operand's even
-    rows and its odd rows as two maps, the odd rows' tiles 4 columns early
-    and holding the row before's tail at k-tile 0; even x even and odd x
-    odd products over the tiles as they lie (odd x odd's first k-step with
-    A's columns under 4 zeroed), even x odd with x's tiles read 4 columns
-    early and odd x even 4 late.  fc2 on the rounded activation, against
-    the fused Pallas kernel in bf16 (interpret mode), to 2 bf16 ulps of the
-    output's peak."""
+    """The bf16 MLP's fc1 on tma_pairs (csrc/mlp_routes.cu, x and W1^T
+    with rows 8 bytes past a 16-byte step, hidden 804), emulated: each
+    operand's even rows and its odd rows as two maps, the odd rows' tiles 4
+    columns early and holding the row before's tail at k-tile 0 (zeroed in
+    x's); a warpgroup a parity of x's rows.  Its `same` product (its rows x
+    W1^T's rows of its parity) over the tiles as they lie; its `cross`
+    product (x W1^T's other parity) one tile behind, from its tile's
+    fragments as they lie moved 4 columns by shift_frags: even rows up,
+    the tile before's last group shifted in, odd rows down, the next
+    tile's first group (zeros past the last tile).  fc2 on the rounded
+    activation, against the fused Pallas kernel in bf16 (interpret mode),
+    to 2 bf16 ulps of the output's peak."""
     f, o = 70, 17
     rng = np.random.default_rng(h)
     bf = lambda a: torch.from_numpy(a.astype(np.float32)).bfloat16().float(
@@ -764,16 +939,25 @@ def test_pairs_fc1_matches_pallas(m, h):
     wb = [[_pairs_tile(w1t.ravel(), h, f, h, p, 4 * p, t)
            for t in range(tiles)] for p in (0, 1)]
     out = np.zeros((m, f), np.float32)
-    for t in range(tiles):
-        a_o0 = xa[1][t].copy()
-        if t == 0:
-            a_o0[:, :4] = 0  # the row before's tail meets zeros
-        prods = {(0, 0): xa[0][t] @ wb[0][t].T,
-                 (0, 1): _shifted(xa[0], t, -4, h) @ wb[1][t].T,
-                 (1, 1): a_o0 @ wb[1][t].T,
-                 (1, 0): _shifted(xa[1], t, 4, h) @ wb[0][t].T}
-        for (pm, pn), prod in prods.items():
-            out[pm::2, pn::2] += prod
+    for par in (0, 1):
+        up, own = par == 0, [t.copy() for t in xa[par]]
+        if not up:
+            own[0][:, :4] = 0  # the row before's tail meets zeros
+        zero = np.zeros((own[0].shape[0], 8), np.float32)
+        prev, c7 = own[0], zero
+        same = prev @ wb[par][0].T
+        cross = np.zeros_like(same)
+        for i in range(1, tiles):
+            cur = own[i]
+            cin, c7 = (c7 if up else cur[:, :8]), prev[:, 56:]
+            xs = _frag_shift(prev, cin, up)
+            same += cur @ wb[par][i].T
+            cross += xs @ wb[1 - par][i - 1].T
+            prev = cur
+        cross += _frag_shift(prev, c7 if up else zero, up) @ wb[
+            1 - par][tiles - 1].T
+        out[par::2, par::2] = same
+        out[par::2, 1 - par::2] = cross
     act = bf(torch.nn.functional.gelu(torch.from_numpy(out + b1),
                                       approximate="tanh").numpy())
     got = bf(act @ w2 + b2)
