@@ -125,10 +125,14 @@ CPU):
    QKV views, read in place) and at 65540 (batch, head) pairs
    (q[6554,10,48,80] against 120 keys), bf16 on views of rows TMA cannot
    step over (84 elements apart, over 80 columns), and heads past the
-   width where Q stays in shared memory (q[2,4,360,D], the model's views:
-   f32 D = 1032 and 2048, bf16 1360 and 2048); one bf16 call on the
-   model's views at D = 50, 67, 130, 1360 and 2048 making one device
-   kernel, as torch.profiler records it; the MLP at F = 3070
+   widths of the resident-Q kernels (the scores-once kernels, each score
+   once a call through a workspace: q[20,4,360,D] at D = 520 (and 264 in
+   f32), and q[2,4,360,D], the model's views: f32 D = 1032 and 2048, bf16
+   1360 and 2048); one bf16 call on the
+   model's views at D = 50, 67, 130, 1360 and 2048 making the device
+   kernels ops.attention.device_kernels names (one at 50, 67 and 130;
+   the three scores-once kernels at 1360 and 2048) and no copy, as
+   torch.profiler records it; the MLP at F = 3070
    (f32) and 3080 (bf16) and at H = O = 804, and in bf16 at F = 3070, O =
    801, x on a base 2 bytes past 16 and H = O = 804 at M = 960 (split
    K): every operand read where it lies, one bf16 call at H = 804 and F
@@ -2818,16 +2822,17 @@ def last_modules(work, run_dir, native_counts, rates, card):
 # one grid takes (65540); q[20,12,360,64], the width hidden 804's heads
 # would have at a multiple of 8; and views of rows 84 elements apart over
 # 80 columns (every other row 8 bytes past a 16-byte step: tma_pairs, as
-# hidden 804's D = 67 views); and heads past the width where Q stays in
-# shared memory (f32 1016, bf16 1344: Q's rows stream with K, the f32
-# scores summed over head-dim slices, the bf16 Q chunks through the ring),
-# at 1032 (f32), 1360 (bf16) and 2048 (both).  Each the model's fused QKV
-# views but the "rows84" one.
+# hidden 804's D = 67 views); and heads past the resident-Q kernels'
+# widths (f32 264, and 520 in both, 1032 (f32), 1360 (bf16) and 2048
+# (both) at batch 2: the scores-once kernels, each score once a call into
+# a workspace, normalised there, P.V over output chunks reading P; bf16
+# 264, two output chunks of the streamed kernel).  Each the model's fused
+# QKV views but the "rows84" one.
 WIDE_ATTENTION = [(("bf16",), 20, 10, 1320, 1320, 80),
                   (("bf16",), 20, 10, 48, 1320, 80),
                   (("bf16",), 20, 8, 720, 720, 128)] + [
     (("f32", "bf16"), 20, h, 360, 360, d)
-    for h, d in ((8, 130), (4, 192), (4, 256), (4, 264), (16, 50),
+    for h, d in ((8, 130), (4, 192), (4, 256), (4, 264), (4, 520), (16, 50),
                  (12, 67), (12, 64))] + [
     (("f32", "bf16"), 6554, 10, 48, 120, 80),
     (("bf16",), 20, 10, 360, 360, 80, "rows84"),
@@ -2882,20 +2887,24 @@ WIDE_AXIS_RANKS = 4
 
 
 def _wide_row(name, shape, err, ok, tol, t_k, t_p, t_l, work, peak, card,
-              library=None):
+              library=None, kernels=None):
     """One 11a row: max_abs_err against the plain version, whether it is
-    within the tolerance `tol` states, times, bound; logged."""
+    within the tolerance `tol` states, times, bound, and the device
+    kernels a call runs where given; logged."""
     b_ms, b_by = bound(*work, peak)
     log(f"{name} {shape}: max_abs_err {err:.3e}, tol {tol} "
         f"{'ok' if ok else 'FAIL'}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms"
         f", library {'none' if t_l is None else f'{t_l:.4f} ms'}, bound "
-        f"{b_ms:.4f} ms ({b_by}) ({card})")
+        f"{b_ms:.4f} ms ({b_by})"
+        + (f" [{', '.join(kernels)}]" if kernels else "") + f" ({card})")
     if not ok:
         raise AssertionError(f"{name} {shape} disagrees: {err}")
     row = {"shape": shape, "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
            "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by}
     if library:
         row["library"] = library
+    if kernels:
+        row["device_kernels"] = list(kernels)
     return row
 
 
@@ -2937,7 +2946,8 @@ def wide_kernels(att, mlp, ln, gen, card):
                 cuda_ms(lambda: sdpa(q, k, v, d), 5),
                 attention_work(b, h, nq, nk, d, dtype.itemsize), name, card,
                 "scaled_dot_product_attention" + (
-                    " (math backend)" if d > 256 else ""))
+                    " (math backend)" if d > 256 else ""),
+                att.device_kernels(q, k, v))
             del q, k, v
             torch.cuda.empty_cache()
     for names, m, hid, f, o, *layout in WIDE_MLP:
@@ -2986,37 +2996,58 @@ def wide_kernels(att, mlp, ln, gen, card):
     return rows
 
 
+def device_kernel_names(call, tries=3):
+    """The names of the device kernels one `call` runs, as torch.profiler
+    records them, after one call unprofiled.  A trace in which the
+    profiler recorded no device event at all (CUPTI delivered none: a run
+    of the card's checks once lost every event of one call) says nothing
+    of the call, so the call is profiled again, up to `tries` times in
+    all; a trace with any device event is returned as it is."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+        log(f"torch.profiler recorded no device event in try "
+            f"{attempt + 1} of {tries}")
+    return names
+
+
 def one_kernel_a_call(att, gen, card):
     """11a: one bf16 attention call on the model's fused QKV views at head
     dims 50, 67 and 130 (hidden 800 over 16 heads, 804 over 12, 1040 over
-    8; batch 20, 360 queries), and at 1360 and 2048 (4 heads, batch 2: Q's
-    chunks through the streamed kernel's ring) runs exactly one device
-    kernel, as torch.profiler records it: the kernel reads the heads where
-    they lie (a route that copied them into zero-padded rows ran seven: a
-    fill and a copy of each of q, k and v, then the kernel).  Returns {D:
-    kernels}."""
-    from torch.profiler import ProfilerActivity, profile
-
+    8; batch 20, 360 queries), and at 1360 and 2048 (4 heads, batch 2)
+    runs the device kernels ops.attention.device_kernels names, each
+    once, and nothing else, as torch.profiler records it: one (the resident,
+    tma_pairs and streamed kernels), or the three scores-once kernels
+    (their workspace comes from the caching allocator, no fill): the
+    kernels read the heads where they lie (a route that copied them into
+    zero-padded rows ran a fill and a copy of each of q, k and v besides).
+    Returns {D: kernels}."""
     counts = {}
     for b, h, d in ((DISPATCH, 16, 50), (DISPATCH, 12, 67),
                     (DISPATCH, 8, 130), (2, 4, 1360), (2, 4, 2048)):
         q, k, v = _qkv("fused", b, h, 360, 360, d, torch.bfloat16, gen)
-        att.attention(q, k, v, SCALE)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            att.attention(q, k, v, SCALE)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        want = att.device_kernels(q, k, v)
+        names = device_kernel_names(lambda: att.attention(q, k, v, SCALE))
         counts[d] = len(names)
         log(f"attention bf16 q[{b},{h},360,{d}] on the model's views "
             f"({', '.join(att.bf16_route(t) for t in (q, k, v))}): "
-            f"{len(names)} device kernel(s) a call, want 1: "
-            f"{[n[:60] for n in names]} ({card})")
-        if len(names) != 1:
+            f"{len(names)} device kernel(s) a call, want {len(want)} "
+            f"({', '.join(want)}): {[n[:60] for n in names]} ({card})")
+        if len(names) != len(want) or not all(
+                sum(w in n for n in names) == 1 for w in want):
             raise AssertionError(f"bf16 attention at D = {d} ran "
-                                 f"{len(names)} device kernels: {names}")
+                                 f"{len(names)} device kernels: {names}, "
+                                 f"want {want}")
     return counts
 
 
@@ -3028,22 +3059,13 @@ def mlp_kernels_a_call(mlp, gen, card):
     other device kernel, as torch.profiler records it: the kernel reads
     every operand where it lies (a route that padded x and W1 first ran six
     or seven kernels).  Returns {shape: kernels}."""
-    from torch.profiler import ProfilerActivity, profile
-
     counts = {}
     for m, h, f, o in ((7200, 804, 3072, 804), (960, 804, 3072, 804),
                        (7200, 800, 3080, 800), (7200, 800, 3070, 800),
                        (960, 800, 3070, 800)):
         w1, b1, w2, b2 = mlp_weights(gen, torch.bfloat16, h=h, f=f, o=o)
         x = mlp_input(gen, m, h, torch.bfloat16)
-        mlp.fused_mlp(x, w1, b1, w2, b2)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            mlp.fused_mlp(x, w1, b1, w2, b2)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        names = device_kernel_names(lambda: mlp.fused_mlp(x, w1, b1, w2, b2))
         gemms = sum("gemm_tc" in n for n in names)
         others = [n for n in names if "gemm_tc" not in n
                   and "reduce_tc" not in n]
@@ -3639,9 +3661,15 @@ def main():
     # launches a step that decode's, its `eval_launches` the folded
     # evaluator's pass.  `e2e_launches` are phase 12's: its resumed bf16
     # train run's and its evaluate runs' (f32 and bf16; none folded).
+    # The device kernels each wrapper ran at 11a's shapes (attention: the
+    # resident, tma_pairs, streamed and scores-once kernels).
+    ran = {key: sorted({k for row in rows.values()
+                        for k in row.get("device_kernels", ())})
+           for key, rows in wide_rows.items() if isinstance(key, tuple)}
     kernels = [{"name": f"{name}_{dt}", "route": "cuda",
                 "source": src if isinstance(src, str) else src[dt],
                 "replaces": rep, "launches": launches[name, dt],
+                "device_kernels": ran.get((name, dt)) or None,
                 "launches_per_step": per_step[name, dt],
                 "graphed_launches_per_step": graph_launches[name, dt],
                 "train_launches": train_launches[name, dt],

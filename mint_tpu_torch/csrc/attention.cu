@@ -2,8 +2,8 @@
 // (the f32 kernels are in attention_f32.cu).  This file holds the resident
 // kernel, its launch and the C entry; attention_pairs.cu the resident
 // kernel's kTmaPairs instances; attention_stream.cu the streamed kernel;
-// attention_tc.cuh what they share (several sources, so that nvcc builds
-// them at once).
+// attention_once.cu the scores-once kernels; attention_tc.cuh what they
+// share (several sources, so that nvcc builds them at once).
 //
 // Replaces the Pallas TPU kernel mint_tpu/ops/attention.py::_attn_kernel
 // (wrapped by pallas_attention, attention.py:72).  Same arithmetic: scores
@@ -85,15 +85,14 @@
 //   consumers keep one score buffer and wait for each product before its
 //   slot is freed; past 176 columns ptxas still spills and serialises the
 //   wgmma chain.
-//   Heads over 256 run output chunks of at most 256 columns on the grid's
-//   z axis: every block computes the scores over all the chunks of Q and
-//   K (each chunk of a K tile a load of the ring) and P.V over its own
-//   chunk of V; Q's chunks all stay resident up to a frame of 1344
-//   columns.  Past it Q's chunks ride the ring with K's (kQRing): a slot
-//   holds chunk c of each consumer's Q tile and of a K tile, so no head is
-//   too wide; Q is then read again for every key tile.  No config reaches
-//   that, but the JAX kernel takes it.
-//   The ring's waits trap after ~2^24 polls instead of hanging the card.
+//   Frames over 256 columns run two output chunks on the grid's z axis,
+//   each block computing every score over the whole head (Q's chunks all
+//   resident), up to two chunks of 176 columns (kOnceMinFrame).  Wider
+//   frames take the scores-once kernels (attention_once.cu): each score
+//   computed once a call into a workspace, normalised there, and P.V over
+//   output chunks of at most 128 columns reading P.  No config reaches
+//   them, but the JAX kernel takes such heads.
+//   The rings' waits trap after ~2^24 polls instead of hanging the card.
 //
 // Both kernels put the (batch, head) pairs on the grid's y axis, at most
 // 65535 a launch; the C entry points launch as many times as B * H needs,
@@ -172,8 +171,9 @@ int load_route(const int* routes) {
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                const long long* st, const int* routes, int batch, int heads,
-                int nq, int nk, int d, float scale, void* stream) {
+                const long long* st, const int* routes, void* ws,
+                long long ws_bytes, int batch, int heads, int nq, int nk,
+                int d, float scale, void* stream) {
   const long long bh = (long long)batch * heads;
   if (bh <= 0 || nq <= 0 || nk <= 0 || d <= 0)
     return (int)cudaErrorInvalidValue;
@@ -220,7 +220,16 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
     }
     return (int)cudaErrorInvalidValue;
   }
-  // Else the streamed kernel (attention_stream.cu).
+  // Else the streamed kernel (attention_stream.cu) where the heads' frame
+  // in the tiles of q, k and v is one output chunk; past it, every score
+  // once through the workspace (attention_once.cu).  ops/attention.py's
+  // scores_once mirrors the choice.
+  int shift = 0;
+  for (int i : {0, 1, 2})
+    shift = std::max(shift, col_shift(routes[i], st + 3 * i, heads));
+  if (d + shift >= kOnceMinFrame)
+    return launch_bf16_once(q, k, v, out, st, routes, ws, ws_bytes, batch,
+                            heads, nq, nk, d, scale_log2, pairs, s);
   return launch_bf16_stream(q, k, v, out, st, routes, batch, heads, nq, nk, d,
                             scale_log2, pairs, s);
 }
@@ -232,15 +241,18 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 // k, v and out, in that order; any d, nq, nk and B * H.  routes[3]: how
 // q, k and v are loaded (Route; ops/attention.py's bf16_route): any view
 // on the resident schedule (q's route unread there), TMA's on the
-// streamed one.
+// streamed one and the scores-once kernels.  ws: ws_bytes of device
+// memory for the scores-once kernels (ops/attention.py's workspace_bytes;
+// null where they do not run).
 extern "C" int mint_attention_bf16(const void* q, const void* k,
                                    const void* v, void* out,
                                    const long long* strides,
-                                   const int* routes, int batch, int heads,
+                                   const int* routes, void* ws,
+                                   long long ws_bytes, int batch, int heads,
                                    int nq, int nk, int d, float scale,
                                    void* stream) {
-  return launch_bf16(q, k, v, out, strides, routes, batch, heads, nq, nk, d,
-                     scale, stream);
+  return launch_bf16(q, k, v, out, strides, routes, ws, ws_bytes, batch,
+                     heads, nq, nk, d, scale, stream);
 }
 
 extern "C" const char* mint_error_string(int err) {

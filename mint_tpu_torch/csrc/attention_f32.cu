@@ -54,20 +54,27 @@
 //   chunks of up to 144, 192 or 256 columns, every column computed with no
 //   test (1.6x as fast as testing each against the chunk on an H100): 128
 //   accumulators a lane at D = 256, within the 255 registers a thread of
-//   a 256-thread block may take (ptxas: 238).  Past 256 columns the
-//   grid's z axis cuts the output into chunks of at most 256 (each block
-//   still computes every score over the whole head) and the block takes as
-//   many warps as fit, down to one, whose rows of Q fit up to a head of
-//   1016 columns (ops/attention.py's RESIDENT_Q_MAX_HEAD_DIM).
-// - f32, wider heads (attention_sliced_kernel): no width is refused.
-//   The same online softmax and P.V over output chunks on z, but neither Q
-//   nor a K tile is held whole: each 32-key tile's scores are summed in
-//   registers over 128-column slices of the head dim, Q's rows and the K
-//   tile's over one slice a stage, two stages in flight by cp.async (slice
-//   s + 1 lands while slice s is summed; V(t) with the tile's first
-//   slice).  Q's rows are read again for every key tile (from L2: one
-//   head's Q is at most 128 rows a block).  8 warps: two stages of 128 + 32
-//   rows of 132 floats, a V tile over a 256-column chunk and P take 217 KB.
+//   a 256-thread block may take (ptxas: 238).  It takes heads up to 256
+//   columns, one output chunk (z = 0).
+// - f32, wider heads (attention_scores_f32_kernel,
+//   attention_softmax_f32_kernel, attention_pv_f32_kernel): no width is
+//   refused, and each score is computed once a call.  Past 256 columns a
+//   block's output chunk and Q's rows no longer fit beside each other, so
+//   the wide kernel's schedule would cut the output into chunks on the
+//   grid's z axis, each block computing every score again (5 chunks at
+//   D = 1032, 8 at 2048; an H100 ran that 2.1x as slow at D = 264, 8.3x
+//   at 2048).  Instead three launches go through a workspace: kernel 1, a register-blocked SGEMM over (64 query rows,
+//   64 keys) tiles (csrc/mlp.cu's gemm_nt_kernel schedule: 32-column
+//   stages by cp.async, three in flight, 8 x 4 micro-tiles), writes the
+//   scaled scores; kernel 2, a warp a row, finds each row's max and sum
+//   and writes P = exp(s - max) / sum over them; kernel 3, an SGEMM over
+//   (64 rows, 64 output columns) tiles, sums P v over the keys.  The work
+//   is 4 Nq Nk D flops, 8.5 GFLOP at q[2,4,360,2048], 0.127 ms on the FMA
+//   pipes: the workspace's round trip (4 Nq Nk bytes a head, 4.4 MB
+//   there, in L2) is a few percent of it.  The workspace comes from
+//   PyTorch's caching allocator (ops/attention.py's workspace_bytes), its
+//   64-row units (a pair's query tile) taken in as many launch groups as
+//   it takes.
 //
 // The kernels put the (batch, head) pairs on the grid's y axis, at most
 // 65535 a launch; the C entry points launch as many times as B * H needs,
@@ -84,13 +91,7 @@ constexpr int kMaxWarps = 4;   // warps per block
 constexpr int kKTile = 32;     // keys per K and V tile
 constexpr int kLdP = kKTile + 4;  // P row: (stride / 4) odd, as in tile_ld
 constexpr int kWideMaxWarps = 8;  // warps a block of attention_wide_kernel
-constexpr int kWideMaxD = 256;    // output columns a block of it owns
-constexpr int kSliceD = 128;      // head-dim columns a slice (sliced kernel)
-// The widest head attention_wide_kernel takes: up to it one warp's rows of
-// Q fit beside the tiles at every width (ops/attention.py's
-// RESIDENT_Q_MAX_HEAD_DIM; a few wider ones would fit at one warp, where
-// a narrower output chunk leaves room, but 16 rows a block).
-constexpr int kWideResidentMaxD = 1016;
+constexpr int kWideMaxD = 256;    // the widest head it takes
 
 // Floats per row of a Q, K or V tile in shared memory: the head dim
 // rounded up to a float4, padded so that (stride / 4) is odd: eight rows
@@ -113,14 +114,6 @@ size_t wide_smem_bytes(int d, int dc, int warps) {
          ((size_t)(kWarpRows * warps + kKTile) * tile_ld(d) +
           (size_t)kKTile * tile_ld(dc) +
           (size_t)warps * kWarpRows * (kLdP + 2));
-}
-
-// attention_sliced_kernel: two stages of Q's rows and a K tile over one
-// slice, a V tile over the dc columns of the block's output chunk, and P.
-size_t sliced_smem_bytes(int dc, int warps) {
-  return sizeof(float) *
-         (2 * (size_t)(kWarpRows * warps + kKTile) * tile_ld(kSliceD) +
-          (size_t)kKTile * tile_ld(dc) + (size_t)warps * kWarpRows * (kLdP + 2));
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -571,137 +564,332 @@ __global__ void __launch_bounds__(32 * kWideMaxWarps)
                  nq, dcz, vec ? 16 : 4, sr, sc, pr, pq);
 }
 
-// The columns [0, w) of rows [r0, r0 + rows) of an [n, *] matrix whose
-// rows are `stride` elements apart into dst[rows][ld], and zeros in the
-// columns w .. 4 ceil(w / 4) and in rows past n.  vec: 16-byte copies (w,
-// the stride and the base multiples of 4 floats), else 4-byte ones.
-__device__ __forceinline__ void load_slice(float* dst, int ld,
-                                           const float* src, long long stride,
-                                           int r0, int rows, int n, int w,
-                                           bool vec) {
-  if (vec) {
-    load_rows(dst, ld, src, stride, r0, rows, n, w, true);
-    return;
-  }
-  const int wp = (w + 3) / 4 * 4;
-  for (int i = threadIdx.x; i < rows * wp; i += blockDim.x) {
-    const int r = i / wp;
-    const int c = i - r * wp;
-    const bool ok = r0 + r < n && c < w;
-    mint::cp_async4(dst + r * ld + c, ok ? src + (r0 + r) * stride + c : src,
-                    ok);
+// ---- f32, every score once: heads past one output chunk ------------------
+
+constexpr int kOnceRows = 64;     // query rows a unit (a block of kernels 1-3)
+constexpr int kOnceKeys = 64;     // keys a scores block
+constexpr int kOnceCols = 64;     // output columns a P.V block
+constexpr int kOnceK = 32;        // head-dim columns (or keys) a stage
+constexpr int kOnceLd = kOnceK + 4;  // a staged row: 16-byte aligned, eight
+                                     // rows at one column in 8 bank quads
+constexpr int kOnceVLd = kOnceCols + 4;  // a staged V row
+constexpr int kOnceStages = 3;    // cp.async ring depth
+constexpr int kOnceThreads = 128;    // a block of kernel 3
+constexpr int kOnceScoreTM = 8;      // kernel 1's micro-tile rows
+constexpr int kOnceMinD = kWideMaxD + 1;  // the narrowest head they take
+
+// A unit's workspace: its 64 rows of scores, then P in place, each nk
+// rounded up to a stage of keys (ops/attention.py's workspace_bytes).
+__host__ __device__ __forceinline__ int once_ld(int nk) {
+  return (nk + kOnceK - 1) / kOnceK * kOnceK;
+}
+long long once_f32_unit_bytes(int nk) {
+  return 4LL * kOnceRows * once_ld(nk);
+}
+
+// Copies the 4 floats at src (the first `cols` real, more than 0 whole
+// with kVec) to dst, or zeros where !row_ok (src then unread; `any` a
+// mapped address for the copy's operand).
+template <bool kVec>
+__device__ __forceinline__ void copy4(float* dst, const float* src,
+                                      const float* any, bool row_ok,
+                                      int cols) {
+  if constexpr (kVec) {
+    const bool ok = row_ok && cols > 0;
+    mint::cp_async16(dst, ok ? src : any, ok);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool ok = row_ok && e < cols;
+      mint::cp_async4(dst + e, ok ? src + e : any, ok);
+    }
   }
 }
 
-// Heads past attention_wide_kernel's shared memory: one block per (batch*
-// head bh0 + blockIdx.y, 16 * warps query rows, output chunk blockIdx.z of
-// dc columns).  Its schedule and arithmetic, with each 32-key tile's
-// scores summed over slices of kSliceD head-dim columns: stage g (key tile
-// g / slices, slice g % slices) holds Q's rows and the K tile over that
-// slice, in buffer g % 2; stage g + 1 is in flight while stage g is
-// summed, V(t) from the tile's first stage on.  The scores of a slice are
-// exact: its columns past d are zeros in Q and K.
-template <int NQ>
-__global__ void __launch_bounds__(32 * kWideMaxWarps)
-    attention_sliced_kernel(const float* __restrict__ q,
-                            const float* __restrict__ k,
-                            const float* __restrict__ v,
-                            float* __restrict__ out, Strides qs_,
-                            Strides ks_, Strides vs_, Strides os_, int heads,
-                            int nq, int nk, int d, int dc, float scale,
-                            bool vec, long long bh0) {
+// Kernel 1.  One block per (64-key tile blockIdx.x, pair bh0 + blockIdx.y,
+// query tile qt0 + blockIdx.z: unit blockIdx.y nqt + blockIdx.z of the
+// launch): the tile's scores q . k, summed over the head dim in stages of
+// 32 columns of Q's 64 rows and K's 64 (cp.async, three in flight, one
+// block barrier a stage: the schedule of csrc/mlp.cu's gemm_nt_kernel),
+// each of 16 * 64 / TM threads a TM x 4 outer-product micro-tile (rows ty
+// + 64 / TM i, keys tx + 16 j) fed by float4 reads along the head dim
+// (TM + 4 loads a 16 TM FMAs).  TM = kOnceScoreTM = 8, 128 threads: 4,
+// twice the warps an SM at q[2,4,360,D], ran 2-3% slower on an H100.
+// Columns past d and rows past nq or nk stage as zeros, so each score is
+// exact; the unit's rows get them scaled, keys below nk.  kVec: 16-byte
+// copies (d, the strides and the bases multiples of 4 floats), else 4-byte
+// ones.
+template <bool kVec>
+__global__ void __launch_bounds__(16 * kOnceRows / kOnceScoreTM)
+    attention_scores_f32_kernel(const float* __restrict__ q,
+                                const float* __restrict__ k, Strides qs_,
+                                Strides ks_, float* __restrict__ ws,
+                                int heads, int nq, int nk, int d,
+                                float scale, long long bh0, int qt0,
+                                int nqt) {
   extern __shared__ float4 smem4[];
-  const int ld = tile_ld(kSliceD), ldv = tile_ld(dc);
-  const int dc4 = (dc + 3) / 4;
-  const int warps = blockDim.x / 32;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int rows = kWarpRows * warps;
-  const int stage = (rows + kKTile) * ld;  // Q's rows, then the K tile
-  float* st0 = reinterpret_cast<float*>(smem4);  // [2][stage]
-  float* vs = st0 + 2 * stage;                   // [kKTile][ldv]
-  float* ps = vs + kKTile * ldv + warp * kWarpRows * (kLdP + 2);
-  float* alpha_s = ps + kWarpRows * kLdP;
-  float* l_s = alpha_s + kWarpRows;
-
+  constexpr int kTM = kOnceScoreTM, kRowStep = kOnceRows / kTM;
+  constexpr int kThreads = 16 * kRowStep;
+  constexpr int kTile = kOnceRows * kOnceLd;
+  float* as = reinterpret_cast<float*>(smem4);  // [stages][64][kOnceLd]
+  float* bs = as + kOnceStages * kTile;         // [stages][64][kOnceLd]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  // A warp is 4 x 8 threads: its Q reads touch 4 rows, its K reads 8.
+  const int tx = (warp % 2) * 8 + lane % 8;
+  const int ty = (warp / 2) * 4 + lane / 8;
   const long long bh = bh0 + blockIdx.y;
   const int b = (int)(bh / heads), h = (int)(bh % heads);
-  const int q0 = blockIdx.x * rows;
-  const int c0 = blockIdx.z * dc;  // this block's output columns
-  const int dcz = min(dc, d - c0);
+  const int m0 = (qt0 + blockIdx.z) * kOnceRows, n0 = blockIdx.x * kOnceKeys;
   const float* qh = q + b * qs_.b + h * qs_.h;
   const float* kh = k + b * ks_.b + h * ks_.h;
-  const float* vh = v + b * vs_.b + h * vs_.h + c0;
-  const int slices = (d + kSliceD - 1) / kSliceD;
-  const int total = slices * ((nk + kKTile - 1) / kKTile);
-  auto load_stage = [&](int g) {
-    const int col = kSliceD * (g % slices), w = min(kSliceD, d - col);
-    float* qs = st0 + (g % 2) * stage;
-    load_slice(qs, ld, qh + col, qs_.n, q0, rows, nq, w, vec);
-    load_slice(qs + rows * ld, ld, kh + col, ks_.n, kKTile * (g / slices),
-               kKTile, nk, w, vec);
-  };
-  load_stage(0);
-  mint::cp_async_commit();
-
-  const int sr = lane / 8, sc = lane % 8;
-  const int pr = lane / 4, pq = lane % 4;
-  float m[4], lsum[4];
+  const int tiles = (d + kOnceK - 1) / kOnceK;
+  // This thread copies columns cc .. cc + 3 of rows cr + kThreads / 8 p
+  // of a stage.
+  const int cr = tid / 8, cc = 4 * (tid % 8);
+  auto load = [&](int t) {
+    const int c = t * kOnceK + cc;
+    float* ad = as + (t % kOnceStages) * kTile + cr * kOnceLd + cc;
+    float* bd = bs + (t % kOnceStages) * kTile + cr * kOnceLd + cc;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    lsum[i] = 0.f;
-  }
-  float4 acc[2][NQ];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int u = 0; u < NQ; ++u) acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  constexpr int kJ = kKTile / 8;
-  int g = 0;
-  for (int k0 = 0; k0 < nk; k0 += kKTile) {
-    float s[4][kJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kJ; ++j) s[i][j] = 0.f;
-    for (int sl = 0; sl < slices; ++sl, ++g) {
-      // Stage g has landed for every thread, and every warp is done with
-      // stage g - 1 (and, on a tile's first slice, with V(t - 1)).
-      mint::cp_async_wait<0>();
-      __syncthreads();
-      if (sl == 0) load_rows(vs, ldv, vh, vs_.n, k0, kKTile, nk, dcz, vec);
-      if (g + 1 < total) load_stage(g + 1);
-      mint::cp_async_commit();
-      const float* qs = st0 + (g % 2) * stage;
-      const float* qw = qs + (warp * kWarpRows + sr) * ld;
-      const float* kt = qs + (rows + sc) * ld;
-      const int w = min(kSliceD, d - kSliceD * sl);
-      if (w == kSliceD)
-        scores_fma<kJ>(s, qw, kt, ld, kSliceD / 4);
-      else
-        scores_fma<kJ>(s, qw, kt, ld, (w + 3) / 4);
+    for (int r = 0; r < kOnceRows; r += kThreads / 8) {
+      copy4<kVec>(ad + r * kOnceLd, qh + (m0 + r + cr) * qs_.n + c, q,
+                  m0 + r + cr < nq, d - c);
+      copy4<kVec>(bd + r * kOnceLd, kh + (n0 + r + cr) * ks_.n + c, q,
+                  n0 + r + cr < nk, d - c);
     }
-    const int valid = nk - k0;
-    softmax_tile<kJ>(s, m, lsum, ps, alpha_s, sr, sc, valid, scale);
-
-    // V(t) has landed, and every warp has written its P.
-    mint::cp_async_wait<0>();
-    __syncthreads();
-    pv_fma<NQ, false>(acc, ps, alpha_s, vs, ldv, pr, pq,
-                      (min(kKTile, valid) + 3) & ~3, dc4);
+  };
+#pragma unroll
+  for (int t = 0; t < kOnceStages - 1; ++t) {
+    if (t < tiles) load(t);
+    mint::cp_async_commit();
   }
+  float acc[kTM][4];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int t = 0; t < tiles; ++t) {
+    // Stage t has landed (for every thread after the barrier), and every
+    // thread is done with stage t - 1, whose slot the next copy reuses.
+    mint::cp_async_wait<kOnceStages - 2>();
+    __syncthreads();
+    if (t + kOnceStages - 1 < tiles) load(t + kOnceStages - 1);
+    mint::cp_async_commit();
+    const float* at = as + (t % kOnceStages) * kTile + ty * kOnceLd;
+    const float* bt = bs + (t % kOnceStages) * kTile + tx * kOnceLd;
+#pragma unroll
+    for (int kk = 0; kk < kOnceK; kk += 4) {
+      float4 bv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = ld4(bt + 16 * j * kOnceLd + kk);
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) {
+        const float4 av = ld4(at + kRowStep * i * kOnceLd + kk);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][j] = fmaf(av.x, bv[j].x, acc[i][j]);
+          acc[i][j] = fmaf(av.y, bv[j].y, acc[i][j]);
+          acc[i][j] = fmaf(av.z, bv[j].z, acc[i][j]);
+          acc[i][j] = fmaf(av.w, bv[j].w, acc[i][j]);
+        }
+      }
+    }
+  }
+  const int ld = once_ld(nk);
+  float* su = ws + ((long long)blockIdx.y * nqt + blockIdx.z) * kOnceRows * ld;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int key = n0 + tx + 16 * j;
+    if (key >= nk) continue;
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+      su[(ty + kRowStep * i) * ld + key] = acc[i][j] * scale;
+  }
+}
 
-  const int row0 = q0 + warp * kWarpRows;
-  write_rows<NQ>(acc, lsum, l_s,
-                 out + b * os_.b + h * os_.h + row0 * os_.n + c0, os_.n, row0,
-                 nq, dcz, vec ? 16 : 4, sr, sc, pr, pq);
+// Kernel 2.  One warp per query row below nq, 8 a block (rows 8
+// (blockIdx.x % 8) .. of unit blockIdx.y nqt + blockIdx.x / 8): the row's
+// max m over its nk scores, the sum l of exp(s - m), then P = exp(s - m)
+// / l in place, exactly normalised as the TPU kernel's (a no-op cast in
+// f32), and zeros from nk to the row's end.  Each pass's loads are
+// independent of each other: a warp a row keeps enough of them in flight.
+__global__ void __launch_bounds__(256)
+    attention_softmax_f32_kernel(float* __restrict__ ws, int nq, int nk,
+                                 int qt0, int nqt) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ld = once_ld(nk);
+  const int qt = blockIdx.x / 8, r = 8 * (blockIdx.x % 8) + warp;
+  if ((qt0 + qt) * kOnceRows + r >= nq) return;
+  float* p = ws + (((long long)blockIdx.y * nqt + qt) * kOnceRows + r) * ld;
+  float m = -INFINITY;
+  for (int c = lane; c < nk; c += 32) m = fmaxf(m, p[c]);
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  float l = 0.f;
+  for (int c = lane; c < nk; c += 32) l += expf(p[c] - m);
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1)
+    l += __shfl_xor_sync(0xffffffffu, l, off);
+  for (int c = lane; c < ld; c += 32)
+    p[c] = c < nk ? expf(p[c] - m) / l : 0.f;
+}
+
+// Kernel 3.  One block per (64-column chunk blockIdx.x of the output, pair
+// bh0 + blockIdx.y, query tile qt0 + blockIdx.z: unit blockIdx.y nqt +
+// blockIdx.z), 128 threads: the chunk of P v over the keys in stages of
+// 32 (the unit's P, 64 x 32, and V's 32 x 64 tile; cp.async, three in
+// flight), each thread 8 rows (ty + 8 i) by one float4 of columns (4 tx
+// ..) fed by float4 reads of P along the keys and of V along the columns
+// (12 loads a 128 FMAs).  P's rows past nq stage as zeros, and V's keys
+// past nk and columns past d; the rows below nq and columns below d are
+// stored, `copy` bytes a store where the output allows (16, 8 or 4).
+template <bool kVec>
+__global__ void __launch_bounds__(kOnceThreads)
+    attention_pv_f32_kernel(const float* __restrict__ ws,
+                            const float* __restrict__ v, Strides vs_,
+                            float* __restrict__ out, Strides os_, int heads,
+                            int nq, int nk, int d, int copy, long long bh0,
+                            int qt0, int nqt) {
+  extern __shared__ float4 smem4[];
+  constexpr int kPTile = kOnceRows * kOnceLd;
+  constexpr int kVTile = kOnceK * kOnceVLd;
+  float* ps = reinterpret_cast<float*>(smem4);  // [stages][64][kOnceLd]
+  float* vs = ps + kOnceStages * kPTile;        // [stages][32][kOnceVLd]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tx = lane % 16, ty = 2 * warp + lane / 16;
+  const long long bh = bh0 + blockIdx.y;
+  const int b = (int)(bh / heads), h = (int)(bh % heads);
+  const int row0 = (qt0 + blockIdx.z) * kOnceRows;
+  const int c0 = blockIdx.x * kOnceCols;
+  const int ld = once_ld(nk);
+  const float* pu =
+      ws + ((long long)blockIdx.y * nqt + blockIdx.z) * kOnceRows * ld;
+  const float* vh = v + b * vs_.b + h * vs_.h + c0;
+  const int tiles = ld / kOnceK;
+  // This thread copies P's columns pc .. pc + 3 of rows pr + 16 p, and
+  // V's columns vc .. vc + 3 of keys vr + 8 p.
+  const int pr = tid / 8, pc = 4 * (tid % 8);
+  const int vr = tid / 16, vc = 4 * (tid % 16);
+  auto load = [&](int t) {
+    const int k0 = t * kOnceK;
+    float* pd = ps + (t % kOnceStages) * kPTile + pr * kOnceLd + pc;
+    float* vd = vs + (t % kOnceStages) * kVTile + vr * kOnceVLd + vc;
+#pragma unroll
+    for (int r = 0; r < kOnceRows; r += kOnceThreads / 8)
+      copy4<true>(pd + r * kOnceLd, pu + (r + pr) * ld + k0 + pc, ws,
+                  row0 + r + pr < nq, 4);
+#pragma unroll
+    for (int r = 0; r < kOnceK; r += kOnceThreads / 16)
+      copy4<kVec>(vd + r * kOnceVLd, vh + (k0 + r + vr) * vs_.n + vc, ws,
+                  k0 + r + vr < nk, d - c0 - vc);
+  };
+#pragma unroll
+  for (int t = 0; t < kOnceStages - 1; ++t) {
+    if (t < tiles) load(t);
+    mint::cp_async_commit();
+  }
+  float4 acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int t = 0; t < tiles; ++t) {
+    mint::cp_async_wait<kOnceStages - 2>();
+    __syncthreads();
+    if (t + kOnceStages - 1 < tiles) load(t + kOnceStages - 1);
+    mint::cp_async_commit();
+    const float* pt = ps + (t % kOnceStages) * kPTile + ty * kOnceLd;
+    const float* vt = vs + (t % kOnceStages) * kVTile + 4 * tx;
+#pragma unroll
+    for (int kk = 0; kk < kOnceK; kk += 4) {
+      float4 vv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) vv[e] = ld4(vt + (kk + e) * kOnceVLd);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 pv = ld4(pt + 8 * i * kOnceLd + kk);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float a = get(pv, e);
+          acc[i].x = fmaf(a, vv[e].x, acc[i].x);
+          acc[i].y = fmaf(a, vv[e].y, acc[i].y);
+          acc[i].z = fmaf(a, vv[e].z, acc[i].z);
+          acc[i].w = fmaf(a, vv[e].w, acc[i].w);
+        }
+      }
+    }
+  }
+  const int c = c0 + 4 * tx;
+  if (c >= d) return;
+  float* oh = out + b * os_.b + h * os_.h + c;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = row0 + ty + 8 * i;
+    if (row >= nq) continue;
+    float* o = oh + row * os_.n;
+    const float4 x = acc[i];
+    if (copy == 16) {
+      *reinterpret_cast<float4*>(o) = x;
+    } else if (copy == 8) {
+      *reinterpret_cast<float2*>(o) = make_float2(x.x, x.y);
+      if (c + 2 < d) *reinterpret_cast<float2*>(o + 2) = make_float2(x.z, x.w);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (c + e < d) o[e] = get(x, e);
+    }
+  }
+}
+
+// The three kernels over the (batch, head) pairs' query tiles, as many
+// units a group as ws_bytes of workspace at ws hold.
+template <bool kVec>
+int launch_f32_once(const float* q, const float* k, const float* v,
+                    float* out, Strides qs, Strides ks, Strides vs,
+                    Strides os, void* ws, long long ws_bytes, int batch,
+                    int heads, int nq, int nk, int d, float scale, int copy,
+                    cudaStream_t stream) {
+  const long long fit = ws_bytes / once_f32_unit_bytes(nk);
+  if (ws == nullptr || fit < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem1 =
+      sizeof(float) * kOnceStages * 2 * kOnceRows * kOnceLd;
+  const size_t smem3 = sizeof(float) * kOnceStages *
+                       (kOnceRows * kOnceLd + kOnceK * kOnceVLd);
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_scores_f32_kernel<kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attention_pv_f32_kernel<kVec>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem3);
+  if (err != cudaSuccess) return (int)err;
+  const int qtiles = (nq + kOnceRows - 1) / kOnceRows;
+  const unsigned ktiles = (unsigned)((nk + kOnceKeys - 1) / kOnceKeys);
+  const unsigned chunks = (unsigned)((d + kOnceCols - 1) / kOnceCols);
+  auto* w = static_cast<float*>(ws);
+  return (int)over_groups(
+      (long long)batch * heads, qtiles, fit, 65535, [&](const Group& grp) {
+        const unsigned np = (unsigned)grp.np, nqt = (unsigned)grp.nqt;
+        attention_scores_f32_kernel<kVec>
+            <<<dim3(ktiles, np, nqt), 16 * kOnceRows / kOnceScoreTM, smem1,
+               stream>>>(
+                q, k, qs, ks, w, heads, nq, nk, d, scale, grp.bh0, grp.qt0,
+                grp.nqt);
+        cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return e;
+        attention_softmax_f32_kernel<<<dim3(8 * nqt, np), 256, 0, stream>>>(
+            w, nq, nk, grp.qt0, grp.nqt);
+        if ((e = cudaGetLastError()) != cudaSuccess) return e;
+        attention_pv_f32_kernel<kVec>
+            <<<dim3(chunks, np, nqt), kOnceThreads, smem3, stream>>>(
+                w, v, vs, out, os, heads, nq, nk, d, copy, grp.bh0, grp.qt0,
+                grp.nqt);
+        return cudaGetLastError();
+      });
 }
 
 int launch_f32(const void* q, const void* k, const void* v, void* out,
-               const long long* st, int batch, int heads, int nq, int nk,
-               int d, float scale, void* stream) {
+               const long long* st, void* ws, long long ws_bytes, int batch,
+               int heads, int nq, int nk, int d, float scale, void* stream) {
   const long long bh = (long long)batch * heads;
   if (bh <= 0 || nq <= 0 || nk <= 0 || d <= 0)
     return (int)cudaErrorInvalidValue;
@@ -725,25 +913,22 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
   const auto* vp = static_cast<const float*>(v);
   auto* op = static_cast<float*>(out);
   const cudaStream_t s = (cudaStream_t)stream;
+  // Past one output chunk, every score once through the workspace
+  // (ops/attention.py's scores_once mirrors the choice).
+  if (d >= kOnceMinD)
+    return vec ? launch_f32_once<true>(qp, kp, vp, op, qs, ks, vs, os, ws,
+                                       ws_bytes, batch, heads, nq, nk, d,
+                                       scale, copy, s)
+               : launch_f32_once<false>(qp, kp, vp, op, qs, ks, vs, os, ws,
+                                        ws_bytes, batch, heads, nq, nk, d,
+                                        scale, copy, s);
   if (d > kMaxD) {
-    // Output chunks of at most kWideMaxD columns, as even as float4 steps
-    // allow; up to kWideMaxWarps warps, as many as fit in shared memory.
-    const int chunks = (d + kWideMaxD - 1) / kWideMaxD;
-    const int dc = ((d + chunks - 1) / chunks + 3) / 4 * 4;
-    // Q resident (attention_wide_kernel) up to kWideResidentMaxD, else the
-    // sliced kernel.
+    // One output chunk of the whole head; up to kWideMaxWarps warps (all
+    // fit in shared memory up to kWideMaxD columns).
+    const int dc = (d + 3) / 4 * 4;
     warps = min(kWideMaxWarps, (nq + kWarpRows - 1) / kWarpRows);
-    const bool sliced = d > kWideResidentMaxD;
-    auto bytes = [&](int w) {
-      return sliced ? sliced_smem_bytes(dc, w) : wide_smem_bytes(d, dc, w);
-    };
-    while (warps > 1 && bytes(warps) > kSmemLimit) --warps;
-    const size_t smem = bytes(warps);
-    if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-    auto kernel = sliced ? (dc <= 144   ? attention_sliced_kernel<9>
-                            : dc <= 192 ? attention_sliced_kernel<12>
-                                        : attention_sliced_kernel<16>)
-                  : dc <= 144 ? attention_wide_kernel<9>
+    const size_t smem = wide_smem_bytes(d, dc, warps);
+    auto kernel = dc <= 144   ? attention_wide_kernel<9>
                   : dc <= 192 ? attention_wide_kernel<12>
                               : attention_wide_kernel<16>;
     cudaError_t err = cudaFuncSetAttribute(
@@ -751,7 +936,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
     if (err != cudaSuccess) return (int)err;
     const int rows = kWarpRows * warps;
     return (int)over_pairs(
-        bh, (unsigned)((nq + rows - 1) / rows), (unsigned)chunks,
+        bh, (unsigned)((nq + rows - 1) / rows), 1,
         [&](dim3 grid, long long bh0) {
           kernel<<<grid, 32 * warps, smem, s>>>(qp, kp, vp, op, qs, ks, vs,
                                                os, heads, nq, nk, d, dc,
@@ -817,9 +1002,10 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
 // k, v and out, in that order; any d, nq, nk and B * H.
 extern "C" int mint_attention_f32(const void* q, const void* k,
                                   const void* v, void* out,
-                                  const long long* strides, int batch,
-                                  int heads, int nq, int nk, int d,
-                                  float scale, void* stream) {
-  return launch_f32(q, k, v, out, strides, batch, heads, nq, nk, d, scale,
-                    stream);
+                                  const long long* strides, void* ws,
+                                  long long ws_bytes, int batch, int heads,
+                                  int nq, int nk, int d, float scale,
+                                  void* stream) {
+  return launch_f32(q, k, v, out, strides, ws, ws_bytes, batch, heads, nq, nk,
+                    d, scale, stream);
 }

@@ -27,16 +27,7 @@ namespace {
 // the head lies as many columns into Q's tiles as into K's): the chunks
 // then cover the head's frame, and each consumer warpgroup zeroes the
 // columns around the head in its Q tiles once.
-// kQRing: heads whose Q tiles and two ring slots do not fit (a frame over
-// 1344 columns).  Q's chunks ride the ring with K's: a slot is wgs + 1
-// tiles, and each score load brings chunk c of every live consumer's Q
-// rows (tile w of the slot) with K tile t's chunk c (tile wgs), so K's
-// chunk c still meets Q's chunk c and each score is summed over the
-// chunks in wgmma's accumulators, once a pass; a V load takes the slot's
-// first tile.  Q is read from L2 again for every key tile of each pass;
-// the columns around the head in a Q tile are zeroed at each arrival,
-// where a chunk has any (the first and last), before its product.
-template <int W, int kWgs, bool kQRing>
+template <int W, int kWgs>
 __global__ void __launch_bounds__(128 * kWgs + kStreamProducer, 1)
     attention_tc_stream_kernel(const __grid_constant__ CUtensorMap qwide,
                                const __grid_constant__ CUtensorMap qnarrow,
@@ -56,10 +47,7 @@ __global__ void __launch_bounds__(128 * kWgs + kStreamProducer, 1)
   const uint32_t base = mint::smem_addr(smem_raw) + kTcBarBytes;
   uint8_t* qs = smem_raw + kTcBarBytes + (1024 - base % 1024) % 1024;
   const int wgs = (blockDim.x - kStreamProducer) / 128;
-  uint8_t* ring = kQRing ? qs : qs + wgs * chunks * T::kBytes;
-  // A slot's bytes: Q's tiles of the wgs consumers and K's (kQRing), or
-  // one tile.
-  const int slot_bytes = (kQRing ? wgs + 1 : 1) * T::kBytes;
+  uint8_t* ring = qs + wgs * chunks * T::kBytes;
 
   const long long bh = bh0 + blockIdx.y;
   const int b = (int)(bh / heads), h = (int)(bh % heads);
@@ -99,42 +87,26 @@ __global__ void __launch_bounds__(128 * kWgs + kStreamProducer, 1)
     // Q's tiles of the consumers with rows below nq (the others' rows
     // are never stored, and their scores never read).
     const int live = min(wgs, (nq - q0 + kTcWgRows - 1) / kTcWgRows);
-    if constexpr (!kQRing) {
-      mint::mbar_expect_tx(qbar, live * chunks * T::kBytes);
-      for (int w = 0; w < live; ++w)
-        for (int c = 0; c < chunks; ++c)
-          load(&qwide, &qnarrow, qstep, qs + (w * chunks + c) * T::kBytes,
-               qbar, q0 + kTcWgRows * w, W * c);
-    }
-    // A score load: K tile t's chunk c, after (kQRing) the live
-    // consumers' Q chunk c.
-    auto scores_load = [&](uint8_t* dst, uint64_t* bar, int t, int c) {
-      if constexpr (kQRing) {
-        mint::mbar_expect_tx(bar, (live + 1) * T::kBytes);
-        for (int w = 0; w < live; ++w)
-          load(&qwide, &qnarrow, qstep, dst + w * T::kBytes, bar,
-               q0 + kTcWgRows * w, W * c);
-        dst += wgs * T::kBytes;
-      } else {
-        mint::mbar_expect_tx(bar, T::kBytes);
-      }
-      load(&kwide, &knarrow, kstep, dst, bar, kTcKeys * t, W * c);
-    };
+    mint::mbar_expect_tx(qbar, live * chunks * T::kBytes);
+    for (int w = 0; w < live; ++w)
+      for (int c = 0; c < chunks; ++c)
+        load(&qwide, &qnarrow, qstep, qs + (w * chunks + c) * T::kBytes,
+             qbar, q0 + kTcWgRows * w, W * c);
     for (int j = 0; j < total; ++j) {
       const int i = j % slots, use = j / slots;
       if (use > 0) mint::mbar_wait_or_trap(empty + i, (use - 1) & 1);
-      uint8_t* dst = ring + i * slot_bytes;
+      mint::mbar_expect_tx(full + i, T::kBytes);
+      uint8_t* dst = ring + i * T::kBytes;
       if (j < pass1) {
-        scores_load(dst, full + i, j / chunks, j % chunks);
+        load(&kwide, &knarrow, kstep, dst, full + i, kTcKeys * (j / chunks),
+             W * (j % chunks));
       } else {
         const int t = (j - pass1) / (chunks + 1);
         const int r = (j - pass1) % (chunks + 1);
-        if (r < chunks) {
-          scores_load(dst, full + i, t, r);
-        } else {
-          mint::mbar_expect_tx(full + i, T::kBytes);
+        if (r < chunks)
+          load(&kwide, &knarrow, kstep, dst, full + i, kTcKeys * t, W * r);
+        else
           load(&vwide, &vnarrow, vstep, dst, full + i, kTcKeys * t, W * z);
-        }
       }
     }
     return;
@@ -152,7 +124,7 @@ __global__ void __launch_bounds__(128 * kWgs + kStreamProducer, 1)
   int next = 0;
   auto acquire = [&]() -> uint8_t* {
     mint::mbar_wait_or_trap(full + next % slots, (next / slots) & 1);
-    return ring + (next % slots) * slot_bytes;
+    return ring + (next % slots) * T::kBytes;
   };
   auto release = [&]() {
     if (lane == 0) mint::mbar_arrive(empty + next % slots);
@@ -164,29 +136,16 @@ __global__ void __launch_bounds__(128 * kWgs + kStreamProducer, 1)
   // product is done.
   auto scores = [&]() {
     for (int c = 0; c < chunks; ++c) {
-      uint8_t* kt = acquire();
-      uint8_t* qc = qt + c * T::kBytes;
-      if constexpr (kQRing) {
-        qc = kt + wg * T::kBytes;
-        kt += wgs * T::kBytes;
-        // Columns around the head in this chunk of Q: zeros (the same
-        // test for the whole warpgroup).
-        if (qstep && (ko > W * c || ko + d < W * (c + 1))) {
-          zero_outside<W>(qc, ko - W * c, ko + d - W * c, threadIdx.x % 128,
-                          128);
-          mint::fence_proxy_async();
-          mint::named_bar_sync(1 + wg, 128);
-        }
-      }
+      const uint8_t* kt = acquire();
       mint::wgmma_fence();
-      tc_scores_ss<W>(qc, kt, s, c > 0);
+      tc_scores_ss<W>(qt + c * T::kBytes, kt, s, c > 0);
       mint::wgmma_commit();
       mint::wgmma_wait<0>();
       release();
     }
   };
-  if (!kQRing) mint::mbar_wait_or_trap(qbar, 0);
-  if (!kQRing && qstep) {
+  mint::mbar_wait_or_trap(qbar, 0);
+  if (qstep) {
     for (int c = 0; c < chunks; ++c)
       zero_outside<W>(qt + c * T::kBytes, ko - W * c, ko + d - W * c,
                       threadIdx.x % 128, 128);
@@ -266,10 +225,8 @@ __global__ void __launch_bounds__(128 * kWgs + kStreamProducer, 1)
 // bound's threads rounded up to whole warpgroups (168 a thread at 2 + 1
 // warpgroups, 128 at 3 + 1), and a consumer holds W / 2 accumulator
 // registers for P.V besides 32 for the scores and 16 for P; fewer where
-// their Q tiles would leave the ring under two slots.  Where even one
-// warpgroup's Q tiles leave it under two, Q rides the ring (kQRing): the
-// chunks of such a frame are at least kStreamQRingW wide.  The ring as
-// deep as shared memory allows, up to kStreamMaxSlots.
+// their Q tiles would leave the ring under two slots.  The ring as deep
+// as shared memory allows, up to kStreamMaxSlots.
 template <int W>
 cudaError_t launch_tc_stream(const void* q, const void* k, const void* v,
                              const long long* st, const int* routes,
@@ -279,23 +236,18 @@ cudaError_t launch_tc_stream(const void* q, const void* k, const void* v,
                              bool pairs, cudaStream_t stream) {
   constexpr int kWgs = W <= kStreamWideW ? kStreamMaxWgs : 2;
   constexpr size_t kTile = TcTile<W>::kBytes;
-  const bool qring = tc_stream_smem_bytes(W, 1, chunks, 2) > kSmemLimit;
   auto slots_for = [&](int wgs) {
-    const size_t used = qring ? 2 * kTcBarBytes
-                              : tc_stream_smem_bytes(W, wgs, chunks, 0);
-    const size_t slot = (qring ? wgs + 1 : 1) * kTile;
+    const size_t used = tc_stream_smem_bytes(W, wgs, chunks, 0);
     return used > kSmemLimit ? 0
                              : (int)std::min<size_t>(kStreamMaxSlots,
                                                      (kSmemLimit - used) /
-                                                         slot);
+                                                         kTile);
   };
   int wgs = std::min(kWgs, (nq + kTcWgRows - 1) / kTcWgRows);
   while (wgs > 1 && slots_for(wgs) < 2) --wgs;
   const int slots = slots_for(wgs);
-  if (slots < 2) return cudaErrorInvalidValue;
-  const size_t smem =
-      qring ? 2 * kTcBarBytes + (size_t)slots * (wgs + 1) * kTile
-            : tc_stream_smem_bytes(W, wgs, chunks, slots);
+  if (slots < 2) return cudaErrorInvalidValue;  // Q does not fit
+  const size_t smem = tc_stream_smem_bytes(W, wgs, chunks, slots);
   CUtensorMap qm[2], km[2], vm[2];
   if (!tc_maps<W>(qm, q, st, routes[0], batch, heads, nq, d) ||
       !tc_maps<W>(km, k, st + 3, routes[1], batch, heads, nk, d) ||
@@ -306,11 +258,7 @@ cudaError_t launch_tc_stream(const void* q, const void* k, const void* v,
   const int vstep = column_step(routes[2], st + 6);
   if (heads > 1 && qstep % 8 != kstep % 8)  // Q's head where K's lies
     return cudaErrorInvalidValue;
-  auto kernel = attention_tc_stream_kernel<W, kWgs, false>;
-  if constexpr (W >= kStreamQRingW) {
-    if (qring) kernel = attention_tc_stream_kernel<W, kWgs, true>;
-  }
-  if (qring && W < kStreamQRingW) return cudaErrorInvalidValue;
+  auto kernel = attention_tc_stream_kernel<W, kWgs>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

@@ -29,10 +29,13 @@ constexpr int kStreamMaxSlots = 8;
 constexpr int kStreamMaxWgs = 3;
 constexpr int kStreamWideW = 96;
 constexpr int kStreamProducer = 32;  // the producer warp's threads
-// The narrowest chunk of a frame whose Q tiles and two ring slots do not
-// fit (over 1344 columns: 6 chunks of at least 224), where Q rides the
-// ring (attention_stream.cu's kQRing).
-constexpr int kStreamQRingW = 224;
+// The narrowest frame the scores-once kernels take (attention_once.cu):
+// past two of the streamed kernel's output chunks of 176 columns, the
+// widest that ptxas compiles without spills.  An H100 ran the streamed
+// kernel faster up to there (q[20,4,360,352]: 0.122 ms against 0.141) and
+// the scores-once kernels past it (368: 0.145 against 0.154; PERF.md,
+// PR 17).
+constexpr int kOnceMinFrame = 2 * 176 + 1;
 
 // A K, V or Q tile in shared memory (64 rows): the head dim in 64-column
 // slabs with the 128-byte swizzle (rows of 128 bytes), then 16-column slabs
@@ -736,3 +739,11 @@ int launch_bf16_stream(const void* q, const void* k, const void* v,
                        void* out, const long long* st, const int* routes,
                        int batch, int heads, int nq, int nk, int d,
                        float scale_log2, bool pairs, cudaStream_t stream);
+
+// The scores-once kernels' launches (attention_once.cu), the same views,
+// ws_bytes of workspace at ws.
+int launch_bf16_once(const void* q, const void* k, const void* v, void* out,
+                     const long long* st, const int* routes, void* ws,
+                     long long ws_bytes, int batch, int heads, int nq, int nk,
+                     int d, float scale_log2, bool pairs,
+                     cudaStream_t stream);

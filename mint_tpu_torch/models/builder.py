@@ -30,12 +30,12 @@ def check_kernel_limits(config: FACTModelConfig,
     """Raise ValueError, naming the field, where the model `config` builds
     could not run its hand-written kernels in `dtype`: a dtype no kernel
     takes, a transformer whose hidden size its heads do not divide, or a
-    head wider than the attention kernels' grids hold
-    (``attention.HEAD_DIM_CEILING``, some 16.7 million columns).  The
-    kernels take every other width, and every key count and batch
-    (``ops``: attention streams K past shared memory, and Q with it past
-    ``attention.RESIDENT_Q_MAX_HEAD_DIM``; LayerNorm and the MLP take any
-    width).  With `model` tensor-parallel ranks the split is held to
+    head wider than the attention kernels take
+    (``attention.HEAD_DIM_CEILING``, 2^30 columns).  The kernels take
+    every other width, and every key count and batch (``ops``: attention
+    streams K past shared memory, and past
+    ``attention.RESIDENT_Q_MAX_HEAD_DIM`` computes each score once into a
+    workspace; LayerNorm and the MLP take any width).  With `model` tensor-parallel ranks the split is held to
     :func:`check_split` first."""
     check_split(config, model)
     for field, tf in _transformers(config):

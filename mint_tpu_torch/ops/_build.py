@@ -31,16 +31,20 @@ build_log: str = ""  # nvcc's output of this process's build (ptxas report)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _S = ctypes.POINTER(ctypes.c_longlong)
 _R = ctypes.POINTER(ctypes.c_int)
 # C entry points: name -> argtypes.  Each returns cudaError_t as int.
 _SIGNATURES = {
-    # q, k, v, out, strides (b, h, n of each), B, H, nq, nk, d, scale, stream
-    "mint_attention_f32": [_P, _P, _P, _P, _S, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, out, strides (b, h, n of each), the scores-once kernels'
+    # workspace and its bytes (null and 0 where they do not run), B, H, nq,
+    # nk, d, scale, stream
+    "mint_attention_f32": [_P, _P, _P, _P, _S, _P, _L, _I, _I, _I, _I, _I,
+                           _F, _P],
     # the same with the routes of q, k and v (ops.attention.ROUTES) after
     # the strides
-    "mint_attention_bf16": [_P, _P, _P, _P, _S, _R, _I, _I, _I, _I, _I, _F,
-                            _P],
+    "mint_attention_bf16": [_P, _P, _P, _P, _S, _R, _P, _L, _I, _I, _I, _I,
+                            _I, _F, _P],
     # x, w1, b1, w2, b2, scratch, out, m, h, f, o, stream
     "mint_mlp_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # the same with the row strides of x, w1, w2 and the activation and the

@@ -62,25 +62,70 @@ _ENTRY = {torch.float32: "mint_attention_f32",
           torch.bfloat16: "mint_attention_bf16"}
 
 
-# Where each kernel's schedule for heads over 128 changes: up to this
-# width (bf16: of the head's frame in its tiles, the head dim and the
-# columns it lies into them, _col_shift) Q's rows stay in shared memory for
-# the whole pass over the keys, over every column of the head; past it Q
-# streams with K (csrc/attention*.cu).  f32: attention_wide_kernel holds
-# one warp's 16 rows of Q and a 32-key K tile over the whole head dim, a
-# 32-key V tile over an output chunk of at most 256 columns, and P; wider
-# heads take attention_sliced_kernel, each score summed over 128-column
-# slices of Q and the K tile.  bf16: attention_tc_stream_kernel holds one
-# warpgroup's 64 rows of Q over the head dim in chunks of at most 256
-# columns and a ring of two 64-key tiles of one chunk; wider frames send
-# Q's chunks through the ring beside K's.  Both within the 232448 bytes a
-# block may take on an H100.
-RESIDENT_Q_MAX_HEAD_DIM = {torch.float32: 1016, torch.bfloat16: 1344}
+# Where each kernel's schedule for heads over 128 changes
+# (csrc/attention*.cu): up to this width (bf16: of the head's frame in its
+# tiles, the head dim and the columns it lies into them, _col_shift) Q's
+# rows stay in shared memory for the whole pass over the keys, over every
+# column of the head: f32 attention_wide_kernel (one warp's 16 rows of Q
+# and a 32-key K tile over the head, a 32-key V tile, P; the whole head
+# one output chunk), bf16 attention_tc_stream_kernel (a warpgroup's 64
+# rows of Q over the head in chunks of at most 256 columns and a ring of
+# 64-key tiles; past 256 columns two output chunks on the grid, each
+# block computing every score).  Wider heads take the scores-once kernels
+# (SCORES_ONCE_MIN_FRAME on): each score computed once a call over the
+# whole head into a workspace (workspace_bytes), each row normalised
+# there, then P.V over output chunks that read P (ONCE_KERNELS).  The
+# boundary is where an H100 ran them faster than the resident-Q form in
+# one call (PERF.md, PR 17): f32 from the first head past one output
+# chunk on (q[20,4,360,264]: 0.423 ms against 0.879), bf16 past two
+# chunks of 176 columns, the widest the streamed kernel holds without
+# spills (352: 0.141 against 0.122; 368: 0.145 against 0.154).
+RESIDENT_Q_MAX_HEAD_DIM = {torch.float32: 256, torch.bfloat16: 352}
+SCORES_ONCE_MIN_FRAME = {dtype: width + 1 for dtype, width
+                         in RESIDENT_Q_MAX_HEAD_DIM.items()}
 
-# The widest head either kernel takes: its output chunks of at most 256
-# columns lie on the grid's z axis, at most 65535 of them, over the head's
-# frame (up to 7 columns wider than the head, see _col_shift).
-HEAD_DIM_CEILING = 65535 * 256 - 7
+# The widest head the kernels take: the C entries take it, and a frame up
+# to 7 columns wider rounded up to whole output chunks, in a C int.
+HEAD_DIM_CEILING = 2 ** 30
+
+# The most workspace one launch group of the scores-once kernels takes; a
+# call whose units (a (batch, head) pair's 64 query rows) need more runs
+# in several groups, each three launches.  Fewer groups ran faster on an
+# H100 although the workspace then outgrows the 50 MB of L2 (q[20,4,360,
+# 520] bf16: 0.185 ms in one group of 69 MB, 0.205 in three of at most
+# 32 MB; PERF.md, PR 17).
+WORKSPACE_GROUP_BYTES = 256 * 2 ** 20
+
+
+def scores_once(dtype: torch.dtype, frame: int) -> bool:
+    """Whether the kernel of `dtype` runs the scores-once kernels for
+    heads whose frame (f32: the head dim; bf16: see _frame) is `frame`
+    columns wide (csrc/attention_f32.cu's launch_f32,
+    csrc/attention.cu's launch_bf16)."""
+    return frame >= SCORES_ONCE_MIN_FRAME[dtype]
+
+
+def _unit_bytes(dtype: torch.dtype, nk: int) -> int:
+    """Workspace of one unit (64 query rows of a pair) against nk keys:
+    f32 its scores, then P in place, rows of nk rounded up to 32 floats
+    (csrc/attention_f32.cu's once_f32_unit_bytes); bf16 a 64-key tile's
+    f32 scores (16 KB) and bf16 P (8 KB) for every key tile
+    (csrc/attention_once.cu's once_unit_bytes)."""
+    if dtype == torch.float32:
+        return 4 * 64 * (-(-nk // 32) * 32)
+    return -(-nk // 64) * (64 * 64 * 4 + 64 * 64 * 2)
+
+
+def workspace_bytes(dtype: torch.dtype, pairs: int, nq: int,
+                    nk: int) -> int:
+    """Bytes of workspace the scores-once kernels take for `pairs` (batch,
+    head) pairs of nq queries against nk keys: every unit's (64 query rows
+    of a pair) where they fit WORKSPACE_GROUP_BYTES, else as many units as
+    fit, at least one; the kernels run as many launch groups as that
+    takes (csrc/attention.cuh's over_groups)."""
+    unit = _unit_bytes(dtype, nk)
+    units = pairs * -(-nq // 64)
+    return min(units, max(1, WORKSPACE_GROUP_BYTES // unit)) * unit
 
 
 def bf16_max_keys(d: int) -> int:
@@ -238,10 +283,11 @@ def bf16_resident(frame: int, nk: int, pairs: bool = False) -> bool:
 
 
 def _streamable(q, k, v):
-    """q, k and v as the streamed kernel takes them: by TMA over the view
-    or its head columns, q's heads as many columns into their tiles as k's
-    (their head strides alike modulo 8).  A view that is not is copied
-    once into zero-padded rows (_tma_copy; never one of the model's)."""
+    """q, k and v as the streamed and scores-once kernels take them: by
+    TMA over the view or its head columns, q's heads as many columns into
+    their tiles as k's (their head strides alike modulo 8).  A view that
+    is not is copied once into zero-padded rows (_tma_copy; never one of
+    the model's)."""
     views = (q, k, v)
     routes = [bf16_route(t) for t in views]
     copy = [r in ("copies", "tma_pairs") for r in routes]
@@ -262,6 +308,55 @@ def _tma_copy(t: torch.Tensor) -> torch.Tensor:
     out = t.new_zeros(*t.shape[:-1], -(-d // 8) * 8)
     out[..., :d] = t
     return out[..., :d]
+
+
+def _frame(q, k, v) -> int:
+    """The frame of the heads of q, k and v as _operands hands them to
+    the kernel: f32 the head dim; bf16 the head dim and the most columns
+    a head lies into the tiles of any of them (_col_shift of its
+    bf16_route; csrc/attention.cu's launch_bf16 reckons the streamed
+    kernels' frames so)."""
+    d = q.shape[-1]
+    if q.dtype != torch.bfloat16:
+        return d
+    return d + max(_col_shift(t, bf16_route(t)) for t in (q, k, v))
+
+
+# The scores-once kernels of each dtype, in the order one call launches
+# them (once a launch group).
+ONCE_KERNELS = {
+    torch.float32: ("attention_scores_f32_kernel",
+                    "attention_softmax_f32_kernel",
+                    "attention_pv_f32_kernel"),
+    torch.bfloat16: ("attention_scores_tc_kernel",
+                     "attention_probs_tc_kernel", "attention_pv_tc_kernel"),
+}
+
+
+def device_kernels(q, k, v) -> tuple[str, ...]:
+    """The kernels of csrc/attention*.cu that one attention call on q, k
+    and v runs (once; the scores-once kernels once a launch group), as the
+    C entries choose them: f32 attention_kernel (its instances, and
+    attention_kernel_4, up to 128 columns), attention_wide_kernel (to
+    RESIDENT_Q_MAX_HEAD_DIM) or the scores-once kernels; bf16 the resident
+    attention_tc_kernel (attention_tc_pairs_kernel on tma_pairs), the
+    streamed attention_tc_stream_kernel, or the scores-once kernels."""
+    q, k, v, _ = _operands(q, k, v)
+    d, nk = q.shape[-1], k.shape[2]
+    if q.dtype == torch.float32:
+        if scores_once(q.dtype, d):
+            return ONCE_KERNELS[q.dtype]
+        return ("attention_wide_kernel" if d > 128 else "attention_kernel",)
+    routes = [bf16_route(t) for t in (k, v)]
+    route = _resident_route(*routes)
+    frame = d + (0 if route == "copies" else max(
+        _col_shift(t, r) for t, r in zip((k, v), routes)))
+    if bf16_resident(frame, nk, route == "tma_pairs"):
+        return ("attention_tc_pairs_kernel" if route == "tma_pairs"
+                else "attention_tc_kernel",)
+    if scores_once(q.dtype, _frame(q, k, v)):
+        return ONCE_KERNELS[q.dtype]
+    return ("attention_tc_stream_kernel",)
 
 
 def _launch(q, k, v, scale):
@@ -285,13 +380,22 @@ def _call(q, k, v, scale, lib=None, routes=None):
         *(st for t in (q, k, v, out) for st in t.stride()[:3]))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     b, h, nq, d = q.shape
+    nk = k.shape[2]
     codes = ()
     if q.dtype == torch.bfloat16:
         codes = ((ctypes.c_int * 3)(*(ROUTES.index(r) for r in (
             routes or [bf16_route(t) for t in (q, k, v)]))),)
+    # The scores-once kernels' workspace, from the caching allocator on
+    # the call's stream (a graph capture's pool takes it as the output).
+    ws = None
+    if scores_once(q.dtype, _frame(q, k, v)):
+        ws = torch.empty(workspace_bytes(q.dtype, b * h, nq, nk),
+                         dtype=torch.uint8, device=q.device)
     err = getattr(lib, _ENTRY[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-        *codes, b, h, nq, k.shape[2], d, float(scale), stream)
+        *codes, None if ws is None else ws.data_ptr(),
+        0 if ws is None else ws.numel(), b, h, nq, nk, d, float(scale),
+        stream)
     _build.check(err, "attention kernel launch")
     return out
 
@@ -317,7 +421,7 @@ def _operands(q, k, v):
                          f"Nk={nk}")
     if d > HEAD_DIM_CEILING:
         raise ValueError(f"attention: head dim {d} over the "
-                         f"{HEAD_DIM_CEILING} the kernels' grids hold")
+                         f"{HEAD_DIM_CEILING} the kernels take")
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     if q.dtype == torch.bfloat16:
         routes = [bf16_route(t) for t in (k, v)]

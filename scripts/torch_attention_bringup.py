@@ -5,9 +5,10 @@ design alternatives they were chosen over and the parent commit's.
 1. Builds ``mint_tpu_torch/csrc`` and prints, for each attention kernel
    instance, ptxas's registers and spills, and every note that ptxas
    serialised its ``wgmma`` products; the build's seconds.
-2. Builds each entry of ``VARIANTS`` (``csrc/attention_f32.cu`` or
-   ``csrc/attention.cu`` with a few lines changed: the alternatives the
-   kernels were measured against) into a library of its own, and, given
+2. Builds each entry of ``VARIANTS`` (a source of ``csrc/`` with a few
+   lines changed: the alternatives the kernels were measured against,
+   such as the scores-once kernels below their boundary,
+   ``bf16_once_all``) into a library of its own, and, given
    ``--parent DIR`` (a checkout of another commit, e.g. ``git archive HEAD``
    unpacked), that tree's ``attention.cu``, all nvcc processes at once.
 3. Checks the repo's kernels against ``attention_reference`` at shapes
@@ -15,18 +16,22 @@ design alternatives they were chosen over and the parent commit's.
    (``ops.attention.bf16_route``: the model's fused QKV views at head dims
    36-250 with the head counts that make each route, Nq = 360 and 48, and
    views of padded rows, 84 over 80 and 69 over 67; the f32 kernel's
-   widths 8-128 and its wide heads), and each variant at the 360-query
-   shapes: f32 within 1e-5, bf16 within 2 bf16 ulps of the output's peak
-   (phase 2's tolerances in ``chip_smoke.py``).
+   widths 8-128 and its wide heads; the scores-once kernels past 256
+   columns, also with a workspace of one unit a launch group), and each
+   variant at the 360-query shapes: f32 within 1e-5, bf16 within 2 bf16
+   ulps of the output's peak (phase 2's tolerances in ``chip_smoke.py``).
 4. Times ``TIMED`` (the model's fused views, and views of padded rows)
    in turns (then again in reverse order), by CUDA events
-   (``chip_smoke.cuda_ms``) beside the plain version and the bound
-   (``chip_smoke.py`` phase 11a times the library's call beside the
-   kernel): bf16 on each view's route, the parent's kernel on the same
-   views (its own C entry, the routes' ABI), and, on the resident kernel,
-   by the block's copies; f32 against each variant and the parent's
-   library (heads past the width where Q stays resident: this tree's
-   alone, the parent refused them).
+   (``chip_smoke.cuda_ms``) beside the plain version, the bound and, past
+   256 columns, PyTorch's attention call on its math backend
+   (``library_math``; ``chip_smoke.py`` phase 11a times
+   the library's call beside the kernel at its shapes): bf16 on each
+   view's route, the parent's kernel on the same views (its own C entry
+   and ABI: no workspace), and, on the resident kernel, by the block's
+   copies; f32 against each variant and the parent's library.  Where the
+   scores-once kernels run, also with launch groups of at most 32 and 64
+   MB of workspace (``repo_ws32``, ``repo_ws64``), and each of the three
+   kernels' device µs a call under ``torch.profiler`` ("split").
 
 5. With ``--decode`` (and ``--parent DIR``), only the flagship's bf16
    batch-20 decode frames/s through its CUDA graph (``chip_smoke.py``
@@ -71,26 +76,55 @@ VARIANTS = {
         ("#define MINT_PAD\n", "#define MINT_PAD , true\n")] + [
         (f"MINT_CASE({w8}, attention_kernel_4)",
          f"MINT_CASE({w8}, attention_kernel)") for w8 in (9, 10)]),
+    # The f32 scores-once kernel 1 at 4 x 4 micro-tiles (256 threads a
+    # block) instead of 8 x 4 (128).
+    "f32_scores_tm4": ("attention_f32.cu", [
+        ("constexpr int kOnceScoreTM = 8;",
+         "constexpr int kOnceScoreTM = 4;")]),
+    # Every bf16 frame past one output chunk on the scores-once kernels
+    # (the repo's take them past two: the streamed kernel ran two chunks
+    # faster).
+    "bf16_once_all": ("attention.cu", [(
+        "  if (d + shift >= kOnceMinFrame)",
+        "  if (d + shift > kStreamMaxW)")]),
 }
+# ops.attention's mirror of a variant's choice: its first frame on the
+# scores-once kernels, where it differs from the repo's.
+VARIANT_MIN_FRAME = {"bf16_once_all": 257}
 
-# A bf16 source's library also takes the other two bf16 sources.
-BF16_SOURCES = ("attention.cu", "attention_stream.cu", "attention_pairs.cu")
+# A bf16 source's library also takes the other bf16 sources (those of its
+# tree).
+BF16_SOURCES = ("attention.cu", "attention_stream.cu", "attention_pairs.cu",
+                "attention_once.cu")
+# The C entries of a tree without the scores-once kernels' workspace (a
+# parent before them): q, k, v, out, strides[, routes], B, H, nq, nk, d,
+# scale, stream.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_S = ctypes.POINTER(ctypes.c_longlong)
+PARENT_SIGNATURES = {
+    "mint_attention_f32": [_P, _P, _P, _P, _S, _I, _I, _I, _I, _I, _F, _P],
+    "mint_attention_bf16": [_P, _P, _P, _P, _S, ctypes.POINTER(_I), _I, _I,
+                            _I, _I, _I, _F, _P],
+}
 
 # (dtype name, B, H, Nq, Nk, D, layout): chip_smoke.py phase 11a's shapes
 # of the heads read in place (hidden 800 over 16 heads, 804 over 12, 1040
 # over 8), the same widths rounded to 8 (what the parent's general f32
 # instance cost at a width its 16-byte copies read), hidden 800 over 8
 # heads, the flagship's, and the 84-over-80 view (tma_pairs); the heads
-# over 128 with Q resident (130, 192, 256, 264) and past it (f32 1032,
-# bf16 1360, both 2048: Q streamed with K; the parent refused those).
+# over 128 with Q resident (130, 192, 256) and past one output chunk, on
+# the scores-once kernels (264 and 520 at batch 20, f32 1032, bf16 1360,
+# both 2048 at batch 2: the parent's output chunks on the grid).
 TIMED = [(name, 20, h, 360, 360, d, "fused") for name in ("bf16", "f32")
          for h, d in ((16, 50), (12, 67), (12, 64), (16, 48), (10, 80),
                       (8, 100))] + [("bf16", 20, 8, 360, 360, 130, "fused"),
                                     ("bf16", 20, 10, 360, 360, 80, "rows84")
                                     ] + [
     (name, 20, h, 360, 360, d, "fused") for name in ("bf16", "f32")
-    for h, d in ((8, 130), (4, 192), (4, 256), (4, 264))
+    for h, d in ((8, 130), (4, 192), (4, 256), (4, 264), (4, 520))
     if (name, d) != ("bf16", 130)] + [
+    ("bf16", 20, 4, 360, 360, d, "fused")
+    for d in (352, 368, 392, 448, 504)] + [
     ("f32", 2, 4, 360, 360, 1032, "fused"),
     ("bf16", 2, 4, 360, 360, 1360, "fused"),
     ("f32", 2, 4, 360, 360, 2048, "fused"),
@@ -115,14 +149,16 @@ def checked_shapes(only):
             cases += [("bf16", "contiguous", 2, 3, nq, nk, d)
                       for nq, nk in ((48, 360), (100, 100), (360, 65),
                                      (360, 360))]
-        # Heads over 256 on the model's views in several output chunks,
-        # read over the token rows' head columns (266 and 1298 over 4
-        # heads: Q resident; each chunk past the first stores the head's
-        # columns its frame moved into it) and with Q's chunks through the
-        # ring (1362 over 4: the columns around each head zeroed in its Q
-        # tiles at each arrival; 1360 over 4, over the view).
+        # Heads over 256 on the model's views, on the scores-once kernels,
+        # read over the token rows' head columns (266, 1298 and 1362 over
+        # 4 heads: the columns around each head zeroed in its Q tiles at
+        # each arrival; each output chunk past the first stores the
+        # head's columns its frame moved into it) and over the view (1360
+        # over 4); 254 over 4, a frame of 260 (the scores-once kernels)
+        # and 250, of 256 (the streamed kernel).
         cases += [("bf16", "fused", 2, h, nq, 360, d)
-                  for h, d in ((4, 266), (4, 1298), (4, 1362), (4, 1360))
+                  for h, d in ((4, 266), (4, 1298), (4, 1362), (4, 1360),
+                               (4, 254), (4, 250))
                   for nq in (360, 48)]
         # The model's views: the first head count makes a token row TMA
         # can step over (tma_columns; 67 over 12 heads: copies, the odd
@@ -157,9 +193,9 @@ def checked_shapes(only):
                   4100):
             cases += [("f32", "contiguous", 2, 3, nq, nk, d)
                       for nq, nk in ((48, 37), (200, 360), (360, 360))]
-        # The sliced kernel on the model's views: 16-byte copies (1032
-        # over 4 heads) and 4-byte ones (1031 over 3: columns past d zero
-        # in the last slice).
+        # The scores-once kernels on the model's views: 16-byte copies
+        # (1032 over 4 heads) and 4-byte ones (1031 over 3: columns past d
+        # zero in the last stage).
         cases += [("f32", "fused", 2, h, nq, 360, d)
                   for h, d in ((4, 1032), (3, 1031)) for nq in (360, 48)]
         for d in (8, 18, 36, 48, 50, 64, 67, 80, 100, 120, 127, 128):
@@ -196,14 +232,33 @@ def ptxas_report(log, tag):
             print(f"{tag} {name:48s} {line.strip()[:90]}")
 
 
-def load(path):
+def load(path, signatures=None):
     lib = ctypes.CDLL(path)
     for entry in ("mint_attention_f32", "mint_attention_bf16"):
         if hasattr(lib, entry):  # a variant's library has one of them
             fn = getattr(lib, entry)
-            fn.argtypes = _build._SIGNATURES[entry]
+            fn.argtypes = (signatures or _build._SIGNATURES)[entry]
             fn.restype = ctypes.c_int
     return lib
+
+
+def parent_call(lib, q, k, v, scale):
+    """One launch of a parent's kernel (PARENT_SIGNATURES: no workspace)
+    on the operands this tree hands its own (ops.attention._call)."""
+    q, k, v, out = att._operands(q, k, v)
+    strides = (ctypes.c_longlong * 12)(
+        *(st for t in (q, k, v, out) for st in t.stride()[:3]))
+    codes = ()
+    if q.dtype == torch.bfloat16:
+        codes = ((ctypes.c_int * 3)(*(att.ROUTES.index(att.bf16_route(t))
+                                      for t in (q, k, v))),)
+    b, h, nq, d = q.shape
+    err = getattr(lib, att._ENTRY[q.dtype])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+        *codes, b, h, nq, k.shape[2], d, float(scale),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "the parent's attention kernel")
+    return out
 
 
 def build(sources, work):
@@ -216,7 +271,8 @@ def build(sources, work):
             f.write(text)
         # The bf16 sources call each other's launches.
         extra = ([os.path.join(include, s) for s in BF16_SOURCES
-                  if s != source] if source in BF16_SOURCES else [])
+                  if s != source and os.path.exists(os.path.join(include, s))]
+                 if source in BF16_SOURCES else [])
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-I", include, "-shared",
              "-o", path[:-3] + ".so", path, *extra],
@@ -227,8 +283,66 @@ def build(sources, work):
         if proc.returncode:
             raise SystemExit(f"{name} failed to build:\n{log}")
         ptxas_report(log, name)
-        libs[name] = load(os.path.join(work, f"{name}.so"))
+        libs[name] = load(os.path.join(work, f"{name}.so"),
+                          PARENT_SIGNATURES if name.startswith("parent")
+                          else None)
     return libs
+
+
+def kernel_split(fn, calls=10):
+    """{device kernel name: mean µs a call} of `calls` calls of fn, as
+    torch.profiler records them (the scores-once kernels' launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = next((n for n in att.ONCE_KERNELS[torch.float32]
+                         + att.ONCE_KERNELS[torch.bfloat16] if n in e.name),
+                        e.name[:40])
+            us = getattr(e, "device_time", None)
+            if us is None:
+                us = e.cuda_time
+            split[name] = split.get(name, 0.0) + us / calls
+    return split
+
+
+def calling(lname, lib, q, k, v):
+    """A call of the library `lname` on q, k and v, with ops.attention's
+    mirror of its choice (VARIANT_MIN_FRAME) and, for "repo_ws<MB>", a
+    launch group of <MB> MB of workspace at most."""
+    frame = VARIANT_MIN_FRAME.get(lname, att.SCORES_ONCE_MIN_FRAME[q.dtype])
+    group = (int(lname[7:]) * 2 ** 20 if lname.startswith("repo_ws")
+             else att.WORKSPACE_GROUP_BYTES)
+
+    def call():
+        saved = att.SCORES_ONCE_MIN_FRAME[q.dtype], att.WORKSPACE_GROUP_BYTES
+        att.SCORES_ONCE_MIN_FRAME[q.dtype], att.WORKSPACE_GROUP_BYTES = (
+            frame, group)
+        try:
+            return att._call(q, k, v, cs.SCALE, lib)
+        finally:
+            att.SCORES_ONCE_MIN_FRAME[q.dtype], att.WORKSPACE_GROUP_BYTES = (
+                saved)
+    return call
+
+
+def library_math(q, k, v):
+    """PyTorch's attention call on its math backend, on the same heads:
+    the yardstick past 256 columns, where its fused backends refuse them;
+    timed here, called by no kernel of the port."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel(SDPBackend.MATH):
+        return F.scaled_dot_product_attention(q, k, v, scale=cs.SCALE)
 
 
 # Run in a process of its own, sys.argv[1] a tree: that tree's flagship
@@ -321,7 +435,7 @@ def main():
             if lname != "repo" and (nq != 360 or "~" in lname
                                     or not lname.startswith(name)):
                 continue
-            got = att._call(q, k, v, cs.SCALE, lib)
+            got = calling(lname, lib, q, k, v)()
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             ok = err <= tol and bool(torch.isfinite(got).all())
@@ -329,6 +443,32 @@ def main():
             print(f"{'ok  ' if ok else 'FAIL'} {lname} {name} {layout} "
                   f"q[{b},{h},{nq},{d}] k[..,{nk},{d}] {routes}: max_abs_err "
                   f"{err:.3e} tol {tol:.3e}", flush=True)
+    # The scores-once kernels with one unit of workspace a launch group
+    # (a head's query tiles over several groups).
+    group_bytes = att.WORKSPACE_GROUP_BYTES
+    att.WORKSPACE_GROUP_BYTES = 1
+    try:
+        for name, layout, b, h, nq, nk, d in (
+                [("f32", "contiguous", 2, 3, 200, 360, 1032),
+                 ("f32", "fused", 2, 3, 360, 360, 1031)] * (only != "bf16")
+                + [("bf16", "contiguous", 2, 3, 200, 360, 1360),
+                   ("bf16", "fused", 2, 4, 360, 360, 1362)]
+                * (only != "f32")):
+            dtype = torch.bfloat16 if name == "bf16" else torch.float32
+            q, k, v = cs._qkv(layout, b, h, nq, nk, d, dtype, gen)
+            want = att.attention_reference(q, k, v, cs.SCALE)
+            tol = 1e-5 if name == "f32" else 2 * cs.bf16_ulp(
+                want.float().abs().max().item())
+            got = att._call(q, k, v, cs.SCALE)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ok = err <= tol and bool(torch.isfinite(got).all())
+            bad += not ok
+            print(f"{'ok  ' if ok else 'FAIL'} repo {name} {layout} "
+                  f"q[{b},{h},{nq},{d}] k[..,{nk},{d}] one unit a group: "
+                  f"max_abs_err {err:.3e} tol {tol:.3e}", flush=True)
+    finally:
+        att.WORKSPACE_GROUP_BYTES = group_bytes
     print(f"disagreeing: {bad}", flush=True)
     if bad:
         raise SystemExit(f"{bad} kernel results disagree")
@@ -342,28 +482,25 @@ def main():
         q, k, v = cs._qkv(layout, b, h, nq, nk, d, dtype, gen)
         repo = libs["repo"]
         runs = {"repo": lambda: att._call(q, k, v, cs.SCALE, repo)}
-        # The parent refused heads past the width where Q stays resident.
-        resident = d <= att.RESIDENT_Q_MAX_HEAD_DIM[dtype]
+        parent_lib = others.get("parent" if name == "bf16" else "parent_f32")
+        if parent_lib is not None:
+            runs["parent"] = lambda: parent_call(parent_lib, q, k, v,
+                                                 cs.SCALE)
         if name == "bf16":
             routes = [att.bf16_route(t) for t in (q, k, v)]
-            if "parent" in others and resident:
-                runs["parent"] = lambda: att._call(q, k, v, cs.SCALE,
-                                                   others["parent"])
             if att.bf16_resident(d, nk) and "copies" not in routes:
                 runs["copies_route"] = lambda: att._call(
                     q, k, v, cs.SCALE, repo, ["copies"] * 3)
-            for lname, lib in libs.items():
-                if lname.startswith("bf16"):
-                    runs[lname] = (lambda lib=lib: att._call(
-                        q, k, v, cs.SCALE, lib))
         else:
             routes = ""
-            for lname, lib in list(libs.items()) + [
-                    ("parent", others.get("parent_f32"))] * resident:
-                if (lname.startswith(("f32", "parent"))
-                        and hasattr(lib, "mint_attention_f32")):
-                    runs[lname] = (lambda lib=lib: att._call(
-                        q, k, v, cs.SCALE, lib))
+        for lname, lib in libs.items():
+            if lname.startswith(name):
+                runs[lname] = calling(lname, lib, q, k, v)
+        if att.device_kernels(q, k, v) == att.ONCE_KERNELS[dtype]:
+            for mb in (32, 64):  # smaller launch groups
+                runs[f"repo_ws{mb}"] = calling(f"repo_ws{mb}", repo, q, k, v)
+        if d > 256:  # the library's math backend takes such heads
+            runs["library_math"] = lambda: library_math(q, k, v)
         order = list(runs.items())
         first = {n: cs.cuda_ms(fn) for n, fn in order}
         second = {n: cs.cuda_ms(fn) for n, fn in reversed(order)}
@@ -376,6 +513,11 @@ def main():
         print(f"time {name} q[{b},{h},{nq},{d}] k[..,{nk},{d}] {layout} "
               f"{'/'.join(routes)} ms: {kernels}; plain {t_p:.4f}; bound "
               f"{b_ms:.4f} ({b_by}) ({card})", flush=True)
+        if att.device_kernels(q, k, v) == att.ONCE_KERNELS[dtype]:
+            split = kernel_split(runs["repo"])
+            print(f"split {name} q[{b},{h},{nq},{d}] µs a call: "
+                  + ", ".join(f"{n} {us:.1f}" for n, us in split.items())
+                  + f" ({card})", flush=True)
 
 
 if __name__ == "__main__":

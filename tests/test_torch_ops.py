@@ -141,7 +141,8 @@ def _tile_ld(d):
 
 def _fits(dtype, d):
     """Whether a head dim d fits the kernel's shared memory (232448 bytes
-    a block), as csrc/attention.cu reckons it at its smallest block: f32
+    a block) with Q's rows resident over the whole head, as
+    csrc/attention*.cu reckon it at its smallest block: f32
     (wide_smem_bytes at one warp) 16 rows of Q and 32 of K over the head
     dim, 32 of V over an output chunk, and one warp's P; bf16
     (tc_stream_smem_bytes at one warpgroup) 2 KB of mbarriers and slack,
@@ -160,21 +161,22 @@ def _fits(dtype, d):
 def test_head_dim_limit(dtype):
     """No head is refused for shared memory, as the Pallas kernel refuses
     none.  attention.RESIDENT_Q_MAX_HEAD_DIM marks where each kernel's
-    schedule changes: every head dim up to it keeps Q in shared memory,
-    the next does not fit, and past it Q streams with K.  The wrapper and
+    schedule changes: every head dim up to it keeps Q in shared memory
+    over the whole head (it fits at every such width: f32 one output
+    chunk, bf16 two), and the next takes the scores-once kernels
+    (attention.scores_once), which hold no head whole.  The wrapper and
     the build's check take heads past it (1032 in f32, 1360 in bf16) and
-    any width up to attention.HEAD_DIM_CEILING (the grid's z axis: output
-    chunks of 256 columns over a frame up to 7 columns wider), refusing
-    only a wider one, naming the ceiling."""
+    any width up to attention.HEAD_DIM_CEILING (at least every width the
+    kernels took with output chunks of 256 columns on the grid's z
+    axis), refusing only a wider one, naming the ceiling."""
     from mint_tpu_torch.models import builder
 
     changes = att.RESIDENT_Q_MAX_HEAD_DIM[dtype]
     assert all(_fits(dtype, d) for d in range(129, changes + 1))
-    assert not _fits(dtype, changes + 1)
-    if dtype == torch.bfloat16:  # and no wider frame fits
-        assert not any(_fits(dtype, d) for d in range(changes + 1, 4097))
+    assert not att.scores_once(dtype, changes)
+    assert att.scores_once(dtype, changes + 1)
     ceiling = att.HEAD_DIM_CEILING
-    assert ceiling == 65535 * 256 - 7 and ceiling >= 8192
+    assert ceiling >= 65535 * 256 - 7
     past = {torch.float32: 1032, torch.bfloat16: 1360}[dtype]
     for d in (changes + 1, past, 8192):
         q = torch.zeros(1, 1, 2, d, dtype=dtype)
@@ -206,147 +208,281 @@ def _pallas_rows(q, k, v, scale, dtype):
     return np.asarray(out.astype(jnp.float32))[:, :, :q.shape[2]]
 
 
-def _q_ring_bf16_attention(q, k, v, scale, wgs=2, tile=64):
-    """csrc/attention_stream.cu's streamed kernel with Q in its ring
-    (kQRing), in f32 PyTorch on bf16-valued inputs.  The head in `chunks`
-    chunks of W columns (at most 256, a multiple of 16; zeros past D, as
-    TMA fills them), K and V in `tile`-key tiles (zeros past Nk); a block
-    of wgs warpgroups of 64 query rows and one output chunk z.  Its loads
-    in the ring's order: pass 1's load t * chunks + c is a slot of chunk c
-    of every warpgroup's Q rows and chunk c of K tile t; pass 2 takes each
-    tile's chunks so again, then V tile t's chunk z.  Each warpgroup reads
-    every load in that order: a tile's scores are its Q tile times the K
-    tile of each slot, summed over the chunks in f32; pass 1 keeps each
-    row's running max and sum of exp2 (keys past Nk masked), pass 2 forms
-    the exactly normalised P, rounds it to bf16 and adds P.V in f32; the
-    output is rounded to bf16 and cut to D."""
-    *lead, nq, d = q.shape
-    nk = k.shape[-2]
-    chunks = -(-d // 256)
+def _groups(pairs, qtiles, fit, most_qt):
+    """csrc/attention.cuh's over_groups: the launch groups (bh0, np, qt0,
+    nqt) of the scores-once kernels, at most `fit` units each."""
+    bh0 = 0
+    while bh0 < pairs:
+        if fit >= qtiles and qtiles <= most_qt:
+            np_ = min(fit // qtiles, 65535, pairs - bh0)
+            yield bh0, np_, 0, qtiles
+            bh0 += np_
+            continue
+        nqt = min(fit, most_qt)
+        for qt0 in range(0, qtiles, nqt):
+            yield bh0, 1, qt0, min(nqt, qtiles - qt0)
+        bh0 += 1
+
+
+class _Scored:
+    """Counts each (pair, query, key) score a schedule computes."""
+
+    def __init__(self, pairs, nq, nk):
+        self.times = torch.zeros(pairs, nq, nk, dtype=torch.int32)
+
+    def add(self, bh, rows, keys):
+        self.times[bh, rows.start:min(rows.stop, self.times.shape[1]),
+                   keys.start:min(keys.stop, self.times.shape[2])] += 1
+
+    def once(self):
+        assert bool((self.times == 1).all()), "a score computed != once"
+
+
+def _scores_once_f32_attention(q, k, v, scale, ws_bytes=None):
+    """csrc/attention_f32.cu's scores-once kernels in f32 PyTorch, over
+    launch groups of the workspace's units (64 query rows of a pair;
+    ops.attention.workspace_bytes, or `ws_bytes`).  Kernel 1: each (unit,
+    64-key tile) block sums its scores over the head dim in stages of 32
+    columns and writes them scaled to the unit's rows (keys below Nk);
+    kernel 2: a warp a row below Nq, P = exp(s - max) / sum in place,
+    zeros to the row's end (Nk rounded up to 32); kernel 3: each (unit,
+    64-column chunk) block sums P v over the keys in stages of 32 (V's
+    keys past Nk zeros).  Counts every score a block computes: each
+    (query, key) pair once a call."""
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    q, k, v = (t.reshape(b * h, -1, d) for t in (q, k, v))
+    unit = att._unit_bytes(torch.float32, nk)
+    fit = (ws_bytes or att.workspace_bytes(torch.float32, b * h, nq, nk)
+           ) // unit
+    ld = -(-nk // 32) * 32
+    qtiles = -(-nq // 64)
+    v = torch.nn.functional.pad(v, (0, 0, 0, ld - nk))
+    out = torch.empty(b * h, nq, d)
+    scored = _Scored(b * h, nq, nk)
+    for bh0, np_, qt0, nqt in _groups(b * h, qtiles, fit, 65535):
+        ws = torch.full((np_ * nqt, 64, ld), torch.nan)
+        for y in range(np_):
+            for z in range(nqt):
+                rows = slice(64 * (qt0 + z), 64 * (qt0 + z + 1))
+                qb = q[bh0 + y, rows]
+                w = ws[y * nqt + z]
+                for k0 in range(0, nk, 64):  # kernel 1
+                    keys = slice(k0, min(k0 + 64, nk))
+                    s = torch.zeros(qb.shape[0], keys.stop - k0)
+                    for c in range(0, d, 32):
+                        s = s + qb[:, c:c + 32] @ k[bh0 + y, keys,
+                                                    c:c + 32].T
+                    scored.add(bh0 + y, rows, keys)
+                    w[:qb.shape[0], keys] = s * scale
+                sw = w[:qb.shape[0], :nk]  # kernel 2
+                e = torch.exp(sw - sw.amax(-1, keepdim=True))
+                w[:qb.shape[0]] = torch.nn.functional.pad(
+                    e / e.sum(-1, keepdim=True), (0, ld - nk))
+                for c0 in range(0, d, 64):  # kernel 3
+                    acc = torch.zeros(qb.shape[0], min(64, d - c0))
+                    for k0 in range(0, ld, 32):
+                        acc = acc + w[:qb.shape[0], k0:k0 + 32] @ v[
+                            bh0 + y, k0:k0 + 32, c0:c0 + 64]
+                    out[bh0 + y, rows, c0:c0 + 64] = acc
+    scored.once()
+    return out.reshape(b, h, nq, d)
+
+
+def _scores_once_bf16_attention(q, k, v, scale, ws_bytes=None):
+    """csrc/attention_once.cu's scores-once kernels in f32 PyTorch on
+    bf16-valued inputs, over launch groups of the workspace's units (64
+    query rows of a pair).  Kernel 1: a block of two units' query tiles
+    and one 64-key tile sums each tile's scores over the head in 64-column
+    chunks (zeros past D, as TMA fills them; keys past Nk zeros) into the
+    workspace, f32, unscaled; kernel 2: a unit's rows' running max and
+    sum of exp2 of the scaled scores over its key tiles (keys past Nk
+    masked), then P = exp2(s - max) / sum rounded to bf16 (zeros past Nk);
+    kernel 3: a block of two units and one output chunk of W columns (the
+    head in chunks of at most 128, W a multiple of 16) adds P.V a key tile
+    at a time in f32; the output is rounded to bf16.  Counts every score:
+    each (query, key) pair once a call."""
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    q, k, v = (t.float().reshape(b * h, -1, d) for t in (q, k, v))
+    kchunks = -(-d // 64)
+    chunks = -(-d // 128)
     width = -(-(-(-d // chunks)) // 16) * 16
-    tiles = -(-nk // tile)
-    rows = 64 * wgs
-    pad_d = chunks * width - d
-    q = torch.nn.functional.pad(q.float(), (0, pad_d, 0, -nq % rows))
-    k = torch.nn.functional.pad(k.float(), (0, pad_d, 0, tiles * tile - nk))
-    v = torch.nn.functional.pad(v.float(), (0, pad_d, 0, tiles * tile - nk))
+    ktiles, qtiles = -(-nk // 64), -(-nq // 64)
+    pad = torch.nn.functional.pad
+    q = pad(q, (0, kchunks * 64 - d, 0, qtiles * 64 - nq))
+    k = pad(k, (0, kchunks * 64 - d, 0, ktiles * 64 - nk))
+    v = pad(v, (0, chunks * width - d, 0, ktiles * 64 - nk))
     scale_log2 = torch.tensor(scale * 1.4426950408889634, dtype=torch.float32)
-    cols = [slice(c * width, (c + 1) * width) for c in range(chunks)]
-    keys = [slice(t * tile, (t + 1) * tile) for t in range(tiles)]
-    out = torch.zeros(*lead, q.shape[-2], chunks * width)
-    for q0 in range(0, nq, rows):
-        for z in range(chunks):
-            def slot(t, c):  # a score load: Q's chunk c, K tile t's
-                return ("scores", [q[..., q0 + 64 * w:q0 + 64 * (w + 1),
-                                     cols[c]] for w in range(wgs)],
-                        k[..., keys[t], cols[c]])
-            ring = [slot(t, c) for t in range(tiles) for c in range(chunks)]
-            for t in range(tiles):
-                ring += [slot(t, c) for c in range(chunks)]
-                ring.append(("v", None, v[..., keys[t], cols[z]]))
-            for w in range(wgs):
-                loads = iter(ring)
+    unit = att._unit_bytes(torch.bfloat16, nk)
+    fit = (ws_bytes or att.workspace_bytes(torch.bfloat16, b * h, nq, nk)
+           ) // unit
+    out = torch.empty(b * h, qtiles * 64, chunks * width)
+    scored = _Scored(b * h, nq, nk)
+    for bh0, np_, qt0, nqt in _groups(b * h, qtiles, fit, 2 * 65535):
+        scores = torch.full((np_ * nqt, ktiles, 64, 64), torch.nan)
+        probs = torch.full((np_ * nqt, ktiles, 64, 64), torch.nan,
+                           dtype=torch.bfloat16)
+        blocks = [(y, z, min(2, nqt - z)) for y in range(np_)
+                  for z in range(0, nqt, 2)]
+        for y, z, live in blocks:  # kernel 1
+            for t in range(ktiles):
+                for w in range(live):
+                    rows = slice(64 * (qt0 + z + w), 64 * (qt0 + z + w + 1))
+                    s = torch.zeros(64, 64)
+                    for c in range(kchunks):
+                        cols = slice(64 * c, 64 * (c + 1))
+                        s = s + q[bh0 + y, rows, cols] @ k[
+                            bh0 + y, 64 * t:64 * (t + 1), cols].T
+                    scored.add(bh0 + y, rows, slice(64 * t, 64 * (t + 1)))
+                    scores[y * nqt + z + w, t] = s
+        for u in range(np_ * nqt):  # kernel 2
+            valid = torch.arange(ktiles * 64).reshape(ktiles, 1, 64) < nk
+            x = torch.where(valid, scores[u] * scale_log2, -torch.inf)
+            m = torch.full((64, 1), -torch.inf)
+            l = torch.zeros(64, 1)
+            for t in range(ktiles):
+                m_new = torch.maximum(m, x[t].amax(-1, keepdim=True))
+                l = l * torch.exp2(m - m_new) + torch.exp2(
+                    x[t] - m_new).sum(-1, keepdim=True)
+                m = m_new
+            probs[u] = (torch.exp2(x - m) * (1 / l)).bfloat16()
+        for y, z, live in blocks:  # kernel 3
+            for c in range(chunks):
+                cols = slice(width * c, width * (c + 1))
+                for w in range(live):
+                    acc = torch.zeros(64, width)
+                    for t in range(ktiles):
+                        acc = acc + probs[y * nqt + z + w, t].float() @ v[
+                            bh0 + y, 64 * t:64 * (t + 1), cols]
+                    rows = slice(64 * (qt0 + z + w), 64 * (qt0 + z + w + 1))
+                    out[bh0 + y, rows, cols] = acc
+    scored.once()
+    return out[:, :nq, :d].reshape(b, h, nq, d).bfloat16()
 
-                def scores(t):
-                    s = torch.zeros(*lead, 64, tile)
-                    for _ in range(chunks):
-                        kind, qt, kt = next(loads)
-                        assert kind == "scores"
-                        s = s + qt[w] @ kt.transpose(-1, -2)
-                    valid = torch.arange(tile) < nk - t * tile
-                    return torch.where(valid, s * scale_log2, -torch.inf)
 
-                m = torch.full((*lead, 64, 1), -torch.inf)
-                l = torch.zeros_like(m)
-                for t in range(tiles):
-                    s = scores(t)
-                    m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-                    l = l * torch.exp2(m - m_new) + torch.exp2(
-                        s - m_new).sum(-1, keepdim=True)
-                    m = m_new
-                acc = torch.zeros(*lead, 64, width)
-                for t in range(tiles):
-                    p = (torch.exp2(scores(t) - m) * (1 / l)).bfloat16()
-                    kind, _, vt = next(loads)
-                    assert kind == "v"
-                    acc = acc + p.float() @ vt
-                out[..., q0 + 64 * w:q0 + 64 * (w + 1), cols[z]] = acc
-                assert next(loads, None) is None
-    return out[..., :nq, :d].bfloat16()
-
-
-@pytest.mark.parametrize("d,nk", [
-    (att.RESIDENT_Q_MAX_HEAD_DIM[torch.bfloat16] + 1, 37),  # the first
-    (1360, 67),                                      # and a model's
+@pytest.mark.parametrize("d,nq,nk,groups", [
+    (264, 16, 37, 1),    # the first widths past one output chunk
+    (1032, 40, 67, 2),   # past the old resident-Q width, a unit a group
 ])
-def test_q_ring_bf16_attention_matches_pallas(d, nk):
-    """Heads past the width where the streamed bf16 kernel's Q tiles and
-    two ring slots fit: Q's chunks ride the ring with K's, each score
-    still summed over the chunks once a pass.  q[1, 2, 16, d] against an
-    odd key count (a ragged last tile), within 2 bf16 ulps of the Pallas
-    kernel's peak."""
-    assert not _fits(torch.bfloat16, d)
+def test_scores_once_f32_attention_matches_pallas(d, nq, nk, groups):
+    """f32 heads past one output chunk: each score computed once a call
+    (every query against every key, counted), normalised in the
+    workspace, P.V over 64-column chunks reading P, against the Pallas
+    kernel in f32 on q[1, 2, nq, d] against a ragged key count, within
+    1e-5 (summation order only: exact f32 on both sides).  `groups`
+    launch groups: 2 hands the schedule one unit of workspace, so each
+    pair runs in a group of its own."""
+    assert att.scores_once(torch.float32, d)
     rng = np.random.default_rng(d)
     q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, n, d)).astype(
-        np.float32)).bfloat16() for n in (16, nk, nk))
-    got = _q_ring_bf16_attention(q, k, v, 800 ** -0.5)
+        np.float32)) for n in (nq, nk, nk))
+    unit = att._unit_bytes(torch.float32, nk)
+    got = _scores_once_f32_attention(q, k, v, 800 ** -0.5,
+                                     unit if groups > 1 else None)
+    want = _pallas_rows(q, k, v, 800 ** -0.5, jnp.float32)
+    assert got.shape == want.shape == (1, 2, nq, d)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("d,nq,nk,groups", [
+    (264, 16, 37, 1),    # three output chunks of 96 (the streamed kernel
+                         # takes such heads: its two chunks ran faster)
+    (1360, 40, 67, 2),   # eleven of 128, past the old resident-Q frame
+])
+def test_scores_once_bf16_attention_matches_pallas(d, nq, nk, groups):
+    """bf16 heads past one output chunk: each score computed once a call
+    (counted), over 64-column chunks of the head with TMA's zeros past
+    it, P exactly normalised and rounded to bf16 in the workspace, P.V
+    over output chunks of at most 128 columns; q[1, 2, nq, d] against a
+    ragged key count, within 2 bf16 ulps of the Pallas kernel's peak.
+    `groups` as in the f32 test."""
+    assert att.scores_once(torch.bfloat16, d) == (
+        d > att.RESIDENT_Q_MAX_HEAD_DIM[torch.bfloat16])
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, n, d)).astype(
+        np.float32)).bfloat16() for n in (nq, nk, nk))
+    unit = att._unit_bytes(torch.bfloat16, nk)
+    got = _scores_once_bf16_attention(q, k, v, 800 ** -0.5,
+                                      unit if groups > 1 else None)
     want = _pallas_rows(q, k, v, 800 ** -0.5, jnp.bfloat16)
-    assert got.shape == want.shape == (1, 2, 16, d)
+    assert got.shape == want.shape == (1, 2, nq, d)
     _close_bf16(got.float().numpy(), want)
 
 
-def _sliced_f32_attention(q, k, v, scale, rows=128, tile=32, width=128):
-    """csrc/attention_f32.cu's attention_sliced_kernel in f32 PyTorch:
-    blocks of `rows` query rows (16 a warp, 8 warps) and output chunks of
-    at most 256 columns (a multiple of 4); for each, one pass over
-    `tile`-key tiles whose scores are summed over `width`-column slices of
-    the head dim (Q's rows and the K tile a slice a stage), with the online
-    softmax of attention_kernel: a running row max and sum, the P.V
-    accumulator rescaled by exp(old max - new max), divided by the sum at
-    the end."""
-    *lead, nq, d = q.shape
-    nk = k.shape[-2]
-    chunks = -(-d // 256)
-    dc = -(-(-(-d // chunks)) // 4) * 4
-    out = torch.empty(*lead, nq, d)
-    for r0 in range(0, nq, rows):
-        qb = q[..., r0:r0 + rows, :]
-        for c0 in range(0, d, dc):
-            m = torch.full((*lead, qb.shape[-2], 1), -torch.inf)
-            l = torch.zeros_like(m)
-            acc = torch.zeros(*lead, qb.shape[-2], min(dc, d - c0))
-            for k0 in range(0, nk, tile):
-                kt = k[..., k0:k0 + tile, :]
-                s = torch.zeros(*lead, qb.shape[-2], kt.shape[-2])
-                for s0 in range(0, d, width):
-                    s = s + qb[..., s0:s0 + width] @ kt[
-                        ..., s0:s0 + width].transpose(-1, -2)
-                s = s * scale
-                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-                alpha = torch.exp(m - m_new)
-                p = torch.exp(s - m_new)
-                l = l * alpha + p.sum(-1, keepdim=True)
-                acc = acc * alpha + p @ v[..., k0:k0 + tile, c0:c0 + dc]
-                m = m_new
-            out[..., r0:r0 + rows, c0:c0 + dc] = acc / l
-    return out
+def _views(dtype, layout, heads, d, b=2, n=30):
+    """q, k and v [b, heads, n, d] on the CPU: the model's fused QKV views
+    ("fused": [b, n, 3, heads, d] storage) or contiguous tensors."""
+    if layout == "fused":
+        buf = torch.zeros(b, n, 3, heads, d, dtype=dtype)
+        return buf.permute(2, 0, 3, 1, 4).unbind(0)
+    return [torch.zeros(b, heads, n, d, dtype=dtype) for _ in range(3)]
 
 
-def test_sliced_f32_attention_matches_pallas():
-    """f32 heads past the width where the wide kernel's Q rows fit (1016):
-    each score summed over 128-column slices of Q and the K tile, at
-    D = 1032 over a ragged last key tile, against the Pallas kernel in f32,
-    within 1e-5 (summation order only: exact f32 on both sides)."""
-    d = 1032
-    assert d > att.RESIDENT_Q_MAX_HEAD_DIM[torch.float32]
-    rng = np.random.default_rng(d)
-    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 40, d)).astype(
-        np.float32)) for _ in range(3))
-    got = _sliced_f32_attention(q, k, v, 800 ** -0.5)
-    want = np.asarray(jax_attention.pallas_attention(
-        *_jax(q.numpy(), k.numpy(), v.numpy()), 800 ** -0.5))
-    assert got.shape == want.shape == (1, 2, 40, d)
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+@pytest.mark.parametrize("dtype,layout,heads,d,kernel", [
+    (torch.float32, "fused", 10, 80, "attention_kernel"),  # the flagship's
+    (torch.float32, "fused", 8, 130, "attention_wide_kernel"),
+    (torch.float32, "contiguous", 4, 256, "attention_wide_kernel"),
+    (torch.float32, "fused", 4, 257, "once"),
+    (torch.float32, "fused", 4, 264, "once"),
+    (torch.float32, "contiguous", 4, 2048, "once"),
+    (torch.bfloat16, "fused", 10, 80, "attention_tc_kernel"),  # flagship
+    (torch.bfloat16, "fused", 8, 130, "attention_tc_stream_kernel"),
+    (torch.bfloat16, "contiguous", 4, 256, "attention_tc_stream_kernel"),
+    (torch.bfloat16, "fused", 4, 264, "attention_tc_stream_kernel"),
+    # 346 columns lying up to 6 into their tiles (a frame of 352), and
+    # 350 (a frame of 356): the frame, not the head dim, decides.
+    (torch.bfloat16, "fused", 4, 346, "attention_tc_stream_kernel"),
+    (torch.bfloat16, "fused", 4, 350, "once"),
+    (torch.bfloat16, "fused", 4, 520, "once"),
+    (torch.bfloat16, "fused", 4, 1360, "once"),
+])
+def test_scores_once_routing(dtype, layout, heads, d, kernel):
+    """The Python mirror of the C entries' choice (ops.attention's
+    scores_once and device_kernels): the flagship's D = 80 keeps its
+    kernels (f32 attention_kernel, bf16 the resident attention_tc_kernel),
+    heads up to RESIDENT_Q_MAX_HEAD_DIM (f32 256 columns, one output
+    chunk; bf16 a frame in the tiles of 352, two chunks of 176) keep the
+    resident-Q ones, and wider ones take the scores-once kernels, three
+    launches, with a workspace."""
+    q, k, v = _views(dtype, layout, heads, d)
+    got = att.device_kernels(q, k, v)
+    once = kernel == "once"
+    assert got == (att.ONCE_KERNELS[dtype] if once else (kernel,))
+    frame = att._frame(*att._operands(q, k, v)[:3])
+    assert att.scores_once(dtype, frame) == once
+    assert (frame > att.RESIDENT_Q_MAX_HEAD_DIM[dtype]) == once
+
+
+@pytest.mark.parametrize("dtype,pairs,nq,nk,units", [
+    (torch.float32, 8, 360, 360, 48),       # q[2,4,360,2048]: 4.5 MB
+    (torch.bfloat16, 8, 360, 360, 48),      # 6.75 MB
+    (torch.bfloat16, 80, 360, 360, 480),    # q[20,4,360,520]: 69 MB
+    (torch.float32, 65540, 48, 120, 8192),  # B * H past one grid's y axis
+    (torch.bfloat16, 65540, 48, 120, 5461),
+    (torch.float32, 1, 64, 2000000, 1),     # one unit past the group cap
+])
+def test_workspace_bytes(dtype, pairs, nq, nk, units):
+    """The scores-once kernels' workspace (ops.attention.workspace_bytes,
+    csrc's once_f32_unit_bytes and once_unit_bytes): a unit (64 query rows
+    of a pair) takes f32 64 rows of Nk rounded up to 32 floats, bf16 24 KB
+    a 64-key tile; a call gets every unit's where they fit
+    WORKSPACE_GROUP_BYTES, else as many as fit (at least one), and the
+    launch groups (csrc/attention.cuh's over_groups) then cover every
+    unit of every pair once, at most 65535 pairs a group."""
+    unit = (4 * 64 * -(-nk // 32) * 32 if dtype == torch.float32
+            else -(-nk // 64) * 24576)
+    assert att._unit_bytes(dtype, nk) == unit
+    got = att.workspace_bytes(dtype, pairs, nq, nk)
+    assert got == units * unit
+    assert got <= max(att.WORKSPACE_GROUP_BYTES, unit)
+    qtiles = -(-nq // 64)
+    most = 65535 * (2 if dtype == torch.bfloat16 else 1)
+    covered = torch.zeros(pairs, qtiles, dtype=torch.int32)
+    for bh0, np_, qt0, nqt in _groups(pairs, qtiles, got // unit, most):
+        assert np_ * nqt <= units and np_ <= 65535 and nqt <= most
+        covered[bh0:bh0 + np_, qt0:qt0 + nqt] += 1
+    assert bool((covered == 1).all())
 
 
 def _fact_config(hidden=800, heads=10, mlp_width=3072, audio_seq=240):

@@ -227,14 +227,16 @@ def test_streamed_bf16_kernel_matches_pallas(n, d):
 
 
 def _wide_f32_attention(q, k, v, scale, rows=128, tile=32):
-    """The f32 kernel for heads over 128 (csrc/attention.cu,
+    """The f32 kernel for heads over 128 (csrc/attention_f32.cu,
     attention_wide_kernel), in f32 PyTorch: blocks of `rows` query rows
     (16 a warp, 8 warps) and output chunks of at most 256 columns (a
-    multiple of 4); for each, one pass over `tile`-key tiles, each tile's
-    scores computed once over the whole head dim, with the online softmax
-    of attention_kernel (a running row max and sum, the P.V accumulator
-    rescaled by exp(old max - new max) when the max rises, divided by the
-    sum at the end)."""
+    multiple of 4: the kernel's one chunk up to 256 columns; past them,
+    where the scores-once kernels run, the chunked form each block of
+    which recomputes the scores); for each, one pass over `tile`-key
+    tiles, each tile's scores computed over the whole head dim, with the
+    online softmax of attention_kernel (a running row max and sum, the
+    P.V accumulator rescaled by exp(old max - new max) when the max rises,
+    divided by the sum at the end)."""
     *lead, nq, d = q.shape
     nk = k.shape[-2]
     chunks = -(-d // 256)
