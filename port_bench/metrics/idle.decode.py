@@ -1,0 +1,6 @@
+"""Device idle share of the traced decode window, in %: one less the
+union of device operations' intervals over the window."""
+
+
+def read(trace):
+    return trace.idle_share()

@@ -1,0 +1,5 @@
+"""LayerNorm's share of its roofline in a decode step, in %."""
+
+
+def read(trace):
+    return trace.roofline("layer_norm", "forward")

@@ -1,0 +1,5 @@
+"""The fused MLP's share of its roofline in a decode step, in %."""
+
+
+def read(trace):
+    return trace.roofline("mlp", "forward")
