@@ -40,6 +40,7 @@ import torch
 from mint_tpu_torch.data import pipeline as data_pipeline
 from mint_tpu_torch.data import tfrecord
 from mint_tpu_torch.parallel.mesh import SEED_STRIDE
+from mint_tpu_torch.utils import profiling
 from mint_tpu_torch.utils.device import resolve
 
 
@@ -213,29 +214,31 @@ class DeviceDataset:
     def sample(self, seed: int, step: int) -> Dict[str, torch.Tensor]:
         """One [batch] of training windows, drawn on the device from a
         generator seeded from (`seed`, `step`): the same pair gives the
-        same windows."""
-        g = self._generator
-        g.manual_seed(_draw_seed(seed + self.seed_offset, step))
-        a = self.arrays
-        b = self.batch_size
-        if self._slots is None:
-            idx = torch.randint(0, self.n_sequences, (b,), generator=g,
-                                device=self.device)
-        else:
-            idx = self._slots[torch.randint(0, len(self._slots), (b,),
-                                            generator=g, device=self.device)]
-        u = torch.rand((b,), generator=g, device=self.device)
-        cnt = a["counts"][idx]
-        start = torch.minimum((u * cnt).long(), cnt - 1)
-        pos = a["offsets"][idx] + start
-        motion_span = a["motion"][pos[:, None] + self._motion_rows]
-        audio = a["audio"][pos[:, None] + self._audio_rows]
-        return {
-            "motion_input": motion_span[:, :self.motion_input_len],
-            "target": motion_span[:, self.target_shift:
-                                  self.target_shift + self.target_len],
-            "audio_input": audio,
-        }
+        same windows.  Traced as ``mint.train.sample``."""
+        with profiling.annotate("mint.train.sample"):
+            g = self._generator
+            g.manual_seed(_draw_seed(seed + self.seed_offset, step))
+            a = self.arrays
+            b = self.batch_size
+            if self._slots is None:
+                idx = torch.randint(0, self.n_sequences, (b,), generator=g,
+                                    device=self.device)
+            else:
+                idx = self._slots[torch.randint(
+                    0, len(self._slots), (b,), generator=g,
+                    device=self.device)]
+            u = torch.rand((b,), generator=g, device=self.device)
+            cnt = a["counts"][idx]
+            start = torch.minimum((u * cnt).long(), cnt - 1)
+            pos = a["offsets"][idx] + start
+            motion_span = a["motion"][pos[:, None] + self._motion_rows]
+            audio = a["audio"][pos[:, None] + self._audio_rows]
+            return {
+                "motion_input": motion_span[:, :self.motion_input_len],
+                "target": motion_span[:, self.target_shift:
+                                      self.target_shift + self.target_len],
+                "audio_input": audio,
+            }
 
     @property
     def nbytes(self) -> int:

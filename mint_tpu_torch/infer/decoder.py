@@ -37,6 +37,11 @@ The graphs read the model's parameters in place: weights loaded into
 them (``load_state_dict``, as the evaluator and the server do) keep the
 graphs, while parameters replaced by other tensors drop them, to be
 captured anew.
+
+Tracing: each step of the loop is a ``mint.decode.step`` span
+(``utils/profiling.annotate``): the host's work a step, under a running
+profiler only.  The step's graph holds no stamp: the decode's kernels are
+told apart by their names.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ from typing import Dict
 import torch
 
 from mint_tpu_torch.models.fact import FACT
-from mint_tpu_torch.utils import graphs
+from mint_tpu_torch.utils import graphs, profiling
 
 # Query rows computed in the FINAL cross-modal block per decode step (the
 # JAX decoder's default; exact for any value >= 1).
@@ -199,7 +204,8 @@ def _decode(model: FACT, inputs: Dict[str, torch.Tensor], steps: int,
     while done < steps:
         n = min(chunk, steps - done)
         for _ in range(n):
-            step()
+            with profiling.annotate("mint.decode.step"):
+                step()
         done += n
     # The next decode of this key overwrites the static frames.
     return loop.frames.clone() if graphed else loop.frames

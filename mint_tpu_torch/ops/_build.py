@@ -53,6 +53,8 @@ _SIGNATURES = {
                       _P],
     # x, gamma, beta (both null: no affine), out, rows, cols, eps, stream
     "mint_layer_norm_bf16": [_P, _P, _P, _P, _I, _I, _F, _P],
+    # slots (int64 on the card), phase, stream
+    "mint_trace_stamp": [_P, _I, _P],
 }
 
 

@@ -343,6 +343,9 @@ def _train(args: argparse.Namespace, mesh) -> None:
              "fused_mlp": mlp_op.launches,
              "layer_norm": layer_norm_op.launches,
              "layer_norm_affine_free": layer_norm_op.affine_free_launches}))
+        # The last step's phases, from the stamps in its body (null on
+        # the CPU, where nothing is stamped).
+        log.info("step phases (ms): %s", json.dumps(trainer.phase_ms()))
     finally:
         controller.close()
         if batches is not None:

@@ -57,6 +57,15 @@ clip over the global arrays does.  Adam runs on each rank's slice.  On
 the card the collectives are captured in the step's graph when the
 device groups are NCCL's; with gloo's (the CPU's, or ranks sharing one
 card) the step runs uncaptured.
+
+Tracing (``utils/profiling.py``): the step's body stamps its phases on
+the card, inside the graph: ``begin`` at its first launch, ``forward``
+after the loss, ``backward`` after the gradients, ``exchange`` after the
+mesh's all-reduce (over a mesh only) and ``update`` after the clip and
+Adam (or a micro-step's accumulate).  :meth:`Trainer.phase_ms` reads the
+last step's phases from the stamps with no profiler; a profiler's trace
+reads every step's from the stamp kernels.  On the host,
+``mint.train.step`` spans :meth:`Trainer.train_step`.
 """
 
 from __future__ import annotations
@@ -74,7 +83,7 @@ import torch.distributed as dist
 from mint_tpu_torch.models.fact import l2_loss
 from mint_tpu_torch.parallel import mesh as mesh_lib
 from mint_tpu_torch.train.schedules import Schedule
-from mint_tpu_torch.utils import graphs
+from mint_tpu_torch.utils import graphs, profiling
 
 LABEL_KEY = "target"
 # Elements a gradient's segment of the flat all-reduce buffer is rounded
@@ -140,6 +149,10 @@ class Trainer:
         self._batches: Dict[Any, Dict[str, torch.Tensor]] = {}
         self._steps: Dict[Any, Any] = {}  # (batch key, body) -> step
         self._bound: Tuple[int, ...] = ()  # the state the steps read
+        # The phase stamps of the step last run (device ns, by
+        # profiling.PHASES): made here, before any capture reads them.
+        self._stamps = torch.zeros(len(profiling.PHASES), dtype=torch.int64,
+                                   device=self.device)
 
     # -- state ---------------------------------------------------------
 
@@ -184,15 +197,24 @@ class Trainer:
                                            to_device(batch, self.device))
         return loss, dict(zip(params, grads))
 
-    def _loss_and_grads(self, params, batch):
-        """The loss and gradients, averaged over the mesh's data group."""
+    def _loss_and_grads(self, params, batch, stamped: bool = False):
+        """The loss and gradients, averaged over the mesh's data group;
+        `stamped` (the step's body) stamps the phases' ends."""
+        def mark(phase):
+            if stamped:
+                profiling.stamp(self._stamps, phase)
+
         leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
         with torch.enable_grad():
             loss = self.loss(leaves, batch)
+            mark("forward")
             grads = torch.autograd.grad(loss, list(leaves.values()))
+        mark("backward")
         if self.mesh is None:
             return loss.detach(), list(grads)
-        return self._data_mean(loss.detach(), grads)
+        loss, grads = self._data_mean(loss.detach(), grads)
+        mark("exchange")
+        return loss, grads
 
     def _data_mean(self, loss, grads):
         """The loss and gradients averaged over the data group: one
@@ -354,8 +376,11 @@ class Trainer:
             lists = self._lists(state)
 
             def run():
-                loss, gs = self._loss_and_grads(state.params, batch)
+                profiling.stamp(self._stamps, "begin")
+                loss, gs = self._loss_and_grads(state.params, batch,
+                                                stamped=True)
                 self._update(gs, *lists, body)
+                profiling.stamp(self._stamps, "update")
                 return loss
 
             step = run
@@ -374,14 +399,15 @@ class Trainer:
         the step's metrics; the loss stays a tensor on the device until
         the caller reads it."""
         opt = state.opt_state
-        self._bind(state)
-        batch_key, static = self._static_batch(batch)
-        self._write_scalars(opt)
-        # A copy: after a capture the step returns its static loss, which
-        # the next step overwrites.
-        loss = self._step(state, batch_key, static,
-                          self._body_name(opt))().clone()
-        self._advance(opt)
+        with profiling.annotate("mint.train.step"):
+            self._bind(state)
+            batch_key, static = self._static_batch(batch)
+            self._write_scalars(opt)
+            # A copy: after a capture the step returns its static loss,
+            # which the next step overwrites.
+            loss = self._step(state, batch_key, static,
+                              self._body_name(opt))().clone()
+            self._advance(opt)
         metrics = {
             "total_loss": loss,
             "loss": loss,
@@ -390,6 +416,18 @@ class Trainer:
                 state.step // self.accumulate_steps),
         }
         return state._replace(step=state.step + 1), metrics
+
+    def phase_ms(self) -> Optional[Dict[str, float]]:
+        """The phases of the step last run, in ms, from the stamps its
+        body wrote on the card (one copy to the host, which waits for
+        that step): ``forward``, ``backward``, ``exchange`` (over a mesh
+        only: the all-reduce of the loss and gradients) and ``update``
+        (the clip and Adam, or a micro-step's accumulate).  None on the
+        CPU, where nothing is stamped, and before a step."""
+        if self._stamps.device.type != "cuda":
+            return None
+        return profiling.phase_ms(self._stamps.tolist(),
+                                  exchange=self.mesh is not None)
 
     # -- several steps ---------------------------------------------------
 
