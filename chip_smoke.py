@@ -16,6 +16,13 @@ CPU):
    shapes beside the plain version's, its bound and, for attention, that
    of PyTorch's own fused attention call, for the affine-free LayerNorm
    that of ``layer_norm`` (timed in ``time_kernels`` as yardsticks only);
+   the bf16 attention backward kernels (``csrc/attention_bwd.cu``)
+   against ``attention_backward_reference`` on the model's views at the
+   training calls (q[32,10,N,80], a dp4 rank's q[8,10,N,80] and the
+   tensor-parallel ranks' q[32,5,N,80] and q[32,3,N,80]; N = 360, 240,
+   120) within 2 bf16 ulps of each gradient's peak, two calls equal bit
+   for bit, and timed at the training shapes beside the plain VJP they
+   replaced, their bound and PyTorch's attention backward;
 3. the slice: the flagship FACT (configs/fact_v5_deeper_t10_cm12.config,
    full width and depth, weights from a torch.Generator seeded 0) behind
    the port's GenerationService and HTTP server, warmed up on both length
@@ -38,7 +45,8 @@ CPU):
    the CPU (plain versions) with the same weights and batch: the losses and
    every parameter's gradient compared, and 16 launches of each kernel per
    forward; the same in bf16 compute (f32 parameters): every gradient there
-   and finite; (b) the port's train CLI as a subprocess on the full
+   and finite, and 16 calls of the attention backward kernels (every
+   count of a bf16 training run below holds them to 16 a step too); (b) the port's train CLI as a subprocess on the full
    flagship at the config's batch of 32, in f32 and with
    ``--use_bfloat16``, on a synthetic AIST-shaped corpus it reads from
    ``<tmp>/data`` through the config's own ``data_files``, with the host
@@ -92,7 +100,7 @@ CPU):
    width and depth split over 2 gloo ranks on cuda:0 (``chip_smoke.py --tp-rank R ...``, one process
    each; uncaptured) against the single-rank port: f32 loss and every
    gradient, one train step, bf16 compute, and each rank's launches a
-   forward; (c) the train CLI with ``--distributed --num_processes=1``
+   forward and, in bf16, its 16 attention backward kernel calls; (c) the train CLI with ``--distributed --num_processes=1``
    (NCCL, its collectives captured in the step's graph) against the CLI
    without it, bf16 at batch 32 on the card-resident corpus over 21
    steps: the checkpoints equal bit for bit, and the steps/s of both and
@@ -297,6 +305,67 @@ def check_attention(att, gen):
     return worst
 
 
+def _fused_grad(gen, b, n, h, d):
+    """q, k and v on the model's fused-QKV views (_qkv's "fused") and the
+    output's gradient as the model hands it back: the merged heads'
+    [B, N, H * D] gradient as a [B, H, N, D] view; bf16."""
+    q, k, v = _qkv("fused", b, h, n, n, d, torch.bfloat16, gen)
+    do = torch.randn(b, n, h * d, device="cuda", generator=gen).bfloat16()
+    return q, k, v, do.view(b, n, h, d).transpose(1, 2)
+
+
+def check_attention_backward(att, gen):
+    """The bf16 backward kernels (csrc/attention_bwd.cu, through
+    ops.attention._backward_call) against attention_backward_reference on
+    the model's views at the flagship's training calls: q[32,10,N,80] on
+    one card, q[8,10,N,80] on a dp4 rank, and a tensor-parallel rank's
+    heads, q[32,5,N,80] (model = 2) and q[32,3,N,80] (model = 4), N = 360,
+    240, 120; within 2 bf16 ulps of each gradient's peak (both round P and
+    dS to bf16 where the formula does and each gradient once, their f32
+    sums in other orders, so one of those roundings may flip); then two
+    calls at q[32,10,360,80] equal bit for bit.  Returns the worst error
+    at the full heads and at a rank's, in ulps of the gradient's peak."""
+    worst = {"train": 0.0, "tensor_parallel": 0.0}
+    for b, h in ((TRAIN_BATCH, 10), (TRAIN_BATCH // 4, 10),
+                 (TRAIN_BATCH, 5), (TRAIN_BATCH, 3)):
+        for n in (360, 240, 120):
+            q, k, v, do = _fused_grad(gen, b, n, h, 80)
+            if att.backward_kernels(q, k, v) != att.BACKWARD_KERNELS:
+                raise AssertionError(f"q[{b},{h},{n},80]: the backward "
+                                     f"kernels do not take the model's views")
+            got = att._backward_call(q, k, v, do, SCALE)
+            torch.cuda.synchronize()
+            want = att.attention_backward_reference(q, k, v, do, SCALE)
+            ulps = []
+            for g, w in zip(got, want):
+                err = (g.float() - w.float()).abs().max().item()
+                ulps.append(err / bf16_ulp(w.float().abs().max().item()))
+            ok = (max(ulps) <= 2 and all(
+                g.dtype == torch.bfloat16 and g.shape == w.shape
+                and bool(torch.isfinite(g).all()) for g, w in zip(got, want)))
+            log(f"attention backward bf16 fused q[{b},{h},{n},80]: dq, dk, dv"
+                f" {', '.join(f'{u:.2f}' for u in ulps)} ulps of each "
+                f"gradient's peak (tol 2: P and dS rounded to bf16 as the "
+                f"formula does, f32 sums in another order) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"attention backward kernels disagree "
+                                     f"at q[{b},{h},{n},80]: {ulps} ulps")
+            key = "train" if h == 10 else "tensor_parallel"
+            worst[key] = max(worst[key], *ulps)
+            del got, want
+    q, k, v, do = _fused_grad(gen, TRAIN_BATCH, 360, 10, 80)
+    first = att._backward_call(q, k, v, do, SCALE)
+    second = att._backward_call(q, k, v, do, SCALE)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    log(f"attention backward bf16 q[{TRAIN_BATCH},10,360,80]: two calls "
+        f"equal bit for bit: {same}")
+    if not same:
+        raise AssertionError("the attention backward kernels are not "
+                             "deterministic")
+    return worst
+
+
 def mlp_weights(gen, dtype, h=800, f=3072, o=800):
     """W1 [H, F], b1, W2 [F, O], b2 as the model passes them: transposed
     views of nn.Linear's [out, in] weights."""
@@ -410,23 +479,31 @@ def reset_launches():
     """Every kernel's launch count to 0."""
     from mint_tpu_torch.ops import attention, layer_norm, mlp
     attention.launches = mlp.launches = layer_norm.launches = 0
-    layer_norm.affine_free_launches = 0
+    attention.backward_launches = layer_norm.affine_free_launches = 0
 
 
 def launch_counts():
-    """Every kernel's launches since the last :func:`reset_launches`."""
+    """Every kernel's launches since the last :func:`reset_launches` (the
+    attention backward kernels': their calls, two launches each)."""
     from mint_tpu_torch.ops import attention, layer_norm, mlp
-    return {"attention": attention.launches, "fused_mlp": mlp.launches,
-            "layer_norm": layer_norm.launches,
+    return {"attention": attention.launches,
+            "attention_backward": attention.backward_launches,
+            "fused_mlp": mlp.launches, "layer_norm": layer_norm.launches,
             "layer_norm_affine_free": layer_norm.affine_free_launches}
 
 
-def expected_launches(forwards: int, bf16: bool, folded: bool = False):
+def expected_launches(forwards: int, bf16: bool, folded: bool = False,
+                      backwards: int = 0):
     """Launches of `forwards` flagship forwards: 16 blocks of attention and
     MLP each, and in bf16 two LayerNorms a block, in the affine-free form
-    where the model's LayerNorm affines are folded (phase 10)."""
+    where the model's LayerNorm affines are folded (phase 10); and of the
+    `backwards` of them that were differentiated, in bf16 compute 16
+    calls of the attention backward kernels each (f32 differentiates the
+    plain formula)."""
     norms = 32 * forwards if bf16 else 0
-    return {"attention": 16 * forwards, "fused_mlp": 16 * forwards,
+    return {"attention": 16 * forwards,
+            "attention_backward": 16 * backwards if bf16 else 0,
+            "fused_mlp": 16 * forwards,
             "layer_norm": 0 if folded else norms,
             "layer_norm_affine_free": norms if folded else 0}
 
@@ -467,6 +544,13 @@ def attention_work(b, h, nq, nk, d, elem):
     return 4.0 * b * h * nq * nk * d, elem * b * h * d * (2 * nq + 2 * nk)
 
 
+def attention_backward_work(b, h, nq, nk, d):
+    """(flops, bytes) of the attention backward: the five products Q.K^T,
+    dO.V^T, P^T.dO, dS.K and dS^T.Q; q, k, v and dO read once, dq, dk and
+    dv written once (bf16)."""
+    return 10.0 * b * h * nq * nk * d, 2 * b * h * d * (3 * nq + 4 * nk)
+
+
 def mlp_work(m, h, f, o, elem):
     """(flops, bytes) of the fused MLP: x, W1, b1, W2, b2 in, out out."""
     return (2.0 * m * (h * f + f * o),
@@ -474,7 +558,7 @@ def mlp_work(m, h, f, o, elem):
 
 
 def time_kernels(att, mlp, ln, gen, card, batch, attn_shapes, mlp_rows,
-                 host=True, heads=10, width=3072):
+                 host=True, heads=10, width=3072, backward=False):
     """Kernel, plain version and, for attention, one PyTorch call
     (F.scaled_dot_product_attention, the yardstick: the port never calls
     it) at `batch` and the given shapes (attention's (Nq, Nk), the MLP's
@@ -482,8 +566,10 @@ def time_kernels(att, mlp, ln, gen, card, batch, attn_shapes, mlp_rows,
     if `host`, the host's cost of a call.  `heads` and `width` are the
     attention's heads and the MLP's hidden width (a tensor-parallel
     rank's: 5 and 1536 at model = 2); the bf16 LayerNorm, never split, is
-    timed at the full ones only.  Returns {(kernel, dtype name): {Nq or
-    rows: row}} for the summary line."""
+    timed at the full ones only.  With `backward`, the bf16 attention
+    backward kernels too, on the model's views at each Nq = Nk, beside the
+    plain VJP they replaced and the PyTorch call's backward.  Returns
+    {(kernel, dtype name): {Nq or rows: row}} for the summary line."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -493,6 +579,33 @@ def time_kernels(att, mlp, ln, gen, card, batch, attn_shapes, mlp_rows,
             return SDPBackend(torch._fused_sdp_choice(q, k, v, scale=SCALE))
         except (AttributeError, RuntimeError, TypeError, ValueError):
             return None
+
+    def time_backward(nq):
+        """The "attention_backward" row at q[batch,heads,nq,80]."""
+        q, k, v, do = _fused_grad(gen, batch, nq, heads, 80)
+
+        def plain_vjp():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            return torch.autograd.grad(
+                att.attention_formula(*leaves, SCALE), leaves, do)
+
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, scale=SCALE)
+        t_k = cuda_ms(lambda: att._backward_call(q, k, v, do, SCALE))
+        t_p = cuda_ms(plain_vjp)
+        t_l = cuda_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                  retain_graph=True))
+        backend = backend_of(*leaves)
+        b_ms, b_by = bound(*attention_backward_work(batch, heads, nq, nq,
+                                                    80), "bf16")
+        shape = f"q[{batch},{heads},{nq},80]"
+        log(f"time attention_backward bf16 {shape} (the model's views): "
+            f"kernels {t_k:.4f} ms, plain VJP {t_p:.4f} ms, SDPA backward "
+            f"{t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({card})")
+        return {"shape": shape, "ms": t_k, "plain_ms": t_p,
+                "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by,
+                "library": f"scaled_dot_product_attention backward "
+                           f"{backend.name if backend else 'unknown'}"}
 
     summary = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -537,6 +650,9 @@ def time_kernels(att, mlp, ln, gen, card, batch, attn_shapes, mlp_rows,
                 f" plain {t_p:.4f} ms, SDPA {t_l:.4f} ms{named}, bound "
                 f"{b_ms:.4f} ms ({b_by}){extra}{hosted} ({card})")
             summary.setdefault(("attention", name), {})[nq] = row
+            if backward and dtype == torch.bfloat16 and nq == nk:
+                summary.setdefault(("attention_backward", name), {})[nq] = (
+                    time_backward(nq))
         w1, b1, w2, b2 = mlp_weights(gen, dtype, f=width)
         for rows in mlp_rows:
             m = batch * rows
@@ -979,7 +1095,7 @@ def train_gradients():
         f"each leaf: bf16 rounding, 8 significant bits, through 16 blocks "
         f"and back; a wrong GEMM gives an error of order 1); launches per "
         f"forward {counts16}")
-    if (bad or counts16 != expected_launches(1, bf16=True)
+    if (bad or counts16 != expected_launches(1, bf16=True, backwards=1)
             or not math.isfinite(loss16)
             or not rel16 <= 0.1 or not per_leaf[worst16] <= 0.1):
         raise AssertionError(f"bf16 training gradients: bad {bad}, "
@@ -1050,7 +1166,8 @@ def train_graphs(card):
                  ("nu", a.opt_state["nu"], b.opt_state["nu"])]
         unequal = [f"{t}/{key}" for t, x, y in trees for key in x
                    if not torch.equal(x[key], y[key])]
-        expect = expected_launches(STEPS_PER_LOOP, bf16)
+        expect = expected_launches(STEPS_PER_LOOP, bf16,
+                                   backwards=STEPS_PER_LOOP)
         bodies = 2 if k > 1 else 1
         micro = " (2 micro-batches an update)" if k > 1 else ""
         log(f"train graph {name}{micro} batch {TRAIN_BATCH}, 2 x "
@@ -1178,11 +1295,11 @@ def train_cli(work, name, backend, run="run"):
     if ckpts() != [1, 4] or [r["step"] for r in first] != [1, 3, 4]:
         raise AssertionError(f"train CLI {name}: checkpoints {ckpts()}, "
                              f"summaries at {[r['step'] for r in first]}")
-    expect = expected_launches(4, bf16)
+    expect = expected_launches(4, bf16, backwards=4)
     if counts != expect:
         raise AssertionError(f"train CLI {name}: launches {counts}, want "
-                             f"{expect} (16 a step, and 32 LayerNorms in "
-                             f"bf16)")
+                             f"{expect} (16 a step, and 32 LayerNorms and "
+                             f"16 attention backwards in bf16)")
     counts2, err2, seconds2 = run_train_cli(work, model_dir, 6, bf16,
                                             backend)
     every = rows()
@@ -1196,7 +1313,7 @@ def train_cli(work, name, backend, run="run"):
         f"{[(r['step'], r['steps_per_sec']) for r in every]}")
     if (not resumed or ckpts() != [1, 4, 6]
             or [r["step"] for r in every] != [1, 3, 4, 6]
-            or counts2 != expected_launches(2, bf16)):
+            or counts2 != expected_launches(2, bf16, backwards=2)):
         raise AssertionError(f"train CLI {name} did not resume as expected")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"train CLI {name}: losses {losses}")
@@ -1235,7 +1352,8 @@ def train_rate(name, card, steps, mesh=None):
         f"{steps / seconds:.3f} steps/s, {1000 * seconds / steps:.2f} "
         f"ms/step, peak memory {peak:.2f} GiB, loss {loss:.5f}, launches "
         f"{counts} ({card})")
-    if counts != expected_launches(steps, name.startswith("bf16")) \
+    if counts != expected_launches(steps, name.startswith("bf16"),
+                                   backwards=steps) \
             or not math.isfinite(loss):
         raise AssertionError(f"train {name}: launches {counts}, loss {loss}")
     del model, trainer, state
@@ -2129,9 +2247,13 @@ def tp_rank(rank: int, port: int, work: str) -> None:
                 trainer.loss(state.params, batch)
                 torch.cuda.synchronize()
                 counts = launch_counts()
+            reset_launches()
             loss, grads = trainer.loss_and_grads(state.params, batch)
+            torch.cuda.synchronize()
+            backwards = launch_counts()["attention_backward"]
             gathered = mesh_lib.gather_state_dicts([grads], mesh)
             out[name] = {"loss": float(loss), "launches": counts,
+                         "backward_launches": backwards,
                          "grads": gathered[0] if gathered else None}
             if name == "f32":
                 state, _ = trainer.train_step(state, batch)
@@ -2211,6 +2333,7 @@ def tensor_parallel_step(work, card):
                                / want.norm().clamp_min(1e-30)).item()
         worst = max(per_leaf, key=per_leaf.get)
         expect = expected_launches(1, bf16=name == "bf16")
+        want_bwd = 16 if name == "bf16" else 0
         loss_tol, grad_tol = (1e-5, 1e-4) if name == "f32" else (1e-2, 0.1)
         what = ("of each leaf's peak" if name == "f32"
                 else "relative L2 of each leaf")
@@ -2219,14 +2342,18 @@ def tensor_parallel_step(work, card):
             f" vs {loss:.6f} (rel {rel:.2e}, tol {loss_tol:.0e}); worst "
             f"gradient {per_leaf[worst]:.3e} {what} ({worst}; tol "
             f"{grad_tol:.0e}); launches per forward of rank 0 "
-            f"{mine['launches']}, want {expect} ({card})")
+            f"{mine['launches']}, want {expect}; attention backward kernel "
+            f"calls of its backward {mine['backward_launches']}, want "
+            f"{want_bwd} ({card})")
         if (not rel <= loss_tol or not per_leaf[worst] <= grad_tol
-                or mine["launches"] != expect):
+                or mine["launches"] != expect
+                or mine["backward_launches"] != want_bwd):
             raise AssertionError(f"tensor parallel {name}: loss rel {rel}, "
                                  f"{worst} {per_leaf[worst]}, launches "
                                  f"{mine['launches']}")
         result[name] = {"loss_rel": rel, "worst_grad": per_leaf[worst],
-                        "launches": mine["launches"]}
+                        "launches": mine["launches"],
+                        "backward_launches": mine["backward_launches"]}
         if name == "f32":
             init = {k: v.clone() for k, v in state.params.items()}
             state, _ = trainer.train_step(state, cuda_batch)
@@ -2299,7 +2426,7 @@ def distributed_world_of_one(work, card):
         rates[name] = _cli_rates(model_dir)
         rates[name + "_synced"] = _synced_rate(model_dir)
         counts = logged_launches(err, f"train CLI {name}")
-        expect = expected_launches(WS1_STEPS, bf16=True)
+        expect = expected_launches(WS1_STEPS, bf16=True, backwards=WS1_STEPS)
         log(f"train CLI bf16 {name} (device input) batch {TRAIN_BATCH} x "
             f"{WS1_STEPS} steps in {seconds:.1f} s; steps_per_sec by step "
             f"{rates[name]}; synchronized {rates[name + '_synced']!r} "
@@ -2575,7 +2702,7 @@ def native_input(work, counts, rates, card):
     chosen = [b for b, line in BACKEND_LOG.items() if line in err]
     native = {"cli": _cli_rates(model_dir),
               "synced": _synced_rate(model_dir)}
-    expect = expected_launches(WS1_STEPS, bf16=True)
+    expect = expected_launches(WS1_STEPS, bf16=True, backwards=WS1_STEPS)
     got = logged_launches(err, "train CLI auto")
     log(f"train CLI bf16 --input_backend=auto chose {chosen} "
         f"({native_loader.library_path()}); batch {TRAIN_BATCH} x "
@@ -3096,6 +3223,16 @@ def limit_config(hidden=800, heads=10, mlp_width=3072, audio_seq=240):
     return cfg
 
 
+def _takes_backward(hidden, heads):
+    """1 if the attention backward kernels take the bf16 model's views at
+    `hidden` over `heads` heads (ops.attention.backward_kernels), else 0."""
+    from mint_tpu_torch.ops import attention as att
+    d = hidden // heads
+    qkv = torch.empty(1, 2, 3, heads, d, device="cuda", dtype=torch.bfloat16)
+    return int(bool(att.backward_kernels(
+        *qkv.permute(2, 0, 3, 1, 4).unbind(0))))
+
+
 def _rel_l2(got, want):
     return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
 
@@ -3241,7 +3378,8 @@ def limit_configs(card, references):
             worst = max(per_leaf, key=per_leaf.get)
             state, metrics = trainer.train_step(state, cuda_batch)
             stepped = float(metrics["loss"])
-            expect = expected_launches(1, bf16)
+            expect = expected_launches(1, bf16, backwards=_takes_backward(
+                change.get("hidden", 800), change.get("heads", 10)))
             log(f"limit config {case} {name}: train batch {LIMIT_TRAIN} "
                 f"loss {loss:.6f} vs CPU {want_loss:.6f} (rel {rel:.2e}, tol "
                 f"{loss_tol:.0e}); worst gradient {per_leaf[worst]:.3e} "
@@ -3380,8 +3518,8 @@ def wide_model_axis(work, card):
     step_rel = abs(got["loss_after"] - after) / abs(after)
     moved = max((got["params"][k].cuda() - v).abs().max().item()
                 for k, v in state.params.items())
-    expect = {"attention": 6, "fused_mlp": 6, "layer_norm": 0,
-              "layer_norm_affine_free": 0}
+    expect = {"attention": 6, "attention_backward": 0, "fused_mlp": 6,
+              "layer_norm": 0, "layer_norm_affine_free": 0}
     log(f"model axis wider than the heads: {WIDE_AXIS_RANKS} gloo ranks on "
         f"cuda:0 over 2 heads vs one rank, f32: loss {got['loss']:.6f} vs "
         f"{float(loss):.6f} (rel {rel:.2e}, tol 1e-5); worst gradient "
@@ -3474,7 +3612,8 @@ def product_loop(work, card):
             or resumed["restored_step"] != max(at_kill)
             or max(summary["ckpts_final"]) != size["train_steps"]
             or launches["train", "bf16"]
-            != expected_launches(resumed_steps, True)
+            != expected_launches(resumed_steps, True,
+                                 backwards=resumed_steps)
             or not summary["generated_clips"]
             or not summary["generated_clips_bf16"]
             or set(scores) != {"f32", "bf16"} or not finite
@@ -3535,6 +3674,7 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {"attention": check_attention(att, gen),
             "fused_mlp": check_mlp(mlp, gen)}
+    bwd_ulps = check_attention_backward(att, gen)
     ln_err, ln_free_err = check_layer_norm(ln, gen)
     errs["layer_norm"] = {"bf16": ln_err}
     errs["layer_norm_affine_free"] = {"bf16": ln_free_err}
@@ -3546,7 +3686,7 @@ def main():
                          (360, 48, 240, 120))
     train_times = time_kernels(att, mlp, ln, gen, card, TRAIN_BATCH,
                                ((360, 360), (240, 240), (120, 120)),
-                               (360, 240, 120), host=False)
+                               (360, 240, 120), host=False, backward=True)
     done("2 (kernels against their plain versions)")
 
     # Each dtype has its own kernel; its launches are those of its server,
@@ -3713,6 +3853,26 @@ def main():
                     for stage in ("train", "evaluate")
                     if (stage, dt) in e2e_launches}}
                for name, (src, rep, dts) in sources.items() for dt in dts]
+    # The bf16 attention backward kernels replace the plain VJP the JAX
+    # package's custom VJP runs (no TPU kernel): their worst error in ulps
+    # of each gradient's peak (phase 2, at the full heads and at the
+    # tensor-parallel ranks'), their calls in the train CLI's first
+    # invocation (4 steps), in 9b's rank 0 backward and in phase 12's
+    # resumed run, and their times at the training shapes.
+    kernels.append({
+        "name": "attention_backward_bf16", "route": "cuda",
+        "source": "mint_tpu_torch/csrc/attention_bwd.cu",
+        "replaces": "mint_tpu/ops/attention.py:131",
+        "device_kernels": list(att.BACKWARD_KERNELS),
+        "max_ulps": bwd_ulps["train"],
+        "train_launches": train_launches["attention_backward", "bf16"],
+        "train": {str(n): row for n, row in
+                  train_times["attention_backward", "bf16"].items()},
+        "tensor_parallel": {
+            "max_ulps": bwd_ulps["tensor_parallel"],
+            "launches_per_backward_per_rank": tp["bf16"]["backward_launches"]},
+        "e2e_launches": {
+            "train": e2e_launches["train", "bf16"]["attention_backward"]}})
     for name, secs in seconds.items():
         log(f"phase {name}: {secs:.1f} s")
     log(f"chip_smoke.py in {time.perf_counter() - t_start:.1f} s")

@@ -45,6 +45,10 @@ _SIGNATURES = {
     # the strides
     "mint_attention_bf16": [_P, _P, _P, _P, _S, _R, _P, _L, _I, _I, _I, _I,
                             _I, _F, _P],
+    # q, k, v, the output's gradient, dq, dk, dv, the statistics'
+    # workspace, strides (b, h, n of each of the seven), B, H, nq, nk, d,
+    # scale, stream
+    "mint_attention_bwd_bf16": [_P] * 8 + [_S, _I, _I, _I, _I, _I, _F, _P],
     # x, w1, b1, w2, b2, scratch, out, m, h, f, o, stream
     "mint_mlp_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # the same with the row strides of x, w1, w2 and the activation and the

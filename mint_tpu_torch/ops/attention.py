@@ -11,10 +11,14 @@ head dim (``mint_tpu/models/layers.py:84``).
 
 Gradients: where one is wanted, the kernel's launch runs inside
 :class:`AttentionFunction`, whose backward is the VJP of
-:func:`attention_formula` recomputed from the saved q, k and v, as the
-JAX custom VJP differentiates its plain formula ``xla_attention``
-(``mint_tpu/ops/attention.py:127-142``).  No backward kernel exists there
-either.
+:func:`attention_formula` from the saved q, k and v, as the JAX custom
+VJP differentiates its plain formula ``xla_attention``
+(``mint_tpu/ops/attention.py:127-142``; no backward kernel exists
+there).  On the card a bf16 call whose views the backward kernels can
+read (:func:`backward_kernels`) runs them (``csrc/attention_bwd.cu``,
+scores recomputed in tiles, never in device memory);
+:func:`attention_backward_reference` is their plain version.  Every other
+call differentiates :func:`attention_formula` in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -28,6 +32,12 @@ from mint_tpu_torch.ops import _build
 
 # Kernel launches made by :func:`attention` (the CUDA path only).
 launches = 0
+# Backward calls on the card: through the backward kernels (counted at
+# their launch, utils/graphs.py carries the count through a graph's
+# replays), and AttentionFunction's through the plain VJP of
+# attention_formula (counted where the call runs, a capture included).
+backward_launches = 0
+backward_plain = 0
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -56,6 +66,30 @@ def attention_formula(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(dots.to(torch.promote_types(q.dtype, torch.float32)),
                       dim=-1).to(q.dtype)
     return torch.matmul(p, v)
+
+
+def attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, do: torch.Tensor,
+                                 scale: float):
+    """(dq, dk, dv) of attention_formula(q, k, v, scale) against the
+    output's gradient `do`, with the backward kernels' arithmetic
+    (csrc/attention_bwd.cu): each row's log-sum-exp and D = sum_j P_ij
+    dP_ij first, then S, P, dP and dS = P (dP - D) scale in f32 (or the
+    inputs' dtype, if wider), P rounded to the inputs' dtype only as the
+    operand of dV = P^T dO and dS only as that of dQ = dS K and dK = dS^T Q,
+    each gradient accumulated in f32 and rounded once."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qa, ka, va, doa = (t.to(acc) for t in (q, k, v, do))
+    s = torch.matmul(qa, ka.transpose(-1, -2)) * scale
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    p = torch.exp(s - lse)
+    dp = torch.matmul(doa, va.transpose(-1, -2))
+    delta = (p * dp).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta) * scale).to(q.dtype).to(acc)
+    dv = torch.matmul(p.to(q.dtype).to(acc).transpose(-1, -2), doa)
+    dq = torch.matmul(ds, ka)
+    dk = torch.matmul(ds.transpose(-1, -2), qa)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 _ENTRY = {torch.float32: "mint_attention_f32",
@@ -178,12 +212,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class AttentionFunction(torch.autograd.Function):
     """``forward(q, k, v, scale)`` as the forward, and the VJP of
     :func:`attention_formula` as the backward (the JAX package's
-    ``_pallas_attention_fwd`` / ``_pallas_attention_bwd``: in bf16 the
-    backward's GEMMs run in bf16, as XLA's VJP of ``xla_attention`` does).
+    ``_pallas_attention_fwd`` / ``_pallas_attention_bwd``): on the card by
+    the backward kernels where :func:`backward_kernels` names them (bf16:
+    the same cast points, every product and the softmax in f32), else in
+    plain PyTorch (in bf16 the backward's GEMMs then run in bf16, as XLA's
+    VJP of ``xla_attention`` does).  ``backward_launches`` and
+    ``backward_plain`` count the card's calls of each.
 
     ``forward`` is the kernel's launch on the card; the CPU tests pass the
     plain version in its place.  q, k and v are saved as they are (the
-    model's strided views of its fused QKV output: no copy)."""
+    model's strided views of its fused QKV output: no copy), and nothing
+    else: the backward kernels recompute the rows' statistics."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, forward):
@@ -193,12 +232,79 @@ class AttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = attention_formula(*inputs, ctx.scale)
-            grads = torch.autograd.grad(out, inputs, grad_out)
+        global backward_plain
+        q, k, v = ctx.saved_tensors
+        if q.device.type == "cuda" and backward_kernels(q, k, v):
+            grads = _backward_call(q, k, v, grad_out, ctx.scale)
+        else:
+            inputs = [t.detach().requires_grad_() for t in (q, k, v)]
+            with torch.enable_grad():
+                out = attention_formula(*inputs, ctx.scale)
+                grads = torch.autograd.grad(out, inputs, grad_out)
+            backward_plain += q.device.type == "cuda"
         return (*(g if need else None for g, need in
                   zip(grads, ctx.needs_input_grad)), None, None)
+
+
+# The backward kernels (csrc/attention_bwd.cu), in the order one call
+# launches them, and the widest head they take (the C entry's kMaxD,
+# csrc/attention.cuh).
+BACKWARD_KERNELS = ("mint_attention_bwd::rows_kernel",
+                    "mint_attention_bwd::columns_kernel")
+BACKWARD_MAX_HEAD_DIM = 128
+
+
+def _bwd_ready(t: torch.Tensor) -> bool:
+    """Whether the backward kernels' C entry (mint_attention_bwd_bf16)
+    takes the [B, H, N, D] view `t` as it lies: D contiguous and a
+    multiple of 8, a 16-byte aligned base, and each of the B, H and N
+    strides a whole number of 16-byte steps, those of dims of 1 too (the
+    entry checks all of them)."""
+    return (t.shape[-1] % 8 == 0 and t.stride(-1) == 1
+            and t.data_ptr() % 16 == 0
+            and all(st % 8 == 0 for st in t.stride()[:3]))
+
+
+def backward_kernels(q, k, v) -> tuple[str, ...]:
+    """The kernels the backward of an attention call on q, k and v runs on
+    the card (BACKWARD_KERNELS, in launch order), or () where it
+    differentiates attention_formula in plain PyTorch: f32, heads over
+    BACKWARD_MAX_HEAD_DIM or not a multiple of 8 wide, and views the
+    kernels cannot read where they lie.  The output's gradient is read
+    where it lies too, or copied once if it cannot be (never the model's
+    merged-head gradient)."""
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and q.shape[-1] <= BACKWARD_MAX_HEAD_DIM
+            and all(_bwd_ready(t) for t in (q, k, v))):
+        return ()
+    return BACKWARD_KERNELS
+
+
+def _backward_call(q, k, v, do, scale):
+    """dq, dk and dv by the backward kernels: each a [B, H, N, D] view of
+    new [B, N, H, D] storage, like the forward's output, and 2 B H Nq
+    floats of workspace (Nq rounded up to 64) for the rows' statistics,
+    all from the caching allocator on the call's stream (a graph capture's
+    pool takes them).  Counts the call in ``backward_launches``."""
+    global backward_launches
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    if not _bwd_ready(do):
+        do = do.contiguous()
+    grads = [torch.empty((b, n, h, d), dtype=q.dtype,
+                         device=q.device).transpose(1, 2)
+             for n in (nq, nk, nk)]
+    stats = torch.empty(2 * b * h * -(-nq // 64) * 64, dtype=torch.float32,
+                        device=q.device)
+    strides = (ctypes.c_longlong * 21)(
+        *(st for t in (q, k, v, do, *grads) for st in t.stride()[:3]))
+    err = _build.library().mint_attention_bwd_bf16(
+        *(t.data_ptr() for t in (q, k, v, do, *grads, stats)), strides,
+        b, h, nq, nk, d, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "attention backward kernel launch")
+    backward_launches += 1
+    return grads
 
 
 # How the bf16 kernel loads a view (csrc/attention_tc.cuh's Route), by

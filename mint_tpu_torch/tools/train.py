@@ -340,6 +340,7 @@ def _train(args: argparse.Namespace, mesh) -> None:
         # the CPU, where the plain versions run).
         log.info("kernel launches: %s", json.dumps(
             {"attention": attention_op.launches,
+             "attention_backward": attention_op.backward_launches,
              "fused_mlp": mlp_op.launches,
              "layer_norm": layer_norm_op.launches,
              "layer_norm_affine_free": layer_norm_op.affine_free_launches}))

@@ -66,6 +66,7 @@ _count_lock = threading.Lock()
 
 #: Each kernel's launch count: its wrapper's module and the attribute.
 _COUNTERS = {"attention": (attention, "launches"),
+             "attention_backward": (attention, "backward_launches"),
              "fused_mlp": (mlp, "launches"),
              "layer_norm": (layer_norm, "launches"),
              "layer_norm_affine_free": (layer_norm, "affine_free_launches")}

@@ -37,9 +37,19 @@ design alternatives they were chosen over and the parent commit's.
    batch-20 decode frames/s through its CUDA graph (``chip_smoke.py``
    phase 5's ``throughput``), each tree's own code in a process of its
    own: parent, this tree, this tree, parent.
+6. With ``--backward``, only the bf16 backward kernels
+   (``csrc/attention_bwd.cu``) after the build's ptxas report: checked
+   against ``attention_backward_reference`` at ``BACKWARD_TIMED`` (the
+   flagship's training calls on one card and on a dp4 rank, the model's
+   fused views and merged-head gradient) within 2 bf16 ulps of each
+   gradient's peak, then timed in turns beside the plain VJP the backward
+   ran before them (``attention_formula`` recomputed and differentiated)
+   and PyTorch's own attention backward (``library_backward``, the
+   yardstick: the port never calls it), with the bound and each kernel's
+   device µs a call under ``torch.profiler``.
 
     python scripts/torch_attention_bringup.py [all|f32|bf16] [--check-only]
-        [--parent DIR] [--decode]
+        [--parent DIR] [--decode] [--backward]
 
 Needs a CUDA card and nvcc; prints the card's name and power limit.
 """
@@ -345,6 +355,84 @@ def library_math(q, k, v):
         return F.scaled_dot_product_attention(q, k, v, scale=cs.SCALE)
 
 
+# The backward kernels' shapes (batch, tokens): the flagship's training
+# calls at q[B,10,N,80], batch 32 on one card and 8 on a dp4 rank.
+BACKWARD_TIMED = [(b, n) for b in (32, 8) for n in (360, 240, 120)]
+
+
+def library_backward(q, k, v, do):
+    """PyTorch's attention backward on the same views, on the backend its
+    dispatcher picks: the backward kernels' yardstick, timed here, called
+    by no kernel of the port.  Returns a call of it (the forward taken
+    once, outside the timing)."""
+    import torch.nn.functional as F
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, scale=cs.SCALE)
+    return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+
+def backward_turns(card, gen):
+    """Checks and times the backward kernels at BACKWARD_TIMED; returns
+    the count of disagreeing checks."""
+    from torch.profiler import ProfilerActivity, profile
+
+    bad = 0
+    for b, n in BACKWARD_TIMED:
+        buf = torch.randn(b, n, 3, 10, 80, device="cuda", generator=gen)
+        q, k, v = buf.bfloat16().permute(2, 0, 3, 1, 4).unbind(0)
+        do = torch.randn(b, n, 800, device="cuda", generator=gen).bfloat16()
+        do = do.view(b, n, 10, 80).transpose(1, 2)
+        shape = f"q[{b},10,{n},80]"
+        want = att.attention_backward_reference(q, k, v, do, cs.SCALE)
+        got = att._backward_call(q, k, v, do, cs.SCALE)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err = (g.float() - w.float()).abs().max().item()
+            tol = 2 * cs.bf16_ulp(w.float().abs().max().item())
+            ok = err <= tol and bool(torch.isfinite(g).all())
+            bad += not ok
+            print(f"{'ok  ' if ok else 'FAIL'} backward {shape} {name}: "
+                  f"max_abs_err {err:.3e} tol {tol:.3e}", flush=True)
+        del want
+
+        def plain():
+            inputs = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = att.attention_formula(*inputs, cs.SCALE)
+            return torch.autograd.grad(out, inputs, do)
+
+        runs = {"kernels": lambda: att._backward_call(q, k, v, do, cs.SCALE),
+                "plain_vjp": plain,
+                "library_backward": library_backward(q, k, v, do)}
+        order = list(runs.items())
+        first = {name: cs.cuda_ms(fn) for name, fn in order}
+        second = {name: cs.cuda_ms(fn) for name, fn in reversed(order)}
+        b_ms, b_by = cs.bound(*cs.attention_backward_work(b, 10, n, n, 80),
+                              "bf16")
+        times = ", ".join(f"{name} {first[name]:.4f} / {second[name]:.4f}"
+                          for name, _ in order)
+        print(f"time backward bf16 {shape} fused ms: {times}; bound "
+              f"{b_ms:.4f} ({b_by}) ({card})", flush=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                runs["kernels"]()
+            torch.cuda.synchronize()
+        split = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                name = next((k for k in att.BACKWARD_KERNELS if k in e.name),
+                            e.name[:40])
+                us = getattr(e, "device_time", None)
+                split[name] = split.get(name, 0.0) + (
+                    e.cuda_time if us is None else us) / 10
+        print(f"split backward {shape} µs a call: " + ", ".join(
+            f"{name} {us:.1f}" for name, us in split.items())
+            + f" ({card})", flush=True)
+        del runs
+    return bad
+
+
 # Run in a process of its own, sys.argv[1] a tree: that tree's flagship
 # bf16 decode frames/s at batch 20 (its chip_smoke.throughput).
 DECODE = """
@@ -398,6 +486,13 @@ def main():
     print(f"built in {time.perf_counter() - t0:.1f} s (one nvcc a source, "
           f"all at once)", flush=True)
     ptxas_report(_build.build_log, "repo")
+    if "--backward" in args:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        bad = backward_turns(card, gen)
+        print(f"disagreeing: {bad}", flush=True)
+        if bad:
+            raise SystemExit(f"{bad} backward results disagree")
+        return
 
     work = os.path.join(_build.BUILD_DIR, "variants")
     os.makedirs(work, exist_ok=True)

@@ -245,10 +245,12 @@ def test_sources_use_no_jax_and_no_stand_in_kernels():
                 assert SDPA in yardstick
         if rel == os.path.join("scripts", "torch_attention_bringup.py"):
             # The bring-up script times the library's call on its math
-            # backend beside the kernels past 256 columns (library_math)
-            # and nowhere else.
-            text, yardstick = _without_function(text, "library_math")
-            assert SDPA in yardstick
+            # backend beside the kernels past 256 columns (library_math),
+            # and its backward beside the backward kernels
+            # (library_backward), and nowhere else.
+            for timer in ("library_math", "library_backward"):
+                text, yardstick = _without_function(text, timer)
+                assert SDPA in yardstick
         if rel == os.path.join("mint_tpu_torch", "models", "model_utils.py"):
             # The reference's masked attention helper bears the name; it
             # is the plain formula and calls no library attention.

@@ -11,6 +11,9 @@ only); bf16 to 2 bf16 ulps at the output's magnitude (both sides round P,
 the MLP activation and the output to bf16, so one rounding may flip).
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -1291,3 +1294,193 @@ def test_layer_norm_function_gradients_are_the_plain_versions():
                                       torch.float32]
     for a, e in zip(got, want):
         assert torch.equal(a, e)
+
+
+# -- the attention backward kernels (csrc/attention_bwd.cu) -----------------
+
+def _formula_vjp(q, k, v, do, scale):
+    """Autograd's (dq, dk, dv) through attention_formula."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    return torch.autograd.grad(att.attention_formula(*leaves, scale), leaves,
+                               do)
+
+
+def _rel_l2(got, want):
+    return float(torch.linalg.vector_norm(got.double() - want.double())
+                 / torch.linalg.vector_norm(want.double()))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
+                                       (torch.float32, 2e-6)])
+@pytest.mark.parametrize("b,h,nq,nk,d,scale", [
+    (2, 10, 120, 120, 80, 800 ** -0.5), (1, 3, 37, 53, 16, 0.3)])
+def test_attention_backward_reference_is_the_formula_vjp(b, h, nq, nk, d,
+                                                         scale, dtype, tol):
+    """In f64 and f32 the kernels' arithmetic is autograd's VJP of
+    attention_formula up to summation order (its casts are no-ops there):
+    each gradient within `tol` of its peak."""
+    q, k, v = _torch(*_qkv(b, h, nq, nk, d), dtype=dtype)
+    do = torch.from_numpy(RNG.standard_normal((b, h, nq, d))).to(dtype)
+    got = att.attention_backward_reference(q, k, v, do, scale)
+    for g, w in zip(got, _formula_vjp(q, k, v, do, scale)):
+        assert g.dtype == dtype and g.shape == w.shape
+        err = (g - w).abs().max() / w.abs().max()
+        assert err <= tol, err
+
+
+@pytest.mark.parametrize("b,h,nq,nk,d,scale", [
+    (2, 10, 120, 120, 80, 800 ** -0.5), (2, 4, 97, 97, 32, 0.25),
+    (1, 3, 40, 56, 72, 0.5), (1, 2, 37, 37, 16, 1.0)])
+def test_attention_backward_reference_bf16_within_the_formulas(b, h, nq, nk,
+                                                               d, scale):
+    """In bf16, against the f32 VJP of the same (bf16-valued) inputs, each
+    gradient's relative L2 gap is within 3e-3 (one rounding of the output
+    to bf16, 2^-9 relative, with room) and no wider than the gap of the
+    formula's own bf16 VJP, the plain path's: the kernels round P and dS
+    where the formula does, but keep dP, D and dS's scale in f32."""
+    q, k, v = _torch(*_qkv(b, h, nq, nk, d), dtype=torch.bfloat16)
+    do = torch.from_numpy(RNG.standard_normal((b, h, nq, d))).bfloat16()
+    truth = _formula_vjp(*(t.float() for t in (q, k, v, do)), scale)
+    got = att.attention_backward_reference(q, k, v, do, scale)
+    plain = _formula_vjp(q, k, v, do, scale)
+    for g, p, w in zip(got, plain, truth):
+        assert g.dtype == torch.bfloat16
+        assert _rel_l2(g, w) <= 3e-3
+        assert _rel_l2(g, w) <= _rel_l2(p, w)
+
+
+def _tiled_backward(q, k, v, do, scale, tile=64):
+    """The two backward kernels' loops in plain PyTorch (f32; their casts
+    to bf16 left out): rows_kernel's two passes over 64-key tiles, the
+    first keeping each row's running max, sum of exp2 and sum of exp2 *
+    dP (log2 units, keys past Nk at -inf), the second forming dS and dQ;
+    then columns_kernel's walk over query tiles of 64 rows with the
+    stored statistics, forming P^T, dS^T, dV and dK.  Tiles past N are
+    zero rows, as TMA's zero fill leaves them."""
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    log2e = 1.4426950408889634
+    pad = lambda t, n: torch.nn.functional.pad(t, (0, 0, 0, n - t.shape[2]))
+    tq, tk = -(-nq // tile), -(-nk // tile)
+    qp, dop = pad(q, tile * tq), pad(do, tile * tq)
+    kp, vp = pad(k, tile * tk), pad(v, tile * tk)
+    m = torch.full((b, h, tile * tq), -torch.inf)
+    l, a = torch.zeros_like(m), torch.zeros_like(m)
+    tiles = [(kp[:, :, j * tile:(j + 1) * tile],
+              vp[:, :, j * tile:(j + 1) * tile], nk - j * tile)
+             for j in range(tk)]
+    for kt, vt, valid in tiles:
+        s = qp @ kt.transpose(-1, -2) * (scale * log2e)
+        s[..., valid:] = -torch.inf
+        dp = dop @ vt.transpose(-1, -2)
+        mn = torch.maximum(m, s.amax(-1))
+        e = torch.exp2(s - mn[..., None])
+        alpha = torch.exp2(m - mn)
+        l = l * alpha + e.sum(-1)
+        a = a * alpha + (e * dp).sum(-1)
+        m = mn
+    delta, lse = a / l, m + torch.log2(l)
+    dq = torch.zeros_like(qp)
+    for kt, vt, valid in tiles:
+        s = qp @ kt.transpose(-1, -2) * (scale * log2e)
+        s[..., valid:] = -torch.inf
+        dp = dop @ vt.transpose(-1, -2)
+        ds = torch.exp2(s - lse[..., None]) * (dp - delta[..., None]) * scale
+        dq += ds @ kt
+    dk, dv = torch.zeros_like(kp), torch.zeros_like(vp)
+    for i in range(tq):
+        rows = slice(i * tile, (i + 1) * tile)
+        valid = nq - i * tile
+        qt, dot = qp[:, :, rows], dop[:, :, rows]
+        st = kp @ qt.transpose(-1, -2) * (scale * log2e)
+        dpt = vp @ dot.transpose(-1, -2)
+        pt = torch.exp2(st - lse[:, :, None, rows])
+        pt[..., valid:] = 0
+        dst = pt * (dpt - delta[:, :, None, rows]) * scale
+        dv += pt @ dot
+        dk += dst @ qt
+    return dq[:, :, :nq], dk[:, :, :nk], dv[:, :, :nk]
+
+
+@pytest.mark.parametrize("b,h,nq,nk,d", [(2, 3, 120, 120, 80),
+                                         (1, 2, 37, 200, 16),
+                                         (1, 2, 130, 1, 24),
+                                         (2, 2, 200, 70, 128)])
+def test_backward_tiles_match_reference_f32(b, h, nq, nk, d):
+    """The kernels' tiled schedule (partial tiles of queries and keys,
+    Nq != Nk, a single key) gives the reference's gradients in f32 within
+    summation order."""
+    q, k, v = _torch(*_qkv(b, h, nq, nk, d))
+    do = torch.from_numpy(RNG.standard_normal((b, h, nq, d)).astype(
+        np.float32))
+    want = att.attention_backward_reference(q, k, v, do, 0.3)
+    for g, w in zip(_tiled_backward(q, k, v, do, 0.3), want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=2e-6 * float(w.abs().max()))
+
+
+def _model_views(b, n, h, d, dtype=torch.bfloat16):
+    """q, k, v as the model makes them: strided views of one fused QKV
+    output [B, N, 3, H, D]."""
+    return torch.empty(b, n, 3, h, d, dtype=dtype).permute(
+        2, 0, 3, 1, 4).unbind(0)
+
+
+@pytest.mark.parametrize("b", [32, 8])  # one card; a dp4 rank
+@pytest.mark.parametrize("n", [360, 240, 120])
+def test_backward_kernels_take_the_flagships_training_calls(b, n):
+    q, k, v = _model_views(b, n, 10, 80)
+    assert att.backward_kernels(q, k, v) == att.BACKWARD_KERNELS
+    assert all(name.startswith("mint_attention_bwd::")
+               for name in att.BACKWARD_KERNELS)
+
+
+def test_backward_kernels_leave_the_rest_to_the_plain_vjp():
+    """f32, a head of 130, heads of 50 and 67 (hidden 800 over 16 heads,
+    804 over 12: head strides off a 16-byte step) and a view of padded
+    rows whose base is 2 bytes off go the plain way."""
+    views = _model_views
+    assert att.backward_kernels(*views(2, 360, 10, 80, torch.float32)) == ()
+    assert att.backward_kernels(*views(2, 360, 8, 130)) == ()
+    assert att.backward_kernels(*views(2, 360, 16, 50)) == ()
+    assert att.backward_kernels(*views(2, 360, 12, 67)) == ()
+    rows = torch.empty(2, 10, 360, 96, dtype=torch.bfloat16)[..., 1:81]
+    assert att.backward_kernels(rows, rows, rows) == ()
+    q, k, v = _model_views(2, 360, 8, 128)
+    assert att.backward_kernels(q, k, v) == att.BACKWARD_KERNELS
+
+
+def test_backward_route_is_the_c_entrys_rule():
+    """backward_kernels refuses what the C entry mint_attention_bwd_bf16
+    refuses: heads over its kMaxD (csrc/attention.cuh) or no multiple of
+    8 wide, and any B, H or N stride off a 16-byte step, a dim of 1's
+    included.  (The card tests run the entry on both sides of the rule.)"""
+    csrc = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "mint_tpu_torch", "csrc")
+    with open(os.path.join(csrc, "attention.cuh")) as f:
+        k_max_d = int(re.search(r"constexpr int kMaxD = (\d+);",
+                                f.read()).group(1))
+    with open(os.path.join(csrc, "attention_bwd.cu")) as f:
+        entry = f.read().split('extern "C" int mint_attention_bwd_bf16')[1]
+    assert "d > kMaxD || d % 8 != 0" in entry
+    assert "for (int i = 0; i < 21; ++i)" in entry
+    assert "if (strides[i] % 8 != 0)" in entry
+    assert att.BACKWARD_MAX_HEAD_DIM == k_max_d
+    base = torch.empty(4 * 2 * 360 * 80, dtype=torch.bfloat16)
+    for stride, taken in ((3, False), (8, True), (2 * 360 * 80, True)):
+        q = base.as_strided((1, 2, 360, 80), (stride, 360 * 80, 80, 1))
+        assert bool(att.backward_kernels(q, q, q)) == taken, stride
+
+
+def test_attention_function_backward_on_the_cpu_is_the_plain_vjp():
+    """On the CPU the backward differentiates attention_formula, bf16
+    included, and counts nothing (the counters are the card's)."""
+    before = (att.backward_launches, att.backward_plain)
+    q, k, v = _torch(*_qkv(1, 2, 24, 24, 16), dtype=torch.bfloat16)
+    do = torch.from_numpy(RNG.standard_normal((1, 2, 24, 16))).bfloat16()
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    out = att.AttentionFunction.apply(*leaves, 0.3, att.attention_reference)
+    got = torch.autograd.grad(out, leaves, do)
+    for g, w in zip(got, _formula_vjp(q, k, v, do, 0.3)):
+        assert torch.equal(g, w)
+    assert (att.backward_launches, att.backward_plain) == before
