@@ -172,11 +172,32 @@ CPU):
    newest whole step and ended at the budget (launching each kernel 16
    times a step, and 32 LayerNorms), the clips exist and both score sets
    are finite.
+13. EDGE (``mint_tpu_torch/config/edge_jukebox.config``), at the shapes of
+   port_bench's diffuse_edge_bf16_s8 (a DDIM step's 36000 rows of 512):
+   (a) ``csrc/film.cu``'s FiLM residual against ``film_reference`` (bit
+   for bit) and its rotation with LayerNorm (the normed rows within one
+   bf16 rounding of ``layer_norm_reference``, their rotation and the call
+   that writes no normed rows bit-equal to ``rotary_reference``) and
+   without (the memory's rows, and the time tokens from position 150,
+   bit for bit); the bf16 fused MLP with erf-GELU on each route that
+   applies a GELU (TMA at EDGE's x[36000,512] -> 1024 -> 512, split at 240
+   rows, tma_pairs at hidden 804, staged loads, tma_phases at F = 3070)
+   within 2 bf16 ulps of ``mlp_reference(..., "erf")`` and nearer it than
+   the tanh formula; attention at EDGE's shapes; each timed beside its
+   plain version and its bound; (b) the published model (bf16, seeded
+   weights) through ``builder.build`` and ``EDGEFamily.predict``: a
+   3-chunk dispatch graphed against its steps uncaptured, bit for bit,
+   then one dispatch of the cell's 8 songs of 15 chunks after set-up:
+   its launches of every kernel (``edge_expected_launches``) and
+   frames/s.  ``python3 chip_smoke.py --edge`` runs phases 1 and 13
+   alone.
 
 Phase 2 also checks and times both kernels at the training shapes
 (batch 32), and checks them at the eval's (the batches phase 7 dispatches
 and the evaluator's default).  Before the last lines, one line a phase
-gives its seconds.  The last lines are one JSON object describing the kernels,
+gives its seconds.  The last lines are one JSON object describing the kernels
+(EDGE's: their rows at the diffuse cell's shapes and their launches a
+dispatch),
 the card's ``nvidia-smi`` name and power limit, and ``{"ok": true,
 "device": ...}``.
 """
@@ -3625,7 +3646,272 @@ def product_loop(work, card):
     return launches
 
 
-def main():
+# -- phase 13: EDGE ---------------------------------------------------------
+
+EDGE_CONFIG = os.path.join(REPO, "mint_tpu_torch", "config",
+                           "edge_jukebox.config")
+# port_bench's diffuse_edge_bf16_s8 dispatch: 8 songs of 15 chunks of 150
+# frames; a DDIM step's denoiser runs both branches of the 120 chunks, 240
+# sequences of 150 rows of 512.
+EDGE_SONGS, EDGE_CHUNKS, EDGE_SEQ, EDGE_WIDTH = 8, 15, 150, 512
+EDGE_ROWS = 2 * EDGE_SONGS * EDGE_CHUNKS * EDGE_SEQ
+# The erf-GELU MLP on each route that applies a GELU: (route, M, H, F, O,
+# x's layout).  EDGE's feedforward at the cell's rows on TMA; the same at
+# 240 rows, which the plan splits over K (the reduce kernel applies fc2's
+# bias there, fc1's GELU still in the GEMM's epilogue); hidden 804 on
+# tma_pairs; x 2 bytes past a 16-byte step on the staged loads; F = 3070
+# (W2^T's rows off the step) on tma_phases.
+EDGE_MLP = (("tma", EDGE_ROWS, 512, 1024, 512, "contiguous"),
+            ("split", 240, 512, 1024, 512, "contiguous"),
+            ("tma_pairs", 7200, 804, 3072, 804, "contiguous"),
+            ("staged", 960, 800, 3072, 800, "x_off2"),
+            ("tma_phases", 7200, 800, 3070, 800, "contiguous"))
+# Attention at EDGE's shapes (8 heads of 64, scale 0.125): self-attention
+# over the 240 sequences, the conditional chunks against their 152 memory
+# rows, the unconditional rows against the one shared key set.
+EDGE_ATTENTION = (("self", 240, 150, 240, 150),
+                  ("conditional", 120, 150, 120, 152),
+                  ("unconditional", 1, 120 * 150, 1, 152))
+
+
+def _rel_diff(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+def edge_kernels(att, mlp, gen, card):
+    """13a: the FiLM residual, the rotation (with its LayerNorm, writing
+    the normed rows and not; without, from a position past 0) and the
+    erf-GELU MLP on each route against their plain versions at the cell's
+    shapes, attention at EDGE's; each timed beside its plain version and
+    its bound.  Returns {kernel: {case: row}}."""
+    from mint_tpu_torch.ops import film
+
+    rows, c, seq = EDGE_ROWS, EDGE_WIDTH, EDGE_SEQ
+    out = {"film_residual": {}, "rotary": {}, "fused_mlp_erf": {},
+           "attention": {}}
+    h = torch.randn(rows, c, device="cuda", generator=gen).bfloat16()
+    a = torch.randn(rows, c, device="cuda", generator=gen).bfloat16()
+    gb = (0.3 * torch.randn(rows // seq, 2 * c, device="cuda",
+                            generator=gen)).bfloat16()
+    got, want = film.film_residual(h, a, gb, seq), film.film_reference(
+        h, a, gb, seq)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    # h and a read, the output written; gamma and beta a row a sequence.
+    nbytes = 2 * (3 * rows * c + 2 * c * rows // seq)
+    out["film_residual"]["step"] = _wide_row(
+        "film_residual bf16", [rows, c], err, torch.equal(got, want),
+        "bit-equal (f32 in PyTorch's order, one rounding)",
+        cuda_ms(lambda: film.film_residual(h, a, gb, seq)),
+        cuda_ms(lambda: film.film_reference(h, a, gb, seq)), None,
+        (4.0 * rows * c, nbytes), "bf16", card)
+
+    table = film.rotary_table(seq + 2, c, "cuda")
+    w = 1 + 0.1 * torch.randn(c, device="cuda", generator=gen)
+    b = 0.1 * torch.randn(c, device="cuda", generator=gen)
+    n, r = film.rotary(h, table, seq, 0, w, b, 1e-5, normed=True)
+    n_ref = film.layer_norm_reference(h, w, b, 1e-5)
+    torch.cuda.synchronize()
+    err = (n.float() - n_ref.float()).abs().max().item()
+    tol = bf16_ulp(n_ref.float().abs().max().item())
+    ok = (err <= tol and torch.equal(r, film.rotary_reference(n, table, seq))
+          and torch.equal(film.rotary(h, table, seq, 0, w, b, 1e-5), r))
+    # x read, the normed rows and their rotation written; the table read
+    # once from HBM.
+    nbytes = 2 * 3 * rows * c + 4 * (seq + 2) * c + 8 * c
+    out["rotary"]["layer_norm_normed"] = _wide_row(
+        "rotary+layer_norm bf16 (normed rows written)", [rows, c], err, ok,
+        f"the normed rows within one rounding ({tol:.3e}), the rotation of "
+        "them and the unwritten call's bit-equal to the plain rotation",
+        cuda_ms(lambda: film.rotary(h, table, seq, 0, w, b, 1e-5,
+                                    normed=True)),
+        cuda_ms(lambda: film.rotary_reference(
+            film.layer_norm_reference(h, w, b, 1e-5), table, seq)), None,
+        (12.0 * rows * c, nbytes), "bf16", card)
+    # The music memory's rows (the conditional chunks, no LayerNorm), and
+    # the two time tokens at positions seq and seq + 1.
+    m = h[:rows // 2]
+    got = film.rotary(m, table, seq)
+    want = film.rotary_reference(m, table, seq)
+    t = h[:2]
+    ok = torch.equal(got, want) and torch.equal(
+        film.rotary(t, table, 2, seq), film.rotary_reference(t, table, 2,
+                                                              seq))
+    out["rotary"]["plain"] = _wide_row(
+        "rotary bf16 (memory rows; time tokens from position 150)",
+        [rows // 2, c], (got.float() - want.float()).abs().max().item(), ok,
+        "bit-equal", cuda_ms(lambda: film.rotary(m, table, seq)),
+        cuda_ms(lambda: film.rotary_reference(m, table, seq)), None,
+        (6.0 * rows // 2 * c, 2 * rows * c + 4 * (seq + 2) * c), "bf16",
+        card)
+
+    for route, m_rows, hd, f, o, layout in EDGE_MLP:
+        x = mlp_input(gen, m_rows, hd, torch.bfloat16, layout)
+        w1, b1, w2, b2 = mlp_weights(gen, torch.bfloat16, hd, f, o)
+        got = mlp.fused_mlp(x, w1, b1, w2, b2, activation="erf")
+        torch.cuda.synchronize()
+        want = mlp.mlp_reference(x, w1, b1, w2, b2, "erf")
+        tanh = mlp.mlp_reference(x, w1, b1, w2, b2, "tanh")
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 2 * bf16_ulp(want.float().abs().max().item())
+        ok = (err <= tol and got.shape == want.shape
+              and _rel_diff(got, want) < 0.5 * _rel_diff(got, tanh))
+        plan = mlp.bf16_plan(*mlp._operands(x, w1, b1, w2, b2)[:2],
+                             mlp._operands(x, w1, b1, w2, b2)[3])
+        out["fused_mlp_erf"][route] = dict(_wide_row(
+            f"fused_mlp erf bf16 ({route}: tiles {plan.tiles}, loads "
+            f"{plan.loads})", [m_rows, hd, f, o], err, ok,
+            f"2 bf16 ulps at the output's peak ({tol:.3e}), and nearer the "
+            "erf formula than the tanh one",
+            cuda_ms(lambda: mlp.fused_mlp(x, w1, b1, w2, b2,
+                                          activation="erf")),
+            cuda_ms(lambda: mlp.mlp_reference(x, w1, b1, w2, b2, "erf")),
+            None, mlp_work(m_rows, hd, f, o, 2), "bf16", card),
+            layout=layout, rel_to_erf=_rel_diff(got, want),
+            rel_to_tanh=_rel_diff(got, tanh))
+
+    for name, bq, nq, bk, nk in EDGE_ATTENTION:
+        q = torch.randn(bq, 8, nq, 64, device="cuda", generator=gen).bfloat16()
+        k, v = (torch.randn(bk, 8, nk, 64, device="cuda",
+                            generator=gen).bfloat16() for _ in range(2))
+        got = att.attention(q, k, v, 0.125)
+        torch.cuda.synchronize()
+        want = att.attention_reference(q, k, v, 0.125)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 2 * bf16_ulp(want.float().abs().max().item())
+        flops, _ = attention_work(bq, 8, nq, nk, 64, 2)
+        out["attention"][name] = _wide_row(
+            f"attention bf16 (EDGE {name})", [bq, 8, nq, 64, bk, nk], err,
+            err <= tol, f"2 bf16 ulps at the output's peak ({tol:.3e})",
+            cuda_ms(lambda: att.attention(q, k, v, 0.125)),
+            cuda_ms(lambda: att.attention_reference(q, k, v, 0.125)), None,
+            (flops, 2 * 8 * 64 * (2 * bq * nq + 2 * bk * nk)), "bf16", card)
+    return out
+
+
+def edge_expected_launches(e) -> dict:
+    """Kernel launches of one EDGE dispatch of config `e` (bf16): the music
+    memory once (each encoder layer's self-attention, its rotation with
+    LayerNorm, its second LayerNorm and feedforward; the condition
+    vector's LayerNorm, the memory rows' LayerNorm and rotation for the
+    conditional chunks and the null embedding), then each DDIM step (the
+    time tokens' LayerNorm and rotation; each decoder layer's two
+    rotations with their LayerNorms, self-attention, cross-attention in two
+    key groups, the third LayerNorm, the feedforward and three FiLM
+    residuals)."""
+    enc, layers, steps = e.cond_encoder_layers, e.num_layers, \
+        e.sampling_steps
+    return {"attention": enc + steps * 3 * layers,
+            "attention_backward": 0,
+            "fused_mlp": enc + steps * layers,
+            "film": steps * 3 * layers,
+            "film_rotary": enc + 2 + steps * (1 + 2 * layers),
+            "layer_norm": enc + 3 + steps * (1 + layers),
+            "layer_norm_affine_free": 0,
+            "edge_kv_projections": layers * (1 + steps)}
+
+
+def edge_dispatch(card):
+    """13b: the published EDGE (``EDGE_CONFIG``, bf16, weights seeded)
+    through ``builder.build`` and ``EDGEFamily.predict`` at the cell's
+    dispatch (8 songs of 15 chunks): set-up captures the step's graph,
+    then one dispatch's kernel launches (every step a replay) must be
+    :func:`edge_expected_launches`, and its frames/s are logged; a dispatch
+    of 3 chunks (songs of 2 and 1) graphed against the same steps
+    uncaptured, bit for bit.  Returns the dispatch's launches."""
+    from mint_tpu_torch.config.schema import load_pipeline_config
+    from mint_tpu_torch.infer import diffusion
+    from mint_tpu_torch.models import builder
+    from mint_tpu_torch.models.multi_modal import EDGEFamily
+    from mint_tpu_torch.utils import graphs
+
+    cfg = load_pipeline_config(EDGE_CONFIG).multi_modal_model
+    e = cfg.edge_model
+    model = builder.build(cfg, is_training=False, dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    with torch.no_grad():  # matrices and embeddings drawn; biases and
+        for p in model.parameters():  # LayerNorms as built
+            if p.dim() >= 2:
+                p.copy_(torch.randn(p.shape, device="cuda", generator=gen)
+                        * (2.0 / sum(p.shape[-2:])) ** 0.5)
+    family = EDGEFamily(model)
+
+    def inputs(chunks):
+        total = sum(chunks)
+        shape = (total, e.seq_len, e.nfeats)
+        return {"cond": torch.randn(total, e.seq_len, e.cond_feature_dim,
+                                    device="cuda", generator=gen),
+                "chunks": chunks,
+                "x_T": torch.randn(shape, device="cuda", generator=gen),
+                "noise": torch.randn((e.sampling_steps - 1,) + shape,
+                                     device="cuda", generator=gen)}
+    small = inputs([2, 1])
+    graphed = family.predict(small)
+    eager = diffusion.sample(model, small["cond"], small["chunks"],
+                             small["x_T"], small["noise"], graphed=False)
+    equal = all(torch.equal(a, b) for a, b in zip(graphed, eager))
+    big = inputs([EDGE_CHUNKS] * EDGE_SONGS)
+    t0 = time.perf_counter()
+    family.predict(big)  # set-up: the step's graph captured
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    for name in graphs._launches():
+        graphs._set_launches(name, 0)
+    t0 = time.perf_counter()
+    songs = family.predict(big)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = graphs._launches()
+    want = edge_expected_launches(e)
+    frames = sum(s.shape[0] for s in songs)
+    finite = all(bool(torch.isfinite(s).all()) for s in songs)
+    log(f"EDGE (edge_jukebox.config, bf16) through EDGEFamily.predict: "
+        f"{EDGE_SONGS} songs x {EDGE_CHUNKS} chunks, {e.sampling_steps} "
+        f"steps: set-up {setup:.2f} s, a dispatch {seconds:.4f} s "
+        f"({frames / seconds:.1f} frames/s, {1e3 * seconds / e.sampling_steps:.3f}"
+        f" ms a step), launches {counts} (expected {want}), finite {finite}; "
+        f"3 chunks graphed = uncaptured bit for bit: {equal}; peak "
+        f"{torch.cuda.max_memory_allocated()} bytes ({card})")
+    if counts != want or not finite or not equal:
+        raise AssertionError("EDGE dispatch: launches, finiteness or the "
+                             "graph against the uncaptured steps")
+    del model, family
+    torch.cuda.empty_cache()
+    return counts
+
+
+def edge_path(att, mlp, gen, card):
+    """Phase 13: :func:`edge_kernels`, then :func:`edge_dispatch`; the
+    rows of the summary line's EDGE kernels.  The JAX package has no
+    EDGE: these kernels replace no TPU kernel."""
+    rows = edge_kernels(att, mlp, gen, card)
+    counts = edge_dispatch(card)
+    src = "mint_tpu_torch/csrc/film.cu"
+    return [{"name": "film_residual_bf16", "route": "cuda", "source": src,
+             "replaces": None,
+             "device_kernels": ["mint_film::film_residual_kernel"],
+             "launches_per_dispatch": counts["film"],
+             **rows["film_residual"]["step"]},
+            {"name": "rotary_bf16", "route": "cuda", "source": src,
+             "replaces": None,
+             "device_kernels": ["mint_film::rotary_kernel<true>",
+                                "mint_film::rotary_kernel<false>"],
+             "launches_per_dispatch": counts["film_rotary"],
+             **rows["rotary"]["layer_norm_normed"],
+             "plain_rotation": rows["rotary"]["plain"]},
+            {"name": "fused_mlp_erf_bf16", "route": "cuda",
+             "source": "mint_tpu_torch/csrc/mlp.cu", "replaces": None,
+             "launches_per_dispatch": counts["fused_mlp"],
+             **rows["fused_mlp_erf"]["tma"],
+             "routes": rows["fused_mlp_erf"]},
+            {"name": "attention_bf16_edge", "route": "cuda",
+             "source": "mint_tpu_torch/csrc/attention.cu", "replaces": None,
+             "launches_per_dispatch": counts["attention"],
+             "shapes": rows["attention"]}]
+
+
+def main(edge_only: bool = False):
     t_start = time.perf_counter()
     seconds, last_mark = {}, [t_start]
 
@@ -3672,6 +3958,17 @@ def main():
     done("1 (card and build)")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if edge_only:
+        edge_rows = edge_path(att, mlp, gen, card)
+        done("13 (EDGE)")
+        for name, secs in seconds.items():
+            log(f"phase {name}: {secs:.1f} s")
+        print(json.dumps({"kernels": edge_rows}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
     errs = {"attention": check_attention(att, gen),
             "fused_mlp": check_mlp(mlp, gen)}
     bwd_ulps = check_attention_backward(att, gen)
@@ -3762,6 +4059,8 @@ def main():
         done("11 (configs past the old limits)")
         e2e_launches = product_loop(work, card)
         done("12 (the product loop)")
+    edge_rows = edge_path(att, mlp, gen, card)
+    done("13 (EDGE)")
     # The affine-free LayerNorm runs on the folded decode (10b): its
     # launches there, a step, and in the folded evaluator's pass.
     free = "layer_norm_affine_free"
@@ -3873,6 +4172,9 @@ def main():
             "launches_per_backward_per_rank": tp["bf16"]["backward_launches"]},
         "e2e_launches": {
             "train": e2e_launches["train", "bf16"]["attention_backward"]}})
+    # EDGE's kernels (phase 13): their rows at the diffuse cell's shapes
+    # and their launches in one of its dispatches.
+    kernels.extend(edge_rows)
     for name, secs in seconds.items():
         log(f"phase {name}: {secs:.1f} s")
     log(f"chip_smoke.py in {time.perf_counter() - t_start:.1f} s")
@@ -3897,4 +4199,4 @@ if __name__ == "__main__":
             wide_axis_rank(int(args["--wide-rank"]), int(args["--wide-port"]),
                            args["--wide-work"])
     else:
-        main()
+        main(edge_only="--edge" in sys.argv)

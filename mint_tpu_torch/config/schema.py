@@ -1,7 +1,9 @@
 """Typed configuration dataclasses mirroring the reference proto schemas.
 
 The port's own copy of ``mint_tpu/config/schema.py`` (the port imports
-nothing of the JAX package); keep the two in step.
+nothing of the JAX package); keep the two in step.  One member is the
+port's alone: ``MultiModalModelConfig.edge_model`` (:class:`EDGEModelConfig`,
+EDGE's diffusion generator), which the JAX package does not run.
 
 Field names, defaults, and oneof semantics follow the reference proto2
 definitions (``mint/protos/model.proto``, ``dataset.proto``, ``train.proto``,
@@ -130,13 +132,46 @@ class FACTModelConfig:
 
 
 @dataclass
+class EDGEModelConfig:
+    """EDGE (Tseng, Castellon and Liu, "EDGE: Editable Dance Generation
+    From Music", CVPR 2023; github.com/Stanford-TML/EDGE ``EDGE.py``, which
+    builds ``DanceDecoder(nfeats=151, seq_len=150, latent_dim=512,
+    ff_size=1024, num_layers=8, num_heads=8, cond_feature_dim=4800)``, and
+    ``model/diffusion.py``'s sampler): a FiLM-conditioned transformer
+    denoiser over `seq_len`-frame chunks of `nfeats` motion channels,
+    conditioned on `cond_feature_dim` music features a frame through
+    `cond_encoder_layers` encoder layers, sampled by DDIM over
+    `sampling_steps` of an `n_timestep` cosine schedule with classifier-free
+    guidance `guidance_weight` (``models/edge.py``, ``infer/diffusion.py``).
+    Proto2-style zero defaults: a config states every field."""
+
+    latent_dim: int = 0
+    ff_size: int = 0
+    num_layers: int = 0
+    num_heads: int = 0
+    cond_encoder_layers: int = 0
+    cond_feature_dim: int = 0
+    nfeats: int = 0
+    seq_len: int = 0
+    n_timestep: int = 0
+    sampling_steps: int = 0
+    eta: float = 0.0
+    guidance_weight: float = 0.0
+    clip_denoised: bool = False
+
+
+@dataclass
 class MultiModalModelConfig:
-    """Reference: model.proto `MultiModalModel` oneof {fact_model}."""
+    """Reference: model.proto `MultiModalModel` oneof {fact_model}; the
+    port adds `edge_model`."""
 
     fact_model: Optional[FACTModelConfig] = None
+    edge_model: Optional[EDGEModelConfig] = None
 
     def which(self) -> Optional[str]:
-        return "fact_model" if self.fact_model is not None else None
+        if self.fact_model is not None:
+            return "fact_model"
+        return "edge_model" if self.edge_model is not None else None
 
 
 # ---------------------------------------------------------------------------
@@ -287,7 +322,7 @@ def _repr_hash(self) -> int:
 for _cls in (TransformerConfig, MLPConfig, Conv2DConfig,
              ModalityModelConfig,
              ModalityConfig, CrossModalModelConfig, FACTModelConfig,
-             MultiModalModelConfig, GeneralModalityConfig,
+             EDGEModelConfig, MultiModalModelConfig, GeneralModalityConfig,
              DataModalityConfig, DatasetConfig, ConstantLearningRate,
              ExponentialDecayLearningRate, ManualStepSchedule,
              ManualStepLearningRate, CosineDecayLearningRate,
@@ -365,6 +400,8 @@ def _multi_modal_model(msg: Optional[Msg]) -> MultiModalModelConfig:
     out = MultiModalModelConfig()
     if msg is not None and "fact_model" in msg:
         out.fact_model = _fact(msg.get("fact_model"))
+    elif msg is not None and "edge_model" in msg:
+        out.edge_model = _fill(EDGEModelConfig, msg.get("edge_model"))
     return out
 
 
@@ -511,7 +548,7 @@ _ONEOF_GROUPS = (
                           "cosine_decay_learning_rate")),
     (ModalityModelConfig, ("transformer", "mlp", "conv2d")),
     (CrossModalModelConfig, ("transformer", "mlp")),
-    (MultiModalModelConfig, ("fact_model",)),
+    (MultiModalModelConfig, ("fact_model", "edge_model")),
     (DataModalityConfig, ("general_modality",)),
     (EvalConfig, ("motion_prediction_metrics",
                   "motion_generation_metrics")),

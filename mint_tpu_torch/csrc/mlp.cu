@@ -1,4 +1,5 @@
-// Fused transformer MLP forward: out = gelu_tanh(x W1 + b1) W2 + b2.
+// Fused transformer MLP forward: out = gelu_tanh(x W1 + b1) W2 + b2 (bf16
+// also with erf-GELU, EDGE's, in place of tanh: gelu_erf, plan[6]).
 //
 // Replaces the Pallas TPU kernel mint_tpu/ops/mlp.py::_kernel (wrapped by
 // _fused_mlp_fwd_2d, mlp.py:53).  Same cast points: fc1 accumulates in
@@ -390,10 +391,10 @@ constexpr size_t tc_smem() {
 // for a free stage, announces its bytes and issues its two loads.
 // Warpgroups 0 and 1 each own 64 rows: they wait for a full stage, run
 // four m64nBNk16 wgmma on it, and free it.  With one split the epilogue
-// adds the bias in f32 (then tanh-GELU when kGelu) and writes c as bf16;
+// adds the bias in f32 (then the activation kAct) and writes c as bf16;
 // with several, split z writes its raw f32 sum to part + z * M * N and
 // reduce_tc_kernel finishes.
-template <int BN, bool kGelu>
+template <int BN, int kAct>
 __global__ void __launch_bounds__(kTcThreads, 1)
     gemm_tc_kernel(const __grid_constant__ CUtensorMap amap,
                    const __grid_constant__ CUtensorMap bmap,
@@ -479,10 +480,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
             make_float2(v0, v1);
         continue;
       }
-      if (kGelu) {
-        v0 = gelu_tanh(v0);
-        v1 = gelu_tanh(v1);
-      }
+      v0 = activate<kAct>(v0);
+      v1 = activate<kAct>(v1);
       *reinterpret_cast<__nv_bfloat162*>(c + (size_t)row * n + col) =
           __floats2bfloat162_rn(v0, v1);
     }
@@ -493,7 +492,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 // that order in f32, so the result does not depend on the schedule.
 // kStrided: c's rows ldc apart (the activation at F no multiple of 8),
 // else n.
-template <bool kGelu, bool kStrided = false>
+template <int kAct, bool kStrided = false>
 __global__ void reduce_tc_kernel(const float* __restrict__ part,
                                  const __nv_bfloat16* __restrict__ bias,
                                  __nv_bfloat16* __restrict__ c, int m, int n,
@@ -505,7 +504,7 @@ __global__ void reduce_tc_kernel(const float* __restrict__ part,
     for (int s = 1; s < split; ++s) v += part[s * mn + i];
     v += __bfloat162float(bias[i % n]);
     c[kStrided ? i / n * ldc + i % n : i] =
-        __float2bfloat16_rn(kGelu ? gelu_tanh(v) : v);
+        __float2bfloat16_rn(activate<kAct>(v));
   }
 }
 
@@ -570,7 +569,7 @@ bool load_ok(const Operand& o, int rows, int k) {
 // c [m, n] = epilogue(a [m, k] b[n, k]^T + bias), split `split` ways, on
 // the flagship's kernel: a and b on TMA (rows lda and ldb apart), c's rows
 // n apart, n even.
-template <int BN, bool kGelu>
+template <int BN, int kAct>
 cudaError_t gemm_tc(const __nv_bfloat16* a, long long lda,
                     const __nv_bfloat16* b, long long ldb,
                     const __nv_bfloat16* bias, __nv_bfloat16* c, float* part,
@@ -581,41 +580,44 @@ cudaError_t gemm_tc(const __nv_bfloat16* a, long long lda,
     return cudaErrorInvalidValue;
   constexpr size_t smem = tc_smem<BN>();
   cudaError_t err = cudaFuncSetAttribute(
-      gemm_tc_kernel<BN, kGelu>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gemm_tc_kernel<BN, kAct>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + BN - 1) / BN, (m + kTcBM - 1) / kTcBM, split);
-  gemm_tc_kernel<BN, kGelu><<<grid, kTcThreads, smem, stream>>>(
+  gemm_tc_kernel<BN, kAct><<<grid, kTcThreads, smem, stream>>>(
       amap, bmap, bias, c, part, m, n, k, split);
   err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return err;
-  return reduce_tc(kGelu, part, bias, c, m, n, n, split, stream);
+  return reduce_tc(kAct, part, bias, c, m, n, n, split, stream);
 }
 
 // One pass on the instance of its column tile bn: fc1 on tma_pairs where
 // both operands are; fc2 on gemm_tc_phases_kernel where W2^T is on
 // tma_phases; the flagship's kernel where the pass is laid out as the
 // flagship's (bn its width, both operands on TMA, c's rows n apart, n
-// even); else gemm_tc_any_kernel.
-template <bool kGelu>
+// even); else gemm_tc_any_kernel.  fc1 takes its activation kAct, fc2
+// kActNone.
+template <int kAct>
 cudaError_t tc_pass(int bn, const Operand& a, const Operand& b,
                     const __nv_bfloat16* bias, __nv_bfloat16* c, int ldc,
                     float* part, int m, int n, int k, int split,
                     cudaStream_t s) {
-  constexpr int kFlagship = kGelu ? kTcBN1 : kTcBN2;
+  constexpr bool kFc1 = kAct != kActNone;
+  constexpr int kFlagship = kFc1 ? kTcBN1 : kTcBN2;
   if (a.load == kTmaPairs || b.load == kTmaPairs) {  // fc1's, both or none
-    if (!kGelu || a.load != b.load) return cudaErrorInvalidValue;
-    return tc_pairs_pass(bn, a, b, bias, c, ldc, part, m, n, k, split, s);
+    if (!kFc1 || a.load != b.load) return cudaErrorInvalidValue;
+    return tc_pairs_pass(kAct, bn, a, b, bias, c, ldc, part, m, n, k, split,
+                         s);
   }
   if (a.load == kTmaPhases || b.load == kTmaPhases) {  // fc2's W2^T alone
-    if (kGelu) return cudaErrorInvalidValue;
+    if (kFc1) return cudaErrorInvalidValue;
     return tc_phases_pass(bn, a, b, bias, c, ldc, part, m, n, k, split, s);
   }
   if (bn == kFlagship && a.load == kTma && b.load == kTma && ldc == n &&
       n % 2 == 0)
-    return gemm_tc<kFlagship, kGelu>(a.p, a.ld, b.p, b.ld, bias, c, part, m,
-                                     n, k, split, s);
-  return tc_any_pass(kGelu, bn, a, b, bias, c, ldc, part, m, n, k, split, s);
+    return gemm_tc<kFlagship, kAct>(a.p, a.ld, b.p, b.ld, bias, c, part, m,
+                                    n, k, split, s);
+  return tc_any_pass(kAct, bn, a, b, bias, c, ldc, part, m, n, k, split, s);
 }
 
 int launch_f32(const void* x, const void* w1t, const void* b1,
@@ -643,14 +645,16 @@ int launch_f32(const void* x, const void* w1t, const void* b1,
 
 // lds: the row strides of x, w1t, w2t and the activation (elements);
 // plan: fc1's and fc2's column tiles, then the loads of x, w1t, the
-// activation and w2t (ops/mlp.py's bf16_plan).  An instance or a route the
-// operands do not allow is refused (cudaErrorInvalidValue).
+// activation and w2t (ops/mlp.py's bf16_plan), then fc1's GELU (0 tanh,
+// 1 erf).  An instance, a route or an activation the operands do not allow
+// is refused (cudaErrorInvalidValue).
 int launch_bf16(const void* x, const void* w1t, const void* b1,
                 const void* w2t, const void* b2, void* scratch, void* out,
                 const long long* lds, const int* plan, int m, int h, int f,
                 int o, void* stream) {
   using bf16 = __nv_bfloat16;
-  if (m <= 0 || h <= 0 || f <= 0 || o <= 0 || plan[4] != kTma)
+  if (m <= 0 || h <= 0 || f <= 0 || o <= 0 || plan[4] != kTma ||
+      (plan[6] != 0 && plan[6] != 1))
     return (int)cudaErrorInvalidValue;
   const Operand xa{static_cast<const bf16*>(x), lds[0], plan[2]};
   const Operand w1a{static_cast<const bf16*>(w1t), lds[1], plan[3]};
@@ -668,10 +672,13 @@ int launch_bf16(const void* x, const void* w1t, const void* b1,
   const cudaStream_t s = (cudaStream_t)stream;
   auto* part =
       reinterpret_cast<float*>(static_cast<uint8_t*>(scratch) + p.act_bytes);
-  err = tc_pass<true>(plan[0], xa, w1a, static_cast<const bf16*>(b1), act,
-                      ldf, part, m, f, h, p.split1, s);
+  err = plan[6] == 0
+            ? tc_pass<kActTanh>(plan[0], xa, w1a, static_cast<const bf16*>(b1),
+                                act, ldf, part, m, f, h, p.split1, s)
+            : tc_pass<kActErf>(plan[0], xa, w1a, static_cast<const bf16*>(b1),
+                               act, ldf, part, m, f, h, p.split1, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)tc_pass<false>(plan[1], acta, w2a,
+  return (int)tc_pass<kActNone>(plan[1], acta, w2a,
                              static_cast<const bf16*>(b2),
                              static_cast<bf16*>(out), o, part, m, o, f,
                              p.split2, s);
@@ -691,22 +698,27 @@ bool tc_map(CUtensorMap* map, const void* p, int rows, int cols, long long ld,
                         CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-cudaError_t reduce_tc(bool gelu, const float* part, const bf16* bias, bf16* c,
-                      int m, int n, int ldc, int split, cudaStream_t stream) {
+template <int kAct>
+void reduce_tc_as(const float* part, const bf16* bias, bf16* c, int m, int n,
+                  int ldc, int split, cudaStream_t stream) {
   const int blocks =
       (int)std::min<long long>(1024, ((long long)m * n + 255) / 256);
-  if (gelu && ldc == n)
-    reduce_tc_kernel<true><<<blocks, 256, 0, stream>>>(part, bias, c, m, n,
+  if (ldc == n)
+    reduce_tc_kernel<kAct><<<blocks, 256, 0, stream>>>(part, bias, c, m, n,
                                                        ldc, split);
-  else if (gelu)
-    reduce_tc_kernel<true, true><<<blocks, 256, 0, stream>>>(
-        part, bias, c, m, n, ldc, split);
-  else if (ldc == n)
-    reduce_tc_kernel<false><<<blocks, 256, 0, stream>>>(part, bias, c, m, n,
-                                                        ldc, split);
   else
-    reduce_tc_kernel<false, true><<<blocks, 256, 0, stream>>>(
+    reduce_tc_kernel<kAct, true><<<blocks, 256, 0, stream>>>(
         part, bias, c, m, n, ldc, split);
+}
+
+cudaError_t reduce_tc(int act, const float* part, const bf16* bias, bf16* c,
+                      int m, int n, int ldc, int split, cudaStream_t stream) {
+  if (act == kActTanh)
+    reduce_tc_as<kActTanh>(part, bias, c, m, n, ldc, split, stream);
+  else if (act == kActErf)
+    reduce_tc_as<kActErf>(part, bias, c, m, n, ldc, split, stream);
+  else
+    reduce_tc_as<kActNone>(part, bias, c, m, n, ldc, split, stream);
   return cudaGetLastError();
 }
 
@@ -721,7 +733,8 @@ using namespace mint_mlp;
 // contiguous), the activation's lds[3], loaded and tiled as `plan` says
 // (launch_bf16), biases and out contiguous, and scratch a 256-byte aligned
 // buffer of mint_mlp_bf16_scratch(m, h, f, o, plan[0], plan[1], lds[3])
-// bytes (the bf16 activation, then f32 split partial sums).
+// bytes (the bf16 activation, then f32 split partial sums); plan[6] is
+// fc1's GELU, 0 tanh (FACT's), 1 erf (EDGE's).
 extern "C" long long mint_mlp_f32_scratch(int m, int h, int f, int o) {
   Plan p;
   if (m <= 0 || f <= 0 || o <= 0 || plan_f32(m, h, f, o, &p) != cudaSuccess)

@@ -281,7 +281,7 @@ cudaError_t gemm_tc_phases(const Operand& a, const Operand& w,
       split);
   err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return err;
-  return reduce_tc(false, part, bias, c, m, n, ldc, split, stream);
+  return reduce_tc(kActNone, part, bias, c, m, n, ldc, split, stream);
 }
 
 }  // namespace

@@ -155,7 +155,7 @@ __device__ __forceinline__ void move_raw(uint8_t* tile, const uint8_t* raw,
 // frees the raw slot.  The epilogue stores a pair of columns where it is
 // 4-byte aligned and both exist (odd n or ldc break that on every other
 // row), else one column at a time.
-template <int BN, bool kGelu>
+template <int BN, int kAct>
 __global__ void __launch_bounds__(kTcAnyThreads, 1)
     gemm_tc_any_kernel(const __grid_constant__ CUtensorMap amap,
                        const __grid_constant__ CUtensorMap bmap,
@@ -291,10 +291,8 @@ __global__ void __launch_bounds__(kTcAnyThreads, 1)
         }
         continue;
       }
-      if (kGelu) {
-        v0 = gelu_tanh(v0);
-        v1 = gelu_tanh(v1);
-      }
+      v0 = activate<kAct>(v0);
+      v1 = activate<kAct>(v1);
       __nv_bfloat16* dst = c + (size_t)row * ldc + col;
       if (two && (row & ldc & 1) == 0) {
         *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
@@ -409,7 +407,7 @@ __device__ __forceinline__ void shift_frags(uint32_t (&x)[N][4],
   mint::keep(x);
 }
 
-template <int BN, bool kSplit>
+template <int BN, bool kSplit, int kAct = kActTanh>
 __global__ void __launch_bounds__(kTcThreads, 1)
     gemm_tc_pairs_kernel(const __grid_constant__ CUtensorMap a_even,
                          const __grid_constant__ CUtensorMap a_odd,
@@ -600,10 +598,11 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         }
         continue;
       }
-      const float v0 = gelu_tanh(ev + __bfloat162float(bias[col]));
+      const float v0 = activate<kAct>(ev + __bfloat162float(bias[col]));
       __nv_bfloat16* dst = c + (size_t)mr * ldc + col;
       if (col + 1 < n) {
-        const float v1 = gelu_tanh(od + __bfloat162float(bias[col + 1]));
+        const float v1 =
+            activate<kAct>(od + __bfloat162float(bias[col + 1]));
         *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
       } else {
         dst[0] = __float2bfloat16_rn(v0);
@@ -629,8 +628,9 @@ bool pairs_map(CUtensorMap* map, const __nv_bfloat16* p, int rows, int cols,
 }
 
 // fc1 c [m, n] = gelu(a [m, k] b [n, k]^T + bias) on tma_pairs: a and b
-// with rows ld apart, ld 4 past a multiple of 8, bases on 16-byte steps.
-template <int BN>
+// with rows ld apart, ld 4 past a multiple of 8, bases on 16-byte steps;
+// the GELU kAct's (split sums take the one instance that writes them raw).
+template <int BN, int kAct>
 cudaError_t gemm_tc_pairs(const Operand& a, const Operand& b,
                           const __nv_bfloat16* bias, __nv_bfloat16* c,
                           int ldc, float* part, int m, int n, int k,
@@ -643,13 +643,13 @@ cudaError_t gemm_tc_pairs(const Operand& a, const Operand& b,
     return cudaErrorInvalidValue;
   constexpr size_t smem = Pairs<BN>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      split == 1 ? gemm_tc_pairs_kernel<BN, false>
+      split == 1 ? gemm_tc_pairs_kernel<BN, false, kAct>
                  : gemm_tc_pairs_kernel<BN, true>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + BN - 1) / BN, (m + kTcBM - 1) / kTcBM, split);
   if (split == 1) {
-    gemm_tc_pairs_kernel<BN, false><<<grid, kTcThreads, smem, stream>>>(
+    gemm_tc_pairs_kernel<BN, false, kAct><<<grid, kTcThreads, smem, stream>>>(
         ae, ao, be, bo, bias, c, part, m, n, k, ldc, split);
     return cudaGetLastError();
   }
@@ -657,12 +657,12 @@ cudaError_t gemm_tc_pairs(const Operand& a, const Operand& b,
       ae, ao, be, bo, bias, c, part, m, n, k, ldc, split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return reduce_tc(true, part, bias, c, m, n, ldc, split, stream);
+  return reduce_tc(kAct, part, bias, c, m, n, ldc, split, stream);
 }
 
 // The same on gemm_tc_any_kernel: a and b by their routes, c's rows ldc
 // apart.
-template <int BN, bool kGelu>
+template <int BN, int kAct>
 cudaError_t gemm_tc_any(const Operand& a, const Operand& b,
                         const __nv_bfloat16* bias, __nv_bfloat16* c, int ldc,
                         float* part, int m, int n, int k, int split,
@@ -674,44 +674,55 @@ cudaError_t gemm_tc_any(const Operand& a, const Operand& b,
   const size_t smem =
       tc_any_smem<BN>(a.load != kTma || b.load != kTma);
   cudaError_t err = cudaFuncSetAttribute(
-      gemm_tc_any_kernel<BN, kGelu>,
+      gemm_tc_any_kernel<BN, kAct>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + BN - 1) / BN, (m + kTcBM - 1) / kTcBM, split);
-  gemm_tc_any_kernel<BN, kGelu><<<grid, kTcAnyThreads, smem, stream>>>(
+  gemm_tc_any_kernel<BN, kAct><<<grid, kTcAnyThreads, smem, stream>>>(
       amap, bmap, a, b, bias, c, part, m, n, k, ldc, split);
   err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return err;
-  return reduce_tc(kGelu, part, bias, c, m, n, ldc, split, stream);
+  return reduce_tc(kAct, part, bias, c, m, n, ldc, split, stream);
 }
 
 }  // namespace
 
-cudaError_t tc_any_pass(bool gelu, int bn, const Operand& a, const Operand& b,
+cudaError_t tc_any_pass(int act, int bn, const Operand& a, const Operand& b,
                         const bf16* bias, bf16* c, int ldc, float* part,
                         int m, int n, int k, int split, cudaStream_t stream) {
-  if (gelu && bn == kTcBN1)
-    return gemm_tc_any<kTcBN1, true>(a, b, bias, c, ldc, part, m, n, k, split,
-                                     stream);
-  if (gelu && bn == 200)
-    return gemm_tc_any<200, true>(a, b, bias, c, ldc, part, m, n, k, split,
-                                  stream);
-  if (!gelu && bn == kTcBN2)
-    return gemm_tc_any<kTcBN2, false>(a, b, bias, c, ldc, part, m, n, k,
+  if (act == kActTanh && bn == kTcBN1)
+    return gemm_tc_any<kTcBN1, kActTanh>(a, b, bias, c, ldc, part, m, n, k,
+                                         split, stream);
+  if (act == kActTanh && bn == 200)
+    return gemm_tc_any<200, kActTanh>(a, b, bias, c, ldc, part, m, n, k,
                                       split, stream);
-  if (!gelu && bn == 208)
-    return gemm_tc_any<208, false>(a, b, bias, c, ldc, part, m, n, k, split,
-                                   stream);
+  if (act == kActErf && bn == kTcBN1)
+    return gemm_tc_any<kTcBN1, kActErf>(a, b, bias, c, ldc, part, m, n, k,
+                                        split, stream);
+  if (act == kActErf && bn == 200)
+    return gemm_tc_any<200, kActErf>(a, b, bias, c, ldc, part, m, n, k, split,
+                                     stream);
+  if (act == kActNone && bn == kTcBN2)
+    return gemm_tc_any<kTcBN2, kActNone>(a, b, bias, c, ldc, part, m, n, k,
+                                         split, stream);
+  if (act == kActNone && bn == 208)
+    return gemm_tc_any<208, kActNone>(a, b, bias, c, ldc, part, m, n, k,
+                                      split, stream);
   return cudaErrorInvalidValue;
 }
 
-cudaError_t tc_pairs_pass(int bn, const Operand& a, const Operand& b,
+cudaError_t tc_pairs_pass(int act, int bn, const Operand& a, const Operand& b,
                           const bf16* bias, bf16* c, int ldc, float* part,
                           int m, int n, int k, int split,
                           cudaStream_t stream) {
-  return bn == kTcBN1 ? gemm_tc_pairs<kTcBN1>(a, b, bias, c, ldc, part, m, n,
-                                              k, split, stream)
-                      : cudaErrorInvalidValue;
+  if (bn != kTcBN1) return cudaErrorInvalidValue;
+  if (act == kActTanh)
+    return gemm_tc_pairs<kTcBN1, kActTanh>(a, b, bias, c, ldc, part, m, n, k,
+                                           split, stream);
+  if (act == kActErf)
+    return gemm_tc_pairs<kTcBN1, kActErf>(a, b, bias, c, ldc, part, m, n, k,
+                                          split, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace mint_mlp

@@ -2,8 +2,8 @@
 // flagship's bf16 kernel, the plan and the C entry), mlp_routes.cu (the
 // bf16 kernels of the other layouts) and mlp_phases.cu (fc2 over W2^T's
 // row phases), each a source of its own so that they compile at once: the
-// tiles, the operand routes, the tanh-GELU, and what each source defines
-// for the others.
+// tiles, the operand routes, fc1's activations, and what each source
+// defines for the others.
 #pragma once
 
 #include <stdint.h>
@@ -16,6 +16,23 @@ __device__ __forceinline__ float gelu_tanh(float v) {
   // jax.nn.gelu(approximate=True): 0.5 v (1 + tanh(sqrt(2/pi) (v + 0.044715 v^3)))
   const float k = 0.7978845608028654f;
   return 0.5f * v * (1.f + tanhf(k * (v + 0.044715f * v * v * v)));
+}
+
+__device__ __forceinline__ float gelu_erf(float v) {
+  // torch.nn.functional.gelu(approximate="none"): 0.5 v (1 + erf(v / sqrt 2))
+  return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
+}
+
+// fc1's epilogue activation, a template argument of every bf16 kernel that
+// applies one: none (fc2), tanh-GELU (FACT) or erf-GELU (EDGE).  The C
+// entry takes tanh or erf as plan[6] (ops/mlp.py's ACTIVATIONS: 0, 1).
+enum Act { kActNone = 0, kActTanh = 1, kActErf = 2 };
+
+template <int kAct>
+__device__ __forceinline__ float activate(float v) {
+  if constexpr (kAct == kActTanh) return gelu_tanh(v);
+  else if constexpr (kAct == kActErf) return gelu_erf(v);
+  else return v;
 }
 
 constexpr int kMaxSplit = 8;
@@ -60,20 +77,22 @@ using bf16 = __nv_bfloat16;
 // mlp.cu: the TMA map of a row-major [rows, cols] bf16 matrix whose rows
 // are ld elements apart, boxes of 64 columns (128 bytes, swizzled) x
 // box_rows rows, zeros past cols and rows; and the split sums of `part`
-// added in order, then the bias (and GELU), into c [m, n], rows ldc apart.
+// added in order, then the bias (and the activation `act`), into c [m, n],
+// rows ldc apart.
 bool tc_map(CUtensorMap* map, const void* p, int rows, int cols, long long ld,
             int box_rows);
-cudaError_t reduce_tc(bool gelu, const float* part, const bf16* bias, bf16* c,
+cudaError_t reduce_tc(int act, const float* part, const bf16* bias, bf16* c,
                       int m, int n, int ldc, int split, cudaStream_t stream);
 
 // mlp_routes.cu: one pass c [m, n] = epilogue(a b^T + bias) at column tile
-// bn on gemm_tc_any_kernel (any loads; fc1's epilogue when gelu), and fc1
-// on tma_pairs (gemm_tc_pairs_kernel), each split `split` ways into
-// `part`.  cudaErrorInvalidValue for an instance neither has.
-cudaError_t tc_any_pass(bool gelu, int bn, const Operand& a, const Operand& b,
+// bn on gemm_tc_any_kernel (any loads; fc1's epilogue `act` unless it is
+// kActNone), and fc1 on tma_pairs (gemm_tc_pairs_kernel), each split
+// `split` ways into `part`.  cudaErrorInvalidValue for an instance neither
+// has.
+cudaError_t tc_any_pass(int act, int bn, const Operand& a, const Operand& b,
                         const bf16* bias, bf16* c, int ldc, float* part,
                         int m, int n, int k, int split, cudaStream_t stream);
-cudaError_t tc_pairs_pass(int bn, const Operand& a, const Operand& b,
+cudaError_t tc_pairs_pass(int act, int bn, const Operand& a, const Operand& b,
                           const bf16* bias, bf16* c, int ldc, float* part,
                           int m, int n, int k, int split,
                           cudaStream_t stream);

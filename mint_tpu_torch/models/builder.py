@@ -5,11 +5,13 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from mint_tpu_torch.config.schema import (FACTModelConfig,
+from mint_tpu_torch.config.schema import (EDGEModelConfig, FACTModelConfig,
                                           MultiModalModelConfig)
+from mint_tpu_torch.models.edge import EDGE
 from mint_tpu_torch.models.fact import FACT
 from mint_tpu_torch.models.modalities import build_modalities_model
 from mint_tpu_torch.ops import attention as attention_op
+from mint_tpu_torch.ops import film as film_op
 from mint_tpu_torch.ops import mlp as mlp_op
 from mint_tpu_torch.utils.device import resolve
 
@@ -20,9 +22,41 @@ def _build_fact_model(model_config: MultiModalModelConfig,
     return FACT(model_config.fact_model, **kwargs)
 
 
+def _build_edge_model(model_config: MultiModalModelConfig,
+                      is_training: bool, compute_dtype=None, mesh=None,
+                      ln_affine_folded: bool = False) -> EDGE:
+    """EDGE generates only: its training loss needs the SMPL skeleton's
+    forward kinematics, whose joint offsets are not in the repository;
+    nor does it take a per-call compute dtype, a model axis or folded
+    LayerNorms."""
+    if is_training:
+        raise ValueError("edge_model: generation only (EDGE's training "
+                         "loss needs the SMPL skeleton, not in the "
+                         "repository)")
+    if compute_dtype is not None or ln_affine_folded or (
+            mesh is not None and mesh.model > 1):
+        raise ValueError("edge_model: no compute_dtype, model axis or "
+                         "folded LayerNorms (cast with dtype=)")
+    return EDGE(model_config.edge_model)
+
+
 MODEL_BUILDER_MAP = {
     "fact_model": _build_fact_model,
+    "edge_model": _build_edge_model,
 }
+
+
+def require_fact(model_config: MultiModalModelConfig, what: str) -> None:
+    """Raise ValueError where `what` (the server, the evaluator) is handed
+    a config whose model is not FACT: they decode autoregressively, a
+    frame a step, and EDGE samples by diffusion
+    (``EDGEFamily.predict``)."""
+    which = model_config.which()
+    if which != "fact_model":
+        raise ValueError(f"{what} runs FACT (fact_model) only; this "
+                         f"config's model is {which}: EDGE generates "
+                         "through models.multi_modal.EDGEFamily.predict "
+                         "(infer/diffusion.py)")
 
 
 def check_kernel_limits(config: FACTModelConfig,
@@ -48,6 +82,37 @@ def check_kernel_limits(config: FACTModelConfig,
             raise ValueError(f"{field}: head dim {hidden // heads} "
                              f"(hidden_size {hidden} / {heads} heads) over "
                              f"the {widest} the attention kernels take")
+    broken = attention_op.limit_broken(dtype) or mlp_op.limit_broken(dtype)
+    if broken:
+        raise ValueError(f"kernel limit: {broken}")
+
+
+def check_edge_limits(config: EDGEModelConfig, dtype: torch.dtype) -> None:
+    """Raise ValueError, naming the field, where the EDGE model `config`
+    builds could not run its kernels in `dtype`: EDGE runs bf16 on the
+    card (the FiLM, rotary and erf-GELU kernels are bf16 alone); its heads
+    must divide an even latent width, each no wider than the attention
+    kernels take; the rotation keeps a row in registers (``ops.film``:
+    even widths up to ROTARY_MAX_COLS)."""
+    if dtype != torch.bfloat16:
+        raise ValueError(f"edge_model: {dtype} on the card; its FiLM, "
+                         "rotary and erf-GELU kernels are bf16 "
+                         "(dtype=torch.bfloat16)")
+    e, heads = config.latent_dim, config.num_heads
+    if e <= 0 or heads <= 0 or e % heads or e % 2:
+        raise ValueError(f"edge_model: latent_dim {e} is not an even "
+                         f"multiple of num_heads {heads}")
+    if e // heads > attention_op.HEAD_DIM_CEILING:
+        raise ValueError(f"edge_model: head dim {e // heads} over the "
+                         f"{attention_op.HEAD_DIM_CEILING} the attention "
+                         "kernels take")
+    if e > film_op.ROTARY_MAX_COLS:
+        raise ValueError(f"edge_model: latent_dim {e} over the "
+                         f"{film_op.ROTARY_MAX_COLS} the rotary kernel "
+                         "holds")
+    if config.seq_len % 2:
+        raise ValueError(f"edge_model: seq_len {config.seq_len} is odd "
+                         "(chunks overlap by half)")
     broken = attention_op.limit_broken(dtype) or mlp_op.limit_broken(dtype)
     if broken:
         raise ValueError(f"kernel limit: {broken}")
@@ -124,6 +189,8 @@ def build(model_config: MultiModalModelConfig, is_training: bool,
                                 compute_dtype or dtype, parts)
         else:
             check_split(model_config.fact_model, parts)
+    elif model_config.which() == "edge_model" and device.type == "cuda":
+        check_edge_limits(model_config.edge_model, compute_dtype or dtype)
     device = resolve(device, "builder.build")
     build_func = MODEL_BUILDER_MAP[model_config.which()]
     model = build_func(model_config, is_training,

@@ -1,6 +1,7 @@
 """Model-family contract bound for FACT (counterpart of
-``mint_tpu/models/multi_modal.py``).  In PyTorch the params live in the
-module, so the methods take no params argument."""
+``mint_tpu/models/multi_modal.py``) and for EDGE (the port's own).  In
+PyTorch the params live in the module, so the methods take no params
+argument."""
 
 from __future__ import annotations
 
@@ -51,5 +52,67 @@ class FACTFamily(MultiModalModelFamily):
 
     def get_metrics(self, eval_config) -> List[Any]:
         # Reference FACT returns [] — metrics are computed offline.
+        del eval_config
+        return []
+
+
+class EDGEFamily(MultiModalModelFamily):
+    """EDGE bound to the family contract: its forward is the denoiser's
+    and its generation the long-form DDIM sampler
+    (``infer/diffusion.py``).  Generation only: the loss (EDGE's adds
+    forward-kinematics joint and foot-contact terms through the SMPL
+    skeleton, not in the repository) raises."""
+
+    def __init__(self, model):
+        self.model = model
+
+    @torch.inference_mode()
+    def call(self, inputs):
+        """Both branches' x0 [2 chunks, seq, nfeats] (the conditional
+        first) of chunks ``x`` [chunks, seq, nfeats] with music features
+        ``cond`` [chunks, seq, F] at one timestep ``times`` [1]: the
+        sampler's denoiser (``EDGE.music_memory``, then ``EDGE.denoise``)."""
+        from mint_tpu_torch.models.edge import DispatchMemory
+
+        model, x = self.model, inputs["x"]
+        memory = DispatchMemory(model, x.shape[0], model.dtype, model.device)
+        model.music_memory(inputs["cond"].to(model.dtype), memory)
+        return model.denoise(x, inputs["times"], memory)
+
+    def loss(self, target, pred):
+        raise NotImplementedError(
+            "EDGE's loss needs the SMPL skeleton's forward kinematics, "
+            "which is not in the repository: generation only")
+
+    def predict(self, inputs, steps: int | None = None):
+        """Each song's frames: ``cond`` [total chunks, seq, F] (the
+        songs' chunks, ``infer.diffusion.chunk_music``), ``chunks`` each
+        song's count; ``x_T`` and ``noise`` (every step's z) where given,
+        else drawn from ``generator`` (or torch's default); ``record`` /
+        ``record_out`` as :func:`infer.diffusion.sample` takes them.
+        `steps`, where given, must be the config's sampling steps."""
+        from mint_tpu_torch.infer import diffusion
+
+        model = self.model
+        cfg = model.config
+        if steps is not None and steps != cfg.sampling_steps:
+            raise ValueError(f"EDGE samples {cfg.sampling_steps} steps "
+                             f"(its config); asked for {steps}")
+        cond = inputs["cond"]
+        chunks = list(inputs.get("chunks", [cond.shape[0]]))
+        shape = (cond.shape[0], model.seq_len, model.nfeats)
+        gen = inputs.get("generator")
+        x_t = inputs.get("x_T")
+        if x_t is None:
+            x_t = torch.randn(shape, generator=gen, device=model.device)
+        noise = inputs.get("noise")
+        if noise is None:
+            noise = torch.randn((cfg.sampling_steps - 1,) + shape,
+                                generator=gen, device=model.device)
+        return diffusion.sample(model, cond, chunks, x_t, noise,
+                                inputs.get("record", ()),
+                                inputs.get("record_out"))
+
+    def get_metrics(self, eval_config) -> List[Any]:
         del eval_config
         return []

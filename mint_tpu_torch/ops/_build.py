@@ -52,13 +52,21 @@ _SIGNATURES = {
     # x, w1, b1, w2, b2, scratch, out, m, h, f, o, stream
     "mint_mlp_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # the same with the row strides of x, w1, w2 and the activation and the
-    # plan (column tiles and loads, ops.mlp.bf16_plan) after out
+    # plan (column tiles and loads, ops.mlp.bf16_plan, and fc1's GELU) after
+    # out
     "mint_mlp_bf16": [_P, _P, _P, _P, _P, _P, _P, _S, _R, _I, _I, _I, _I,
                       _P],
     # x, gamma, beta (both null: no affine), out, rows, cols, eps, stream
     "mint_layer_norm_bf16": [_P, _P, _P, _P, _I, _I, _F, _P],
     # slots (int64 on the card), phase, stream
     "mint_trace_stamp": [_P, _I, _P],
+    # h, a, gamma|beta rows, out, rows, cols, seq, gamma|beta's row stride,
+    # stream (ops/film.py)
+    "mint_film_residual_bf16": [_P, _P, _P, _P, _L, _I, _I, _L, _P],
+    # x, gamma, beta (both null: no LayerNorm), the (cos, sin) table, the
+    # normed rows (null: not written), the rotated rows, rows, cols, seq,
+    # first position, eps, stream
+    "mint_film_rotary_bf16": [_P] * 6 + [_I, _I, _I, _I, _F, _P],
 }
 
 

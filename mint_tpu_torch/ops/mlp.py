@@ -1,5 +1,4 @@
-"""Fused transformer MLP (fc1 + tanh-GELU + fc2): CUDA kernel and plain
-version.
+"""Fused transformer MLP (fc1 + GELU + fc2): CUDA kernel and plain version.
 
 Counterpart of ``mint_tpu/ops/mlp.py``.  :func:`fused_mlp` is the port of
 the Pallas kernel ``_fused_mlp_fwd_2d`` (its source is
@@ -11,6 +10,13 @@ copy, while a contiguous JAX-layout tensor is copied once per call.  The
 bf16 kernel reads x and the weights where they lie at any widths and any
 element-aligned base (:func:`bf16_plan` says how); the f32 kernel takes
 contiguous copies.
+
+GELU is FACT's tanh form unless the caller asks for ``activation="erf"``
+(EDGE's ``F.gelu``): the bf16 kernel then applies erf-GELU in the same
+epilogue (the C entry's ``plan[6]``; the tanh path is the same code as
+before, the same bits).  The f32 kernel's epilogue is tanh alone, so an
+f32 erf call on the card is refused, never run as tanh (EDGE, the one
+erf model, runs bf16 on the card).
 
 Gradients: where one is wanted, the kernel's launch runs inside
 :class:`MLPFunction`, whose backward is the VJP of :func:`mlp_formula`
@@ -32,27 +38,41 @@ from mint_tpu_torch.ops import _build
 # Kernel launches made by :func:`fused_mlp` (the CUDA path only).
 launches = 0
 
+#: fc1's GELU by name, in the order of the bf16 C entry's code (plan[6]).
+ACTIVATIONS = ("tanh", "erf")
+
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """Tanh-approximated GELU (``jax.nn.gelu(approximate=True)``)."""
     return F.gelu(x, approximate="tanh")
 
 
-def mlp_reference(x, w1, b1, w2, b2) -> torch.Tensor:
-    """gelu_tanh(x W1 + b1) W2 + b2 with the TPU kernel's cast points
-    (``mint_tpu/ops/mlp.py:45-49``): fc1, bias and GELU in f32, the
-    activation rounded to x's dtype, fc2 and b2 in f32, cast to x's dtype.
+def gelu_erf(x: torch.Tensor) -> torch.Tensor:
+    """Exact GELU, ``0.5 x (1 + erf(x / sqrt 2))`` (EDGE's ``F.gelu``)."""
+    return F.gelu(x)
+
+
+GELU = {"tanh": gelu_tanh, "erf": gelu_erf}
+
+
+def mlp_reference(x, w1, b1, w2, b2, activation: str = "tanh"
+                  ) -> torch.Tensor:
+    """gelu(x W1 + b1) W2 + b2 with the TPU kernel's cast points
+    (``mint_tpu/ops/mlp.py:45-49``): fc1, bias and GELU (`activation`'s)
+    in f32, the activation rounded to x's dtype, fc2 and b2 in f32, cast
+    to x's dtype.
     """
-    h = gelu_tanh(x.float() @ w1.float() + b1.float()).to(x.dtype)
+    h = GELU[activation](x.float() @ w1.float() + b1.float()).to(x.dtype)
     return (h.float() @ w2.float() + b2.float()).to(x.dtype)
 
 
-def mlp_formula(x, w1, b1, w2, b2) -> torch.Tensor:
+def mlp_formula(x, w1, b1, w2, b2, activation: str = "tanh"
+                ) -> torch.Tensor:
     """The JAX package's ``_reference_mlp``, the formula its custom VJP
     differentiates: ``gelu_tanh(x W1 + b1) W2 + b2`` in the inputs' dtype
     (on the card a bf16 GEMM accumulates in f32 and rounds its output).
     In f32 it is :func:`mlp_reference` up to summation order."""
-    return gelu_tanh(x @ w1 + b1) @ w2 + b2
+    return GELU[activation](x @ w1 + b1) @ w2 + b2
 
 
 _ENTRY = {torch.float32: "mint_mlp_f32", torch.bfloat16: "mint_mlp_bf16"}
@@ -68,8 +88,10 @@ def limit_broken(dtype: torch.dtype) -> str | None:
     return None
 
 
-def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
-    """Fused MLP on [..., H] inputs; weights [H, F], [F], [F, O], [O].
+def fused_mlp(x, w1, b1, w2, b2, activation: str = "tanh"
+              ) -> torch.Tensor:
+    """Fused MLP on [..., H] inputs; weights [H, F], [F], [F, O], [O];
+    fc1's GELU `activation` (``ACTIVATIONS``).
 
     ``b2=None`` adds no output bias (the kernel gets zeros): a
     tensor-parallel rank's fc2 is a partial sum, whose bias is added once
@@ -79,16 +101,21 @@ def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
     kernel (or raises), through :class:`MLPFunction` only where autograd
     needs it (grad mode on and an input that requires grad).
     """
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"fused_mlp: activation {activation!r} not in "
+                         f"{ACTIVATIONS}")
     if b2 is None:
         b2 = x.new_zeros(w2.shape[1])
     if x.device.type == "cpu":
-        return mlp_reference(x, w1, b1, w2, b2)
+        return mlp_reference(x, w1, b1, w2, b2, activation)
     lead = x.shape[:-1]
     args = (x.reshape(-1, x.shape[-1]), w1, b1, w2, b2)
+    launch = (_launch if activation == "tanh"
+              else functools.partial(_launch, activation=activation))
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        out = MLPFunction.apply(*args, _launch)
+        out = MLPFunction.apply(*args, launch, activation)
     else:
-        out = _launch(*args)
+        out = launch(*args)
     return out.reshape(*lead, out.shape[-1])
 
 
@@ -103,18 +130,19 @@ class MLPFunction(torch.autograd.Function):
     model's ``.t()`` views of its weights: no copy)."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, forward):
+    def forward(ctx, x, w1, b1, w2, b2, forward, activation="tanh"):
         ctx.save_for_backward(x, w1, b1, w2, b2)
+        ctx.activation = activation
         return forward(x, w1, b1, w2, b2)
 
     @staticmethod
     def backward(ctx, grad_out):
         inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
-            out = mlp_formula(*inputs)
+            out = mlp_formula(*inputs, ctx.activation)
             grads = torch.autograd.grad(out, inputs, grad_out)
         return (*(g if need else None for g, need in
-                  zip(grads, ctx.needs_input_grad)), None)
+                  zip(grads, ctx.needs_input_grad)), None, None)
 
 
 # The bf16 kernel's column tiles (csrc/mlp.cu's instances): fc1's and
@@ -215,7 +243,7 @@ def _operands(x, w1, b1, w2, b2):
         b2.contiguous()
 
 
-def _launch(x, w1, b1, w2, b2):
+def _launch(x, w1, b1, w2, b2, activation="tanh"):
     global launches
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp: unsupported device {x.device}")
@@ -236,6 +264,9 @@ def _launch(x, w1, b1, w2, b2):
             f"b2 {tuple(b2.shape)}")
     if m == 0:
         return x.new_empty((0, o))
+    if x.dtype == torch.float32 and activation != "tanh":
+        raise ValueError(f"fused_mlp: {activation}-GELU is the bf16 "
+                         "kernel's alone (the f32 kernel's epilogue is tanh)")
     out = torch.empty((m, o), dtype=x.dtype, device=x.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -244,8 +275,9 @@ def _launch(x, w1, b1, w2, b2):
         plan = bf16_plan(x, w1t, w2t)
         lds = (ctypes.c_longlong * 4)(*map(_row_stride, (x, w1t, w2t)),
                                       plan.act_ld)
-        codes = (ctypes.c_int * 6)(*plan.tiles,
-                                   *map(LOADS.index, plan.loads))
+        codes = (ctypes.c_int * 7)(*plan.tiles,
+                                   *map(LOADS.index, plan.loads),
+                                   ACTIVATIONS.index(activation))
         extra = (lds, codes)
     else:
         x, w1t, b1 = x.contiguous(), w1.t().contiguous(), b1.contiguous()

@@ -485,6 +485,7 @@ def load_model(args: argparse.Namespace) -> FACT:
     from mint_tpu_torch.train.checkpoint import CheckpointManager
 
     pipeline = load_pipeline_config(args.config_path)
+    builder.require_fact(pipeline.multi_modal_model, "the server")
     model = builder.build(
         pipeline.multi_modal_model, is_training=False,
         dtype=torch.bfloat16 if args.use_bfloat16 else torch.float32,

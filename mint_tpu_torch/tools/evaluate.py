@@ -113,6 +113,7 @@ def evaluate(args: argparse.Namespace) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     pipeline = load_pipeline_config(args.config_path)
+    builder.require_fact(pipeline.multi_modal_model, "the evaluate CLI")
     model = builder.build(
         pipeline.multi_modal_model, is_training=False,
         dtype=torch.bfloat16 if args.use_bfloat16 else torch.float32,

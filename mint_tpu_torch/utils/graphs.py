@@ -53,7 +53,7 @@ from typing import Any, Callable, Hashable
 
 import torch
 
-from mint_tpu_torch.ops import attention, layer_norm, mlp
+from mint_tpu_torch.ops import attention, film, layer_norm, mlp
 
 log = logging.getLogger(__name__)
 
@@ -68,6 +68,8 @@ _count_lock = threading.Lock()
 _COUNTERS = {"attention": (attention, "launches"),
              "attention_backward": (attention, "backward_launches"),
              "fused_mlp": (mlp, "launches"),
+             "film": (film, "launches"),
+             "film_rotary": (film, "rotary_launches"),
              "layer_norm": (layer_norm, "launches"),
              "layer_norm_affine_free": (layer_norm, "affine_free_launches")}
 
@@ -78,6 +80,12 @@ _with_collectives: "weakref.WeakSet[Step]" = weakref.WeakSet()
 def enabled(device: torch.device | str) -> bool:
     """Whether loops on `device` run as graphs: on a CUDA card, always."""
     return torch.device(device).type == "cuda"
+
+
+def register_counter(name: str, module, attr: str) -> None:
+    """Carry `module.attr`, a count that code inside a step adds to,
+    through captures and replays as the kernels' launch counts are."""
+    _COUNTERS[name] = (module, attr)
 
 
 def _launches() -> dict:
